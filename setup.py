@@ -10,7 +10,9 @@ setup(
                  "transfer: CycleGAN training, tiled VALID-conv inference, "
                  "streaming EM data pipelines, serving shims"),
     packages=find_packages(exclude=("tests",)),
-    package_data={"transfer_em_tpu.native": ["*.cpp"]},
+    package_data={"transfer_em_tpu.native": ["*.cpp"],
+                  "transfer_em_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  "transfer_em_tpu_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     extras_require={

@@ -1,0 +1,94 @@
+"""The port stands alone: no JAX import, no silent CPU fallback.
+
+In this environment every process may import jax at start-up, so a
+``sys.modules`` check would prove nothing: the imports are read from the
+source with ``ast`` instead.
+"""
+
+import ast
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transfer_em_tpu")
+
+
+def _port_sources():
+    files = sorted(glob.glob(os.path.join(ROOT, "transfer_em_tpu_torch",
+                                          "**", "*.py"), recursive=True))
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_sources_found():
+    files = _port_sources()
+    assert len(files) > 15 and all(os.path.exists(f) for f in files)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def _entry_points(tmp_path):
+    from transfer_em_tpu_torch.infer import (load_generator,
+                                             make_tile_batcher,
+                                             make_tile_step, predict_tiled)
+    from transfer_em_tpu_torch.models import UNetGenerator
+    from transfer_em_tpu_torch.serve import ModelService
+
+    gen = UNetGenerator(wf=32)
+    fetch = lambda c, s: np.zeros((s,) * 3, np.uint8)
+    return {
+        "ModelService": lambda: ModelService(model_root=str(tmp_path)),
+        "load_generator": lambda: load_generator(str(tmp_path)),
+        "predict_tiled": lambda: predict_tiled(
+            fetch, gen, (0, 0, 0), (36, 36, 36), 40, 17, None, None),
+        "make_tile_batcher": lambda: make_tile_batcher(
+            gen, None, None, 40, 17),
+        "make_tile_step": lambda: make_tile_step(gen, None, None, 2),
+    }
+
+
+@pytest.mark.parametrize("name", ["ModelService", "load_generator",
+                                  "predict_tiled", "make_tile_batcher",
+                                  "make_tile_step"])
+def test_entry_points_default_to_cuda(name, tmp_path):
+    """Called without ``device`` where CUDA is absent, every entry point
+    raises instead of running on the CPU."""
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        _entry_points(tmp_path)[name]()
+
+
+def test_mesh_is_a_later_slice(tmp_path):
+    from transfer_em_tpu_torch.infer import predict_tiled
+    from transfer_em_tpu_torch.serve import ModelService
+
+    with pytest.raises(NotImplementedError, match="parallel"):
+        ModelService(model_root=str(tmp_path), device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="parallel"):
+        predict_tiled(None, None, (0, 0, 0), (36, 36, 36), 40, 17, None,
+                      None, device="cpu", mesh=object())

@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of transfer_em_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``transfer_em_tpu`` stays the reference; this package keeps
+its module names so each counterpart is easy to find, and imports nothing of
+it.  Every Pallas kernel on the ported path is a hand-written CUDA kernel
+under ``csrc/`` (built with nvcc for sm_90a at first use, ``kernels/``);
+each wrapper runs its plain PyTorch version only for tensors on the CPU.
+
+Entry points (``load_generator``, ``predict_tiled``, ``make_tile_batcher``,
+``ModelService``) run on ``cuda`` unless the caller passes ``device="cpu"``,
+and raise when CUDA is asked for but absent.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,143 @@
+// Elementwise kernels of the tile step: the Hopper counterparts of the three
+// Pallas kernels in transfer_em_tpu/ops/pallas_kernels.py.
+//
+//  * tem_preprocess_u8  replaces preprocess_u8 (pallas_kernels.py:60-85,
+//    kernel _affine_u8_to_f32_kernel :53-57): uint8 -> f32 a*x + b.
+//  * tem_postprocess_u8 replaces postprocess_u8 (pallas_kernels.py:97-124,
+//    kernel _affine_f32_to_u8_kernel :88-94), but computes the MAIN path's
+//    order of operations (ops/normalize.py:94-102): y*std + mean, + 1,
+//    * 127.5, round half to even, clip [0, 255].  The Pallas kernel's folded
+//    a*y + b can move a voxel by one level at a tie.  It reads the tpad-trimmed
+//    window straight out of the untrimmed (B, D, H, W, 1) model output
+//    (strided read, no copy of the trimmed view).
+//  * tem_leaky_relu     replaces leaky_relu_kernel_call (pallas_kernels.py:
+//    127-151): where(v >= 0, v, v * slope), f32 and bf16.
+//
+// Bound on the H100: all three are pure streams, bound by device-memory bytes
+// (1 B in + 4 B out per voxel for pre, 4 B in + 1 B out for post, 2x the
+// element size for LeakyReLU) at 3.35 TB/s.  The design reads and writes each
+// element exactly once, with neighbouring threads on neighbouring addresses
+// (4 voxels per thread with 4-byte/16-byte vector accesses in preprocess).
+// Arithmetic uses the non-contracting __fmul_rn/__fadd_rn intrinsics so the
+// results are bit-identical to the plain PyTorch versions, which round after
+// every operation.
+#include "common.cuh"
+
+namespace tem {
+
+__global__ void preprocess_u8_vec4(const uchar4* __restrict__ x,
+                                   float4* __restrict__ y, long long n4,
+                                   float a, float b) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    const uchar4 v = x[i];
+    float4 o;
+    o.x = __fadd_rn(__fmul_rn(static_cast<float>(v.x), a), b);
+    o.y = __fadd_rn(__fmul_rn(static_cast<float>(v.y), a), b);
+    o.z = __fadd_rn(__fmul_rn(static_cast<float>(v.z), a), b);
+    o.w = __fadd_rn(__fmul_rn(static_cast<float>(v.w), a), b);
+    y[i] = o;
+  }
+}
+
+__global__ void preprocess_u8_scalar(const uint8_t* __restrict__ x,
+                                     float* __restrict__ y, long long n,
+                                     float a, float b) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    y[i] = __fadd_rn(__fmul_rn(static_cast<float>(x[i]), a), b);
+  }
+}
+
+__global__ void postprocess_u8_kernel(const float* __restrict__ y,
+                                      uint8_t* __restrict__ out, int B, int D,
+                                      int H, int W, int tpad, int has_ms,
+                                      float mean, float std) {
+  const int OD = D - 2 * tpad, OH = H - 2 * tpad, OW = W - 2 * tpad;
+  const long long n = (long long)B * OD * OH * OW;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int ow = static_cast<int>(i % OW);
+    long long r = i / OW;
+    const int oh = static_cast<int>(r % OH);
+    r /= OH;
+    const int od = static_cast<int>(r % OD);
+    const long long b = r / OD;
+    float v = y[((b * D + od + tpad) * H + oh + tpad) * W + ow + tpad];
+    if (has_ms) v = __fadd_rn(__fmul_rn(v, std), mean);
+    v = __fmul_rn(__fadd_rn(v, 1.0f), 127.5f);
+    v = rintf(v);  // round half to even (never roundf)
+    v = fminf(fmaxf(v, 0.0f), 255.0f);
+    out[i] = static_cast<uint8_t>(v);
+  }
+}
+
+template <typename T>
+__global__ void leaky_relu_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                  long long n, float slope) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    y[i] = from_f32<T>(leaky(to_f32<T>(x[i]), slope));
+  }
+}
+
+}  // namespace tem
+
+extern "C" {
+
+int tem_preprocess_u8(const void* x, void* y, long long n, float a, float b,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const bool vec = (n % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(x) % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(y) % 16 == 0);
+  if (vec) {
+    tem::preprocess_u8_vec4<<<tem::grid_for(n / 4), 256, 0, s>>>(
+        static_cast<const uchar4*>(x), static_cast<float4*>(y), n / 4, a, b);
+  } else {
+    tem::preprocess_u8_scalar<<<tem::grid_for(n), 256, 0, s>>>(
+        static_cast<const uint8_t*>(x), static_cast<float*>(y), n, a, b);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tem_postprocess_u8(const void* y, void* out, int B, int D, int H, int W,
+                       int tpad, int has_ms, float mean, float std,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)B * (D - 2 * tpad) * (H - 2 * tpad) *
+                      (W - 2 * tpad);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  tem::postprocess_u8_kernel<<<tem::grid_for(n), 256, 0, s>>>(
+      static_cast<const float*>(y), static_cast<uint8_t*>(out), B, D, H, W,
+      tpad, has_ms, mean, std);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tem_leaky_relu(const void* x, void* y, int dtype, long long n, float slope,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (dtype == tem::kF32) {
+    tem::leaky_relu_kernel<float><<<tem::grid_for(n), 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), n, slope);
+  } else if (dtype == tem::kBF16) {
+    tem::leaky_relu_kernel<__nv_bfloat16><<<tem::grid_for(n), 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y),
+        n, slope);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* tem_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,32 @@
+"""Device selection shared by every entry point of the port."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """Return ``torch.device(device)``; raise if CUDA is asked for but absent.
+
+    The port never carries on quietly on the CPU: the CPU runs only when the
+    caller names it (``device="cpu"``, as the tests do)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} asked for (the default), but "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the plain PyTorch versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    return dev
+
+
+def reject_mesh(mesh=None, sharding=None) -> None:
+    """This slice is single-GPU: data-parallel fan-out is a later slice."""
+    if mesh is not None or sharding is not None:
+        raise NotImplementedError(
+            "mesh=/sharding= (multi-GPU fan-out) belongs to the 'parallel' "
+            "slice of the port; this slice serves on one GPU")

@@ -1,0 +1,93 @@
+"""Generator export / load: ``generator.npz`` + ``meta.json``.
+
+Counterpart of ``transfer_em_tpu/infer/export.py`` (reference utils.py:
+133-167 exports generator G plus a meta.json with buffer / outdimsize /
+meanstd_x / meanstd_y).  The port writes ``generator.npz``: flat keys in the
+flax path (``stem/kernel``, ``down1/conv/kernel`` ...), kernels in the JAX
+layout, so a machine with numpy alone can read it.  It also reads the JAX
+package's ``generator.msgpack`` when ``msgpack`` is importable (flax stores
+each ndarray as msgpack ext type 1 holding ``(shape, dtype name, bytes)``).
+A reference TF SavedModel waits for the TF-interop slice.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ExportMeta
+from ..device import resolve_device
+from ..models.convert import params_from_jax
+from ..models.generator import DTypeLike, UNetGenerator
+
+PARAMS_FILE = "generator.npz"
+MSGPACK_FILE = "generator.msgpack"
+META_FILE = "meta.json"
+
+
+def export_generator(gen: torch.nn.Module, meta: ExportMeta,
+                     out_dir: str) -> None:
+    """Write the generator's weights (generator.npz) and meta.json."""
+    os.makedirs(out_dir, exist_ok=True)
+    arrays = {name.replace(".", "/"):
+              t.detach().to("cpu", torch.float32).numpy()
+              for name, t in gen.state_dict().items()}
+    np.savez(os.path.join(out_dir, PARAMS_FILE), **arrays)
+    with open(os.path.join(out_dir, META_FILE), "w") as f:
+        f.write(meta.to_json())
+
+
+def _ndarray_from_ext(code: int, data: bytes):
+    import msgpack
+    if code != 1:  # flax _MsgpackExtType.ndarray
+        return msgpack.ExtType(code, data)
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    name = dtype_name.decode() if isinstance(dtype_name, bytes) else dtype_name
+    if name == "bfloat16":
+        raise ValueError("bfloat16 leaves in generator.msgpack are not "
+                         "supported; export float32 params")
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def read_flax_msgpack(path: str) -> Dict:
+    """The flax param tree stored by ``flax.serialization.to_bytes``."""
+    import msgpack
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=_ndarray_from_ext,
+                               raw=False)
+
+
+def _read_params(model_dir: str) -> Dict[str, torch.Tensor]:
+    npz = os.path.join(model_dir, PARAMS_FILE)
+    if os.path.exists(npz):
+        with np.load(npz) as data:
+            return {k.replace("/", "."): torch.from_numpy(data[k].copy())
+                    for k in data.files}
+    packed = os.path.join(model_dir, MSGPACK_FILE)
+    if os.path.exists(packed):
+        return params_from_jax(read_flax_msgpack(packed))
+    if os.path.exists(os.path.join(model_dir, "saved_model.pb")):
+        raise NotImplementedError(
+            "reference TF SavedModel exports are read by the TF-interop "
+            "slice of the port; convert with the JAX package first")
+    raise FileNotFoundError(f"{model_dir!r} contains neither {PARAMS_FILE} "
+                            f"nor {MSGPACK_FILE}")
+
+
+def load_generator(model_dir: str, device="cuda",
+                   compute_dtype: DTypeLike = None
+                   ) -> Tuple[UNetGenerator, ExportMeta]:
+    """Load an exported generator onto ``device``: returns (gen, meta), gen
+    in eval mode.  Reads this package's npz or the JAX package's msgpack."""
+    dev = resolve_device(device)
+    with open(os.path.join(model_dir, META_FILE)) as f:
+        meta = ExportMeta.from_json(f.read())
+    if not meta.is3d:
+        raise NotImplementedError("2D generators come with a later slice of "
+                                  "the port; this slice serves 3D")
+    gen = UNetGenerator(wf=meta.wf, compute_dtype=compute_dtype)
+    gen.load_state_dict(_read_params(model_dir), strict=True)
+    return gen.to(dev).eval(), meta

@@ -1,0 +1,307 @@
+"""Tiled large-volume inference with VALID-conv overlap stitching.
+
+Counterpart of ``transfer_em_tpu/infer/tiling.py`` (reference
+transfer_em/utils.py:41-130 ``predict_ng_cube``): the same tile plan (output
+tile trimmed to a multiple of 6, 40 -> 36, the trim ``tpad=2`` folded into
+the halo, 17 -> 19; utils.py:70-75), tiles batched uint8 in / uint8 out,
+and a host memcpy scatter (native/).
+
+The fused tile step runs on the GPU: uint8 -> preprocess kernel ->
+UNetGenerator (conv3 + LeakyReLU kernels, cuDNN k4 convs) -> postprocess
+kernel, which reads the tpad-trimmed window in place -> uint8.  Device work
+comes from one thread at a time: every step holds ``_DEVICE_LOCK`` (on the
+batched path only the batcher's worker runs steps, so it is uncontended).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+import math
+import threading
+import time
+from collections import deque
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.sources import _parallel_fetch
+from ..device import reject_mesh, resolve_device
+from ..native import scatter_blocks
+from ..ops.normalize import postprocess_to_u8, preprocess_u8
+from ..shapes import tile_plan_outdimsize
+
+_DEVICE_LOCK = threading.Lock()
+FETCH_THREADS = 8  # tile fetches in flight: 2 * FETCH_THREADS
+
+
+class InferenceCancelled(RuntimeError):
+    """Raised by predict_tiled when its ``should_cancel`` callback fires
+    (client disconnect / request timeout in the serving layer)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Static description of one tiled-inference run."""
+
+    start: Tuple[int, int, int]        # requested xyz start
+    size: Tuple[int, int, int]         # requested xyz size
+    outdimsize: int                    # effective output tile (multiple of 6)
+    buffer: int                        # effective halo (incl. folded tpad)
+    tpad: int                          # extra trim per face on model output
+    corners: Tuple[Tuple[int, int, int], ...]   # fetch corners (xyz, -buffer)
+    indices: Tuple[Tuple[int, int, int], ...]   # output offsets (xyz)
+    padded_size: Tuple[int, int, int]  # zyx padded output-buffer shape
+
+    @property
+    def insize(self) -> int:
+        return self.outdimsize + 2 * self.buffer
+
+    @property
+    def num_tiles(self) -> int:
+        return len(self.corners)
+
+
+def plan_tiles(start: Sequence[int], size: Sequence[int], outdimsize: int,
+               buffer: int) -> TilePlan:
+    """Chunk an xyz request into overlapping tiles (reference utils.py:68-104)."""
+    outdimsize, buffer, tpad = tile_plan_outdimsize(outdimsize, buffer)
+    corners: List[Tuple[int, int, int]] = []
+    indices: List[Tuple[int, int, int]] = []
+    for x in range(start[0], start[0] + size[0], outdimsize):
+        for y in range(start[1], start[1] + size[1], outdimsize):
+            for z in range(start[2], start[2] + size[2], outdimsize):
+                corners.append((x - buffer, y - buffer, z - buffer))
+                indices.append((x - start[0], y - start[1], z - start[2]))
+    padded = []
+    for s in size:
+        extra = (outdimsize - s % outdimsize) % outdimsize
+        padded.append(s + extra)
+    padded_zyx = (padded[2], padded[1], padded[0])
+    return TilePlan(start=tuple(start), size=tuple(size),
+                    outdimsize=outdimsize, buffer=buffer, tpad=tpad,
+                    corners=tuple(corners), indices=tuple(indices),
+                    padded_size=padded_zyx)
+
+
+def _model_device(gen: nn.Module) -> torch.device:
+    return next(gen.parameters()).device
+
+
+def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
+                   device="cuda") -> Callable[[np.ndarray], np.ndarray]:
+    """Fused step: (B, s, s, s) uint8 numpy -> (B, o, o, o) uint8 numpy on
+    ``device`` (where ``gen`` must already live)."""
+    dev = resolve_device(device)
+    if _model_device(gen) != dev:
+        raise ValueError(f"generator lives on {_model_device(gen)}, the "
+                         f"step was asked for {dev}")
+    ms = lambda v: tuple(map(float, v)) if v is not None else None
+    ms_x, ms_y, tpad = ms(meanstd_x), ms(meanstd_y), int(tpad)
+
+    def step(tiles_u8: np.ndarray) -> np.ndarray:
+        arr = np.ascontiguousarray(tiles_u8, np.uint8)
+        with _DEVICE_LOCK, torch.inference_mode():
+            x = torch.from_numpy(arr).to(dev)
+            y = gen(preprocess_u8(x, ms_x))
+            return postprocess_to_u8(y, ms_y, tpad).cpu().numpy()
+
+    return step
+
+
+def scatter_tiles(out_zyx: np.ndarray, tiles_u8: np.ndarray,
+                  indices: Sequence[Tuple[int, int, int]], outdimsize: int):
+    """Write predicted tiles (zyx each) into the zyx output buffer at xyz
+    indices (reference utils.py:121-125), with the native memcpy scatter."""
+    scatter_blocks(out_zyx, tiles_u8, indices, outdimsize)
+
+
+def default_batch_size(gen: nn.Module) -> int:
+    """Width-aware device batch: 128 * 32 / widest conv output, rounded
+    down to a multiple of 8, within [8, 128] (wf=8 -> 128, wf=4 -> 64,
+    wf=1 -> 16), the JAX package's rule (tiling.py:150-172).  Not yet
+    re-derived for the H100."""
+    widest = max((int(p.shape[-1]) for p in gen.parameters()
+                  if p.dim() >= 4), default=0)
+    if widest <= 0:
+        return 128
+    return max(8, min(128, (128 * 32 // widest) // 8 * 8))
+
+
+def _check_batcher(batcher, plan: TilePlan, gen, meanstd_x, meanstd_y,
+                   dev: torch.device) -> None:
+    """Reject a shared batcher built for another plan, normalization, model
+    or device: its baked-in step would serve the wrong voxels silently."""
+    for attr, planned in (("insize", plan.insize),
+                          ("outdimsize", plan.outdimsize),
+                          ("buffer", plan.buffer)):
+        built = getattr(batcher, attr, None)
+        if built is not None and built != planned:
+            raise ValueError(
+                f"batcher was built for {attr}={built}, this request plans "
+                f"{planned} — outdimsize/buffer mismatch")
+    for attr, asked in (("meanstd_x", meanstd_x), ("meanstd_y", meanstd_y)):
+        built = getattr(batcher, attr, None)
+        if built is None or asked is None:
+            continue
+        asked_t = tuple(float(v) for v in asked)
+        if any(not math.isclose(b, a, rel_tol=1e-9, abs_tol=1e-12)
+               for b, a in zip(built, asked_t)):
+            raise ValueError(
+                f"batcher was built for {attr}={built}, this request passes "
+                f"{asked_t}; build a batcher for this model/meanstd")
+    built_model = getattr(batcher, "model", None)
+    if built_model is not None and gen is not None and built_model is not gen:
+        raise ValueError("batcher was built over a different generator than "
+                         "this request's; build a batcher for this model")
+    built_dev = getattr(batcher, "device", None)
+    if built_dev is not None and built_dev != dev:
+        raise ValueError(f"batcher runs on {built_dev}, this request asked "
+                         f"for {dev}")
+
+
+def predict_tiled(
+        fetch_tile: Callable[[Tuple[int, int, int], int], np.ndarray],
+        gen: Optional[nn.Module],
+        start: Sequence[int], size: Sequence[int],
+        outdimsize: int, buffer: int,
+        meanstd_x, meanstd_y,
+        batch_size: int = 8,
+        batcher=None,
+        out: Optional[np.ndarray] = None,
+        should_cancel: Optional[Callable[[], bool]] = None,
+        device="cuda",
+        mesh=None,
+        sharding=None,
+) -> np.ndarray:
+    """Full tiled inference: fetch -> batched fused step -> stitch -> crop.
+
+    Args:
+      fetch_tile: (corner_xyz, insize) -> uint8 zyx cube (the data source).
+      gen: the generator module, on ``device`` (unused for compute when a
+        ``batcher`` is given, which carries its own step).
+      batch_size: tiles per device step.  Batches are zero-padded to
+        ``batch_size``, clamped to the request's tile count rounded up to a
+        multiple of 8 (as in the JAX package), so few batch shapes run.
+      batcher: optional ``infer.batcher.TileBatcher`` shared with other
+        concurrent requests against the same model (bit-identical results).
+      out: optional preallocated zyx uint8 output of ``size``.
+      should_cancel: polled per fetched tile, before each device dispatch,
+        and every 0.2 s while awaiting batcher futures; when it returns True
+        the run raises ``InferenceCancelled``.
+      device: "cuda" (default) or "cpu"; CUDA absent raises.
+      mesh, sharding: multi-GPU fan-out is a later slice (raise).
+    Returns:
+      the zyx uint8 prediction of ``size`` (``out`` if given).
+    """
+    reject_mesh(mesh, sharding)
+    dev = resolve_device(device)
+    plan = plan_tiles(start, size, outdimsize, buffer)
+    # Small requests must not pay full-batch padding: clamp to the tile
+    # count rounded up to a multiple of 8.
+    n_tiles = len(plan.corners)
+    ladder = n_tiles if n_tiles <= 8 else -(-n_tiles // 8) * 8
+    batch_size = max(1, min(batch_size, ladder))
+    if out is not None:
+        want = (size[2], size[1], size[0])  # zyx
+        if tuple(out.shape) != want:
+            raise ValueError(f"out shape {out.shape} != request zyx {want}")
+        if out.dtype != np.uint8 or not out.flags.c_contiguous:
+            raise ValueError("out must be C-contiguous uint8")
+    if batcher is not None:
+        _check_batcher(batcher, plan, gen, meanstd_x, meanstd_y, dev)
+        return _predict_tiled_batched(batcher, fetch_tile, plan, out=out,
+                                      should_cancel=should_cancel)
+    step = make_tile_step(gen, meanstd_x, meanstd_y, plan.tpad, dev)
+
+    user_out = out is not None
+    if out is None:
+        out = np.zeros(plan.padded_size, np.uint8)
+    fetched = _parallel_fetch(iter(plan.corners),
+                              lambda c: fetch_tile(c, plan.insize),
+                              FETCH_THREADS)
+    batch_tiles: List[np.ndarray] = []
+    batch_idx: List[Tuple[int, int, int]] = []
+
+    def flush():
+        if not batch_tiles:
+            return
+        if should_cancel is not None and should_cancel():
+            raise InferenceCancelled("tiled inference cancelled")
+        k = len(batch_tiles)
+        arr = np.zeros((batch_size,) + batch_tiles[0].shape, np.uint8)
+        arr[:k] = batch_tiles
+        scatter_tiles(out, step(arr)[:k], batch_idx, plan.outdimsize)
+        batch_tiles.clear()
+        batch_idx.clear()
+
+    for tile, idx in zip(fetched, plan.indices):
+        if should_cancel is not None and should_cancel():
+            raise InferenceCancelled("tiled inference cancelled")
+        batch_tiles.append(np.asarray(tile, np.uint8))
+        batch_idx.append(idx)
+        if len(batch_tiles) == batch_size:
+            flush()
+    flush()
+
+    sx, sy, sz = size
+    return out if user_out else out[:sz, :sy, :sx]
+
+
+def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
+                           out: Optional[np.ndarray] = None,
+                           should_cancel: Optional[Callable[[], bool]]
+                           = None):
+    """predict_tiled's loop when a shared TileBatcher owns the device:
+    submit tiles as they are fetched, scatter as futures resolve.  In-flight
+    tiles are capped at 4 batches' worth to bound host RAM."""
+    user_out = out is not None
+    if out is None:
+        out = np.zeros(plan.padded_size, np.uint8)
+    pending: deque = deque()
+
+    def drain(n):
+        for _ in range(n):
+            fut, idx = pending.popleft()
+            # Bounded wait (600 s >> any batch); poll should_cancel every
+            # 0.2 s so a hangup or deadline unblocks this thread mid-batch.
+            if should_cancel is None:
+                pred = fut.result(timeout=600)
+            else:
+                t0 = time.monotonic()
+                while True:
+                    try:
+                        pred = fut.result(timeout=0.2)
+                        break
+                    except cf.TimeoutError:
+                        if should_cancel():
+                            raise InferenceCancelled(
+                                "tiled inference cancelled")
+                        if time.monotonic() - t0 > 600:
+                            raise
+            scatter_tiles(out, pred[None], [idx], plan.outdimsize)
+
+    fetched = _parallel_fetch(iter(plan.corners),
+                              lambda c: fetch_tile(c, plan.insize),
+                              FETCH_THREADS)
+    cap = 4 * batcher.max_batch
+    for tile, idx in zip(fetched, plan.indices):
+        if should_cancel is not None and should_cancel():
+            raise InferenceCancelled("tiled inference cancelled")
+        t = np.asarray(tile, np.uint8)
+        try:
+            fut = batcher.submit(t)
+        except RuntimeError:
+            # Batcher closed under us (model eviction or shutdown): run this
+            # tile synchronously on our own thread and keep going.
+            fut = cf.Future()
+            fut.set_result(batcher.run_direct(t))
+        pending.append((fut, idx))
+        if len(pending) > cap:
+            drain(len(pending) - cap)
+    drain(len(pending))
+
+    sx, sy, sz = plan.size
+    return out if user_out else out[:sz, :sy, :sx]

@@ -1,0 +1,88 @@
+"""Fully-VALID-conv 3D U-Net generator (counterpart of
+transfer_em_tpu/models/generator.py, reference transfer_em/models/
+generator.py:22-119), layer for layer:
+
+    stem 3x3 conv (64/wf) -> LeakyReLU                       74 -> 72
+    down1 (64/wf), skip tap at 70                            72 -> 34
+    down2 (128/wf), skip tap at 32                           34 -> 15
+    up1: UpBlock(128/wf)                                     15 -> 26
+    concat center-cropped skip1
+    mid 3x3 conv (256/wf) -> LeakyReLU                       26 -> 24
+    up0: UpBlock(64/wf)                                      24 -> 44
+    concat center-cropped skip0
+    head 3x3 conv (128/wf) -> LeakyReLU                      44 -> 42
+    out  3x3 conv (1, no bias)                               42 -> 40
+
+No norm layers, no bias, no output nonlinearity.  Inputs and outputs are
+channels-last (B, D, H, W, 1) like the JAX module.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from ..ops.convs import crop_to_match
+from .blocks import ConvActND, ConvND, DownBlock, UpBlock
+
+DTypeLike = Union[None, str, torch.dtype]
+
+
+def compute_dtype_of(dtype: DTypeLike) -> Optional[torch.dtype]:
+    """None / "float32" / torch.float32 -> None (plain f32); "bfloat16" /
+    torch.bfloat16 -> torch.bfloat16."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, str):
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    if dtype == torch.float32:
+        return None
+    if dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{dtype}")
+    return dtype
+
+
+class UNetGenerator(nn.Module):
+    """U-Net generator; (B, D, H, W, 1) -> (B, D-2*buffer, ..., 1) float32.
+
+    Args:
+      wf: width factor dividing the base widths (reference ``wf``; 1..32).
+      compute_dtype: None/float32, or bfloat16: the input is cast at entry
+        and activations stay bf16 end to end (convs sum in f32), like
+        generator.py:54-56; the output is cast back to float32.
+      generator: torch.Generator for the N(0, 0.02) weight init.
+    """
+
+    def __init__(self, wf: int = 8, compute_dtype: DTypeLike = None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.wf = wf
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+        c1, c2, c4 = 64 // wf, 128 // wf, 256 // wf
+        g = generator
+        self.stem = ConvActND(1, c1, 3, generator=g)
+        self.down1 = DownBlock(c1, c1, generator=g)
+        self.down2 = DownBlock(c1, c2, generator=g)
+        self.up1 = UpBlock(c2, c2, generator=g)
+        self.mid = ConvActND(c2 + c2, c4, 3, generator=g)
+        self.up0 = UpBlock(c4, c1, generator=g)
+        self.head = ConvActND(c1 + c1, c2, 3, generator=g)
+        self.out = ConvND(c2, 1, 3, generator=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        x = self.stem(x)
+        down1, skip0 = self.down1(x)
+        down2, skip1 = self.down2(down1)
+        up1 = self.up1(down2)
+        x = torch.cat([up1, crop_to_match(skip1, up1)], dim=-1)
+        x = self.mid(x)
+        up0 = self.up0(x)
+        x = torch.cat([up0, crop_to_match(skip0, up0)], dim=-1)
+        x = self.head(x)
+        return self.out(x).to(torch.float32)
+

@@ -1,0 +1,136 @@
+"""Hand-written CUDA kernels for the tile step's elementwise edges.
+
+Counterpart of ``transfer_em_tpu/ops/pallas_kernels.py``; the kernels are in
+``csrc/elementwise.cu``, whose header notes what bounds each on the H100.
+
+=========================  ==============================================
+wrapper                    replaces (Pallas, transfer_em_tpu/ops/)
+=========================  ==============================================
+``preprocess_u8``          pallas_kernels.py:60-85 ``preprocess_u8``
+``postprocess_u8``         pallas_kernels.py:97-124 ``postprocess_u8``
+``leaky_relu``             pallas_kernels.py:127-151 ``leaky_relu_kernel_call``
+=========================  ==============================================
+
+Each wrapper runs its ``*_plain`` PyTorch version only for a tensor on the
+CPU; for a CUDA tensor it launches the kernel (and adds one to its
+``launches`` count) or raises.  Outputs are allocated with ``torch.empty``
+and the kernels run on the current stream without synchronising.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import kernels
+
+LEAKY_SLOPE = 0.3  # Keras LeakyReLU default, as in models/blocks.py
+
+MeanStd = Optional[Tuple[float, float]]
+
+
+def preprocess_affine(meanstd: MeanStd) -> Tuple[float, float]:
+    """uint8 -> standardized float as one affine map a*x + b
+    (transfer_em_tpu/ops/normalize.py:78-91)."""
+    if meanstd is None:
+        return 1.0 / 127.5, -1.0
+    mean, std = meanstd
+    return 1.0 / (127.5 * std), (-1.0 - mean) / std
+
+
+# -- kernel 2: preprocess ----------------------------------------------------
+
+def preprocess_u8_plain(x_u8: torch.Tensor, meanstd: MeanStd) -> torch.Tensor:
+    """(...) uint8 -> (..., 1) float32 ``x * a + b``."""
+    a, b = preprocess_affine(meanstd)
+    return (x_u8.to(torch.float32) * a + b).unsqueeze(-1)
+
+
+def preprocess_u8(x_u8: torch.Tensor, meanstd: MeanStd) -> torch.Tensor:
+    """uint8 tiles -> standardized float32 with a trailing channel axis."""
+    if x_u8.device.type == "cpu":
+        return preprocess_u8_plain(x_u8, meanstd)
+    kernels.check_cuda_tensor(x_u8, "preprocess_u8", (torch.uint8,))
+    a, b = preprocess_affine(meanstd)
+    y = torch.empty(x_u8.shape + (1,), dtype=torch.float32,
+                    device=x_u8.device)
+    kernels.launch("tem_preprocess_u8", x_u8.data_ptr(), y.data_ptr(),
+                   x_u8.numel(), a, b, device=x_u8.device)
+    preprocess_u8.launches += 1
+    return y
+
+
+preprocess_u8.launches = 0
+
+
+# -- kernel 3: postprocess ---------------------------------------------------
+
+def _trim(y: torch.Tensor, tpad: int) -> torch.Tensor:
+    if tpad == 0:
+        return y
+    t = slice(tpad, -tpad)
+    return y[:, t, t, t]
+
+
+def postprocess_u8_plain(y: torch.Tensor, meanstd: MeanStd,
+                         tpad: int = 0) -> torch.Tensor:
+    """(B, D, H, W, 1) float32 -> (B, D-2t, H-2t, W-2t) uint8, in the order
+    of transfer_em_tpu/ops/normalize.py:94-102: y*std + mean, + 1, * 127.5,
+    round half to even, clip to [0, 255]."""
+    y = _trim(y, tpad)[..., 0].to(torch.float32)
+    if meanstd is not None:
+        mean, std = meanstd
+        y = y * std + mean
+    return torch.clamp(torch.round((y + 1.0) * 127.5), 0, 255).to(torch.uint8)
+
+
+def postprocess_u8(y: torch.Tensor, meanstd: MeanStd,
+                   tpad: int = 0) -> torch.Tensor:
+    """Model output -> uint8 tiles, trimming ``tpad`` voxels per face.  The
+    kernel reads the trimmed window in place (strided; no copy)."""
+    if y.device.type == "cpu":
+        return postprocess_u8_plain(y, meanstd, tpad)
+    kernels.check_cuda_tensor(y, "postprocess_u8", (torch.float32,), ndim=5)
+    bsz, d, h, w, c = y.shape
+    if c != 1 or min(d, h, w) <= 2 * tpad or tpad < 0:
+        raise ValueError(f"postprocess_u8: bad shape {tuple(y.shape)} for "
+                         f"tpad={tpad}")
+    out = torch.empty((bsz, d - 2 * tpad, h - 2 * tpad, w - 2 * tpad),
+                      dtype=torch.uint8, device=y.device)
+    mean, std = meanstd if meanstd is not None else (0.0, 1.0)
+    kernels.launch("tem_postprocess_u8", y.data_ptr(), out.data_ptr(),
+                   bsz, d, h, w, tpad, int(meanstd is not None), mean, std,
+                   device=y.device)
+    postprocess_u8.launches += 1
+    return out
+
+
+postprocess_u8.launches = 0
+
+
+# -- kernel 4: LeakyReLU -----------------------------------------------------
+
+def leaky_relu_plain(x: torch.Tensor,
+                     negative_slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """where(x >= 0, x, x * slope), computed in float32 and rounded once to
+    x's dtype."""
+    v = x.to(torch.float32)
+    return torch.where(v >= 0, v, v * negative_slope).to(x.dtype)
+
+
+def leaky_relu(x: torch.Tensor,
+               negative_slope: float = LEAKY_SLOPE) -> torch.Tensor:
+    """Elementwise LeakyReLU, float32 or bfloat16."""
+    if x.device.type == "cpu":
+        return leaky_relu_plain(x, negative_slope)
+    kernels.check_cuda_tensor(x, "leaky_relu", tuple(kernels.DTYPE_CODES))
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    kernels.launch("tem_leaky_relu", x.data_ptr(), y.data_ptr(),
+                   kernels.DTYPE_CODES[x.dtype], x.numel(), negative_slope,
+                   device=x.device)
+    leaky_relu.launches += 1
+    return y
+
+
+leaky_relu.launches = 0

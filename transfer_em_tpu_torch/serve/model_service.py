@@ -1,0 +1,473 @@
+"""Model-serving service: POST / runs the generator on a 64-aligned chunk.
+
+Counterpart of ``transfer_em_tpu/serve/model_service.py`` (reference
+model_cloudrun/transferem.py): request {location, start, glbstart, size,
+model_name, dest} -> validate 64-alignment (:66-73), load/cache the model
+(:85-116), read the chunk + halo (:118-135), batched tiled inference on the
+GPU, write the result as 64^3 gzip neuroglancer blocks named
+"x0-x1_y0-y1_z0-z1" under dest (:158-189).
+
+This slice serves local model roots and local destinations (``gs://``
+raises NotImplementedError).  Device work comes from one thread at a time:
+the shared TileBatcher's worker (cross_batch, the default), or the tile
+step's device lock on the unbatched path.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import re
+import selectors
+import socket
+import threading
+import time
+import traceback
+from collections import OrderedDict
+from concurrent.futures import Future, ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+
+from ..device import reject_mesh, resolve_device
+from ..infer.export import load_generator
+from ..infer.tiling import InferenceCancelled, predict_tiled
+from .backends import open_volume
+
+BLOCK = 64
+_NAME_RE = re.compile(r"[A-Za-z0-9._-]+")
+
+
+def _sock_eof(sock) -> bool:
+    """True when the peer has closed (or the socket is dead): a non-blocking
+    peek, polled as predict_tiled's should_cancel hook.  selectors rather
+    than select.select, which fails for fd >= 1024."""
+    try:
+        sel = selectors.DefaultSelector()
+        try:
+            sel.register(sock, selectors.EVENT_READ)
+            if not sel.select(timeout=0):
+                return False
+        finally:
+            sel.close()
+        return sock.recv(1, socket.MSG_PEEK) == b""
+    except (OSError, ValueError, KeyError):
+        return True
+
+
+class _Limiter:
+    """Bounded request admission: at most ``limit`` chunk requests compute
+    at once; the rest get an immediate 503 + Retry-After (the reference
+    deployment's Cloud Run concurrency, cloudrun_functions/README.md:60-66).
+    """
+
+    def __init__(self, limit: int):
+        self.limit = int(limit)
+        self._sem = threading.BoundedSemaphore(self.limit)
+        self._lock = threading.Lock()
+        self.admitted = 0
+        self.rejected = 0
+
+    def try_acquire(self) -> bool:
+        ok = self._sem.acquire(blocking=False)
+        with self._lock:
+            if ok:
+                self.admitted += 1
+            else:
+                self.rejected += 1
+        return ok
+
+    def release(self):
+        self._sem.release()
+
+    def stats(self):
+        with self._lock:
+            return {"limit": self.limit, "admitted": self.admitted,
+                    "rejected": self.rejected}
+
+
+class BlockWriter:
+    """Write 64^3 gzip blocks to a local destination directory."""
+
+    def __init__(self, dest: str):
+        if dest.startswith("gs://"):
+            raise NotImplementedError(
+                "gs:// destinations come with a later slice of the port")
+        self.dest = dest
+        os.makedirs(dest, exist_ok=True)
+
+    def write(self, name: str, raw: bytes):
+        """gzip with mtime=0, so identical payloads give identical blocks."""
+        with open(os.path.join(self.dest, name), "wb") as f:
+            f.write(gzip.compress(raw, mtime=0))
+
+
+def write_ng_blocks(data_zyx: np.ndarray, dest: str, offset_xyz,
+                    num_threads: int = 4):
+    """Chunk a zyx volume into 64^3 gzip blocks named like the reference
+    (model_cloudrun/transferem.py:172-189)."""
+    writer = BlockWriter(dest)
+    sz, sy, sx = data_zyx.shape
+    ox, oy, oz = offset_xyz
+    jobs = [(x, y, z) for z in range(0, sz, BLOCK)
+            for y in range(0, sy, BLOCK) for x in range(0, sx, BLOCK)]
+
+    def job(args):
+        x, y, z = args
+        block = data_zyx[z:z + BLOCK, y:y + BLOCK, x:x + BLOCK]
+        name = (f"{x+ox}-{x+block.shape[2]+ox}_"
+                f"{y+oy}-{y+block.shape[1]+oy}_"
+                f"{z+oz}-{z+block.shape[0]+oz}")
+        writer.write(name, block.tobytes())
+
+    with ThreadPoolExecutor(max_workers=num_threads) as ex:
+        list(ex.map(job, jobs))
+
+
+def _validate_model_name(model_name: str):
+    """'name' or 'name:version' with [A-Za-z0-9._-] components, checked
+    before any path join (os.path.join honours absolute parts and '..')."""
+    parts = model_name.split(":")
+    if (not 1 <= len(parts) <= 2
+            or any(not _NAME_RE.fullmatch(p) or p in (".", "..")
+                   for p in parts)):
+        raise ValueError(
+            f"invalid model_name {model_name!r}: expected 'name' or "
+            "'name:version' with [A-Za-z0-9._-] components")
+    return parts
+
+
+class ModelCache:
+    """LRU model cache keyed by model_name ("name:version" ->
+    <root>/name/version/).  ``capacity`` 1 keeps the reference's single
+    cached model (model_cloudrun/transferem.py:85-116).
+
+    ``batcher_factory``: optional (gen, meta) -> TileBatcher; every cached
+    model then carries one shared cross-request batcher, closed when the
+    model is evicted or the cache is closed.  Entries are (gen, meta,
+    batcher)."""
+
+    def __init__(self, model_root: str, batcher_factory=None,
+                 capacity: int = 1, device="cuda", compute_dtype=None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1 (got {capacity})")
+        if model_root.startswith("gs://"):
+            raise NotImplementedError(
+                "gs:// model roots come with a later slice of the port")
+        self.model_root = model_root
+        self.batcher_factory = batcher_factory
+        self.capacity = int(capacity)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+        self._loading = {}  # name -> Future of a load in flight
+        self._closed = False
+        # Counters of evicted models' batchers, so /stats keeps the
+        # service's history under eviction churn.
+        self._retired = {"batches": 0, "tiles": 0, "padded": 0, "errors": 0}
+
+    def get(self, model_name: str):
+        """Return the cached ``(gen, meta, batcher)``, loading on a miss.
+        The load runs outside the cache lock; concurrent misses for the
+        same name share one load through an in-flight Future."""
+        parts = _validate_model_name(model_name)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("ModelCache is closed")
+            if model_name in self._entries:
+                self._entries.move_to_end(model_name)
+                return self._entries[model_name]
+            fut = self._loading.get(model_name)
+            loader = fut is None
+            if loader:
+                fut = Future()
+                self._loading[model_name] = fut
+        if not loader:
+            return fut.result()
+
+        evicted = None
+        try:
+            gen, meta = load_generator(os.path.join(self.model_root, *parts),
+                                       device=self.device,
+                                       compute_dtype=self.compute_dtype)
+            batcher = (self.batcher_factory(gen, meta)
+                       if self.batcher_factory else None)
+            entry = (gen, meta, batcher)
+        except BaseException as e:  # noqa: BLE001 — waiters must not hang
+            with self._lock:
+                self._loading.pop(model_name, None)
+            fut.set_exception(e)
+            raise
+        with self._lock:
+            self._loading.pop(model_name, None)
+            closed = self._closed
+            if not closed:
+                self._entries[model_name] = entry
+                if len(self._entries) > self.capacity:
+                    _, (_, _, evicted) = self._entries.popitem(last=False)
+        if closed:
+            # close() raced this load: caching the entry would leave a live
+            # batcher worker nobody closes.
+            if batcher is not None:
+                batcher.close(wait=False)
+            err = RuntimeError(f"ModelCache closed while loading "
+                               f"{model_name!r}")
+            fut.set_exception(err)
+            raise err
+        fut.set_result(entry)
+        if evicted is not None:
+            # Non-blocking close outside the lock: its worker drains in the
+            # background; an in-flight request whose later submit() raises
+            # degrades to run_direct (infer/tiling.py).
+            ev_stats = evicted.stats()
+            with self._lock:
+                for k in self._retired:
+                    self._retired[k] += ev_stats.get(k, 0)
+            evicted.close(wait=False)
+        return entry
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            old = [e[2] for e in self._entries.values() if e[2] is not None]
+            self._entries.clear()
+        for b in old:
+            b.close()  # wait: shutdown leaves no worker behind
+
+    def stats(self):
+        with self._lock:
+            retired = dict(self._retired)
+            if not self._entries:
+                s = {"model": None}
+                batcher = None
+            else:
+                names = list(self._entries)
+                batcher = self._entries[names[-1]][2]
+                s = {"model": names[-1], "models": names}
+        if batcher is not None:
+            s["batcher"] = batcher.stats()
+        if any(retired.values()):
+            total = dict(retired)
+            for k in total:
+                total[k] += s.get("batcher", {}).get(k, 0)
+            tiles, padded = total["tiles"], total["padded"]
+            total["occupancy"] = (tiles / (tiles + padded)
+                                  if tiles + padded else 1.0)
+            s["batcher_lifetime"] = total
+        return s
+
+
+def make_handler(cache: ModelCache, limiter: Optional[_Limiter] = None,
+                 request_timeout_s: Optional[float] = None):
+    class Handler(BaseHTTPRequestHandler):
+        # A client that sends Content-Length but never the body would pin a
+        # handler thread forever, outside admission control.
+        timeout = 120
+
+        def log_message(self, *a):
+            pass
+
+        def _send(self, code, body, ctype="text/plain", headers=()):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Access-Control-Allow-Origin", "*")
+            for k, v in headers:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_OPTIONS(self):
+            # CORS preflight (the reference ran flask_cors CORS(app)).
+            self.send_response(204)
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Access-Control-Allow-Methods",
+                             "GET, POST, OPTIONS")
+            self.send_header("Access-Control-Allow-Headers",
+                             "Content-Type, Authorization")
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def do_GET(self):
+            if self.path.rstrip("/") == "/stats":
+                s = cache.stats()
+                if limiter is not None:
+                    s["requests"] = limiter.stats()
+                self._send(200, json.dumps(s).encode(), "application/json")
+            elif self.path.rstrip("/") == "/healthz":
+                self._send(200, b"ok")
+            else:
+                self._send(404, b"unknown path")
+
+        def do_POST(self):
+            if self.path.rstrip("/") not in ("", "/"):
+                self._send(404, b"unknown path")
+                return
+            # Read the body before any response, then admit.
+            length = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(length)
+            if limiter is not None and not limiter.try_acquire():
+                self._send(503, b"too many concurrent requests",
+                           headers=[("Retry-After", "2")])
+                return
+            try:
+                self._predict(raw)
+            finally:
+                if limiter is not None:
+                    limiter.release()
+
+        def _predict(self, raw: bytes):
+            deadline = (time.monotonic() + request_timeout_s
+                        if request_timeout_s else None)
+            cancel_reason = [None]
+
+            def should_cancel():
+                if deadline is not None and time.monotonic() > deadline:
+                    cancel_reason[0] = "timeout"
+                    return True
+                if _sock_eof(self.connection):
+                    cancel_reason[0] = "disconnect"
+                    return True
+                return False
+
+            try:
+                config = json.loads(raw)
+                location = config["location"]
+                if location.startswith("gs://"):
+                    location = location[len("gs://"):]
+                start = config["start"]
+                glbstart = config.get("glbstart", [0, 0, 0])
+                size = config["size"]
+                for d in range(3):
+                    if (start[d] - glbstart[d]) % BLOCK != 0:
+                        raise RuntimeError("start must be 64 block aligned")
+                    if size[d] % BLOCK != 0:
+                        raise RuntimeError("size must be 64 block aligned")
+
+                gen, meta, batcher = cache.get(config["model_name"])
+                vol = open_volume(location)
+
+                def fetch_tile(corner, insize):
+                    return vol.read(corner, (insize,) * 3)  # zyx
+
+                out_zyx = predict_tiled(
+                    fetch_tile, gen, start, size, meta.outdimsize,
+                    meta.buffer, meta.meanstd_x, meta.meanstd_y,
+                    batcher=batcher, should_cancel=should_cancel,
+                    device=cache.device)
+                offset = [start[d] - glbstart[d] for d in range(3)]
+                write_ng_blocks(out_zyx, config["dest"], offset)
+                self._send(200, b"success")
+            except InferenceCancelled:
+                if cancel_reason[0] == "timeout":
+                    try:
+                        self._send(504, b"request timed out",
+                                   headers=[("Retry-After", "2")])
+                    except OSError:
+                        pass  # deadline raced a client hangup
+                # disconnect: the peer is gone; the thread just ends.
+            except Exception:  # noqa: BLE001 — report any failure as a 400
+                try:
+                    self._send(400, traceback.format_exc().encode())
+                except OSError:
+                    pass  # client vanished mid-error
+
+    return Handler
+
+
+class ModelService:
+    """Threaded model-serving HTTP service on one GPU.
+
+    ``device``: "cuda" (default) or "cpu"; CUDA absent raises.
+    ``compute_dtype``: None (float32, like the JAX service) or "bfloat16".
+    ``cross_batch`` (default on): concurrent requests against one model
+    share device batches up to ``max_batch`` (None: width-aware, 128 at
+    wf=8), lingering ``linger_ms``; occupancy counters at GET /stats.
+    ``cache_size`` (env MODEL_CACHE_SIZE, default 1), ``max_inflight``
+    (env MAX_INFLIGHT, default 8, 0 disables; excess requests get 503) and
+    ``request_timeout_s`` (env REQUEST_TIMEOUT_S, default 600, 0 disables;
+    past it the client gets 504) as in the JAX service.  ``mesh`` raises:
+    multi-GPU serving is a later slice."""
+
+    def __init__(self, model_root: Optional[str] = None,
+                 host: str = "127.0.0.1", port: int = 0, mesh=None,
+                 cross_batch: bool = True, max_batch: Optional[int] = None,
+                 linger_ms: float = 5.0, cache_size: Optional[int] = None,
+                 max_inflight: Optional[int] = None,
+                 request_timeout_s: Optional[float] = None,
+                 device="cuda", compute_dtype=None):
+        reject_mesh(mesh)
+        dev = resolve_device(device)
+        model_root = model_root or os.environ.get("MODEL_BUCKET", ".")
+        if cache_size is None:
+            cache_size = int(os.environ.get("MODEL_CACHE_SIZE", "1"))
+        if max_inflight is None:
+            max_inflight = int(os.environ.get("MAX_INFLIGHT", "8"))
+        if request_timeout_s is None:
+            request_timeout_s = float(os.environ.get("REQUEST_TIMEOUT_S",
+                                                     "600"))
+        factory = None
+        if cross_batch:
+            from ..infer.batcher import make_tile_batcher
+
+            def factory(gen, meta):
+                return make_tile_batcher(
+                    gen, meta.meanstd_x, meta.meanstd_y, meta.outdimsize,
+                    meta.buffer, device=dev, max_batch=max_batch,
+                    linger_ms=linger_ms)
+        self.cache = ModelCache(model_root, batcher_factory=factory,
+                                capacity=cache_size, device=dev,
+                                compute_dtype=compute_dtype)
+        self.limiter = _Limiter(max_inflight) if max_inflight else None
+        handler = make_handler(self.cache, limiter=self.limiter,
+                               request_timeout_s=request_timeout_s or None)
+        self.server = ThreadingHTTPServer((host, port), handler)
+        self._thread = None
+
+    @property
+    def url(self) -> str:
+        host, port = self.server.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def start(self) -> int:
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self.server.server_address[1]
+
+    def stop(self):
+        # shutdown() deadlocks unless serve_forever() runs, so an unstarted
+        # service goes straight to cleanup.  cache.close() waits for the
+        # batchers to drain already-submitted tiles.
+        if self._thread is not None:
+            self.server.shutdown()
+            self._thread.join(timeout=5)
+        self.server.server_close()
+        self.cache.close()
+
+
+def main():  # pragma: no cover
+    """Serve on $PORT (default 8080) until SIGTERM/SIGINT.  TF32 is off so
+    the float32 convolutions on cuDNN stay float32."""
+    import signal
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    svc = ModelService(host="0.0.0.0", port=int(os.environ.get("PORT", 8080)),
+                       compute_dtype=os.environ.get("COMPUTE_DTYPE") or None)
+    print(f"model service on {svc.url}")
+    done = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    svc.start()
+    done.wait()
+    svc.stop()
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()
