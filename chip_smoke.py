@@ -14,9 +14,15 @@ each printing one JSON line:
 3. kernel   every kernel against its plain PyTorch version on the card at
             the main path's shapes (wf=8, B=128 tiles of 74^3): conv3 in
             f32 and bf16, with and without the LeakyReLU epilogue, at the
-            generator's 8 k3 layer shapes; preprocess, postprocess and
-            LeakyReLU at theirs.  Times (CUDA events) of the kernel, the
-            plain version and one library call, beside the card's bound.
+            generator's 8 k3 layer shapes (each through the kernel its
+            shape picks: tensor-core or direct) and at three more (wf=4
+            and wf=16 widths, a ragged small shape); preprocess,
+            postprocess and LeakyReLU at theirs (LeakyReLU also at an odd
+            length and a misaligned view).  Times (CUDA events) of the
+            kernel, the plain version and one library call, beside the
+            card's bound; LeakyReLU's and the library call's also from a
+            CUDA graph replay (device time without the launches' host
+            cost).
 4. golden   the port's generator (kernels on) against the frozen TF output
             tests/goldens/gen_3d.npz, f32 and bf16: PSNR >= 40 dB each.
 5. serve    ModelService(device="cuda") on 127.0.0.1 with the batcher on,
@@ -36,6 +42,7 @@ import concurrent.futures as cf
 import contextlib
 import gzip
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +62,10 @@ LOG = []
 # the arithmetic rates by operand type.  Bounds use these at the full 700 W.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32-accurate products on the tensor cores by 3xTF32 (three TF32
+# products per f32 product): the f32 conv3 bound.  67 TFLOP/s (f32 on the
+# CUDA cores) is kept beside it as ``bound_ms_cuda_core``.
+TF32X3_FLOPS = 495e12 / 3
 
 B = 128  # the service's device batch at wf=8 (default_batch_size)
 # (layer, input side, Cin, O, LeakyReLU epilogue on the main path)
@@ -62,6 +73,11 @@ CONV_LAYERS = [("stem", 74, 1, 8, True), ("down1.conv", 72, 8, 8, True),
                ("down2.conv", 34, 8, 16, True), ("up1.conv", 15, 16, 32, True),
                ("mid", 26, 32, 32, True), ("up0.conv", 24, 32, 16, True),
                ("head", 44, 16, 16, True), ("out", 42, 16, 1, False)]
+# more conv3 shapes: wf=4 widths (mid at wf=4 is 32 -> 64 at 26^3 in,
+# smaller batch), wf=16 widths (down2.conv 4 -> 8), a ragged small shape
+CONV_EXTRA = [("wf4.32to64", (8, 26, 26, 26), 32, 64),
+              ("wf16.4to8", (16, 34, 34, 34), 4, 8),
+              ("ragged", (2, 9, 11, 13), 8, 16)]
 # the activations after down1.down, down2.down, up1.up, up0.up
 LEAKY_SHAPES = [(B, 34, 34, 34, 8), (B, 15, 15, 15, 16), (B, 26, 26, 26, 16),
                 (B, 44, 44, 44, 8)]
@@ -113,12 +129,40 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, flops, dtype):
+def graph_ms(fn, reps=20):
+    """Mean device time of fn() over reps launches replayed from one CUDA
+    graph: the launches' host cost (Python, ctypes, allocation) drops out,
+    which cuda_ms keeps where the host is slower than the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops, dtype, peak=None):
     """Least time (ms) for the work: max of bytes over the memory rate and
-    operations over the peak for the operand type."""
+    operations over the peak (default: the peak for the operand type)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv3_peak(dtype):
+    return TF32X3_FLOPS if dtype == torch.float32 else PEAK_FLOPS[dtype]
 
 
 def psnr(got, want):
@@ -132,63 +176,82 @@ def psnr(got, want):
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def check_conv3(dev, gen):
+def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act):
+    """One conv3 check and its times; returns the record."""
     from transfer_em_tpu_torch.ops import cuda_conv
 
+    x = torch.randn(shape + (c,), generator=gen, device=dev)
+    w = torch.randn((3, 3, 3, c, o), generator=gen, device=dev)
+    x, w = x.to(dtype), (w / (27 * c) ** 0.5).to(dtype)
+    w_lib, x_lib = w.permute(4, 3, 0, 1, 2), x.permute(0, 4, 1, 2, 3)
+    n_out = shape[0] * o * math.prod(s - 2 for s in shape[1:])
+    nbytes = (x.numel() + w.numel() + n_out) * x.element_size()
+    flops = 2.0 * n_out * 27 * c
+    b_ms, b_by = bound(nbytes, flops, dtype, conv3_peak(dtype))
+    leaky = 0.3 if act else None
+    got = cuda_conv.conv3(x, w, leaky)
+    ref = cuda_conv.conv3_plain(x, w, leaky)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = rel_tol * max(1.0, ref.float().abs().max().item())
+    del got, ref
+
+    def lib():
+        y = F.conv3d(x_lib, w_lib)
+        return F.leaky_relu(y, 0.3) if act else y
+
+    k_ms = cuda_ms(lambda: cuda_conv.conv3(x, w, leaky))
+    rec = {"phase": "kernel", "kernel": "conv3", "layer": name,
+           "path": cuda_conv.conv3_path(c, o),
+           "dtype": str(dtype).replace("torch.", ""),
+           "shape": list(shape) + [c], "out_channels": o, "epilogue": act,
+           "max_abs_err": err, "tol": tol, "ok": err <= tol,
+           "kernel_ms": k_ms,
+           "plain_ms": cuda_ms(lambda: cuda_conv.conv3_plain(x, w, leaky)),
+           "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+           "share": b_ms / k_ms, "tflops": flops / k_ms / 1e9,
+           "t_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+           "t_ops": flops / conv3_peak(dtype) * 1e3}
+    if dtype == torch.float32:
+        rec["bound_ms_cuda_core"] = bound(nbytes, flops, dtype)[0]
+    emit(rec)
+    return rec
+
+
+def check_conv3(dev, gen):
+    """Every conv3 case in f32 (tol 1e-4 max(1, |ref|)) and bf16 (1e-2);
+    per dtype, totals over the main path's 8 calls, overall and by path."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_cuda_core",
+            "t_bytes", "t_ops")
     agg = {}
     for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
-               "max_abs_err": 0.0, "checks": 0, "passed": 0}
-        for name, s, c, o, main_act in CONV_LAYERS:
-            x = torch.randn((B, s, s, s, c), generator=gen, device=dev)
-            w = torch.randn((3, 3, 3, c, o), generator=gen, device=dev)
-            x, w = x.to(dtype), (w / (27 * c) ** 0.5).to(dtype)
-            w_lib = w.permute(4, 3, 0, 1, 2)
-            x_lib = x.permute(0, 4, 1, 2, 3)
-            n_out = B * (s - 2) ** 3 * o
-            esize = x.element_size()
-            nbytes = (x.numel() + w.numel() + n_out) * esize
-            flops = 2.0 * n_out * 27 * c
-            b_ms, _ = bound(nbytes, flops, dtype)
+        tot = {k: 0.0 for k in keys}
+        tot.update(max_abs_err=0.0, checks=0, passed=0, paths={})
+        cases = [(n, (B, s, s, s), c, o, m) for n, s, c, o, m in CONV_LAYERS]
+        cases += [(n, shp, c, o, None) for n, shp, c, o in CONV_EXTRA]
+        for name, shape, c, o, main_act in cases:
             for act in (False, True):
-                leaky = 0.3 if act else None
-                got = cuda_conv.conv3(x, w, leaky)
-                ref = cuda_conv.conv3_plain(x, w, leaky)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                scale = max(1.0, ref.float().abs().max().item())
-                tol = rel_tol * scale
-                ok = err <= tol
-                del got, ref
-
-                def lib():
-                    y = F.conv3d(x_lib, w_lib)
-                    return F.leaky_relu(y, 0.3) if act else y
-
-                k_ms = cuda_ms(lambda: cuda_conv.conv3(x, w, leaky))
-                p_ms = cuda_ms(lambda: cuda_conv.conv3_plain(x, w, leaky))
-                l_ms = cuda_ms(lib)
-                emit({"phase": "kernel", "kernel": "conv3", "layer": name,
-                      "dtype": str(dtype).replace("torch.", ""),
-                      "shape": [B, s, s, s, c], "out_channels": o,
-                      "epilogue": act, "max_abs_err": err, "tol": tol,
-                      "ok": ok, "kernel_ms": k_ms, "plain_ms": p_ms,
-                      "library_ms": l_ms, "bound_ms": b_ms,
-                      "tflops": flops / k_ms / 1e9})
+                rec = _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o,
+                                  act)
                 tot["checks"] += 1
-                tot["passed"] += int(ok)
-                if act == main_act:  # the main path's own call
-                    tot["ms"] += k_ms
-                    tot["plain_ms"] += p_ms
-                    tot["library_ms"] += l_ms
-                    tot["bound_ms"] += b_ms
-                    tot["t_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3
-                    tot["t_ops"] += flops / PEAK_FLOPS[dtype] * 1e3
-                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            del x, w, x_lib, w_lib
-        tot["bound_by"] = ("operations" if tot.pop("t_ops") > tot.pop("t_bytes")
-                           else "bytes")
+                tot["passed"] += int(rec["ok"])
+                if act != main_act:
+                    continue  # not the main path's own call
+                part = tot["paths"].setdefault(
+                    rec["path"], {**{k: 0.0 for k in keys},
+                                  "max_abs_err": 0.0, "layers": []})
+                part["layers"].append(name)
+                for t in (tot, part):
+                    t["ms"] += rec["kernel_ms"]
+                    for k in keys[1:]:
+                        t[k] += rec.get(k, 0.0)
+                    t["max_abs_err"] = max(t["max_abs_err"],
+                                           rec["max_abs_err"])
+        for t in (tot, *tot["paths"].values()):
+            t["bound_by"] = ("operations" if t.pop("t_ops") > t.pop("t_bytes")
+                             else "bytes")
+            if dtype != torch.float32:
+                t.pop("bound_ms_cuda_core")
         agg[str(dtype).replace("torch.", "")] = tot
     return agg
 
@@ -249,7 +312,8 @@ def check_elementwise(dev, gen):
     # LeakyReLU at the four activations the conv epilogue cannot absorb
     for dtype in (torch.float32, torch.bfloat16):
         tot = {"max_abs_err": 0.0, "ok": True, "ms": 0.0, "plain_ms": 0.0,
-               "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes"}
+               "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+               "graph_ms": 0.0, "library_graph_ms": 0.0}
         for shape in LEAKY_SHAPES:
             v = torch.randn(shape, generator=gen, device=dev).to(dtype)
             got, ref = ck.leaky_relu(v), ck.leaky_relu_plain(v)
@@ -260,15 +324,30 @@ def check_elementwise(dev, gen):
                    "ms": cuda_ms(lambda: ck.leaky_relu(v), 20),
                    "plain_ms": cuda_ms(lambda: ck.leaky_relu_plain(v), 20),
                    "library_ms": cuda_ms(lambda: F.leaky_relu(v, 0.3), 20),
+                   "graph_ms": graph_ms(lambda: ck.leaky_relu(v)),
+                   "library_graph_ms": graph_ms(
+                       lambda: F.leaky_relu(v, 0.3)),
                    "bound_ms": b_ms}
             emit({"phase": "kernel", "kernel": "leaky_relu",
                   "dtype": str(dtype).replace("torch.", ""),
                   "shape": list(shape), **rec})
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms",
+                      "library_graph_ms"):
                 tot[k] += rec[k]
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["ok"] = tot["ok"] and rec["ok"]
             del v, got, ref
+        # an odd length (scalar tail) and a view 1 element off 16-byte
+        # alignment (the scalar kernel): bit-identical, not timed
+        base = torch.randn((1_000_004,), generator=gen, device=dev).to(dtype)
+        for label, v in (("odd_length", base[:1_000_003]),
+                         ("misaligned", base[1:])):
+            got, ref = ck.leaky_relu(v), ck.leaky_relu_plain(v)
+            ok = torch.equal(got, ref)
+            emit({"phase": "kernel", "kernel": "leaky_relu", "case": label,
+                  "dtype": str(dtype).replace("torch.", ""),
+                  "shape": list(v.shape), "ok": ok})
+            tot["ok"] = tot["ok"] and ok
         out["leaky_relu_" + str(dtype).replace("torch.", "")] = tot
     return out
 
@@ -390,6 +469,25 @@ def counters():
             "postprocess_u8": ck.postprocess_u8, "leaky_relu": ck.leaky_relu}
 
 
+def reset_counts():
+    from transfer_em_tpu_torch.ops import cuda_conv
+    for c in counters().values():
+        c.launches = 0
+    cuda_conv.conv3.launches_tc = cuda_conv.conv3.launches_direct = 0
+    cuda_conv.packed_weights.packs = 0
+
+
+def read_counts():
+    """Launches per kernel, conv3 also per path (tc, direct), and the
+    weight packs (plain torch, not a kernel launch)."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+    out = {k: c.launches for k, c in counters().items()}
+    out["conv3_tc"] = cuda_conv.conv3.launches_tc
+    out["conv3_direct"] = cuda_conv.conv3.launches_direct
+    out["conv3_weight_packs"] = cuda_conv.packed_weights.packs
+    return out
+
+
 def check_serving(dev, smi):
     from transfer_em_tpu_torch.config import ExportMeta
     from transfer_em_tpu_torch.infer import export_generator, predict_tiled
@@ -426,8 +524,7 @@ def check_serving(dev, smi):
             return body, time.perf_counter() - t0
 
         try:
-            for c in counters().values():
-                c.launches = 0
+            reset_counts()
             body, first_s = request(0, starts[0])  # includes the model load
             if body != b"success":
                 fail("serve", f"request 0 answered {body!r}")
@@ -437,7 +534,7 @@ def check_serving(dev, smi):
                         for i, s in enumerate(starts) if i > 0]
                 results = [f.result(timeout=900) for f in futs]
             wall = time.perf_counter() - t0
-            launches = {k: c.launches for k, c in counters().items()}
+            launches = read_counts()
             stats = svc.cache.stats()
 
             def profiled():  # the same five requests again, traced
@@ -491,7 +588,8 @@ def check_serving(dev, smi):
            "u8_max_diff": worst, "u8_frac_differing": frac,
            "output_std": spread, "card": smi, "profiled_round": trace}
     rec["ok"] = (worst <= 1 and frac <= 1e-3 and spread > 2.0
-                 and all(v > 0 for v in launches.values()))
+                 and all(launches[k] > 0 for k in (*counters(), "conv3_tc",
+                                                    "conv3_direct")))
     emit(rec)
     return rec
 
@@ -557,15 +655,26 @@ def main():
 
     la = serve["launches"]
     c32, c16 = conv["float32"], conv["bfloat16"]
+    conv_src = {"tc": "transfer_em_tpu_torch/csrc/conv3_tc.cu",
+                "direct": "transfer_em_tpu_torch/csrc/conv3_direct.cu"}
+    summary = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+               "max_abs_err")
+    paths = [entry(f"conv3.{p}", conv_src[p],
+                   "transfer_em_tpu/ops/pallas_conv.py:174", rec,
+                   la[f"conv3_{p}"],
+                   {"layers": rec["layers"],
+                    "bound_ms_cuda_core": rec["bound_ms_cuda_core"],
+                    "bf16": {k: c16["paths"][p][k] for k in summary}})
+             for p, rec in sorted(c32["paths"].items())]
     lines = [
-        entry("conv3", "transfer_em_tpu_torch/csrc/conv3.cu",
+        entry("conv3", " + ".join(conv_src.values()),
               "transfer_em_tpu/ops/pallas_conv.py:174", c32, la["conv3"],
               {"checks": c32["checks"] + c16["checks"],
                "passed": c32["passed"] + c16["passed"],
                "per": "8 k3 convs of one B=128 tile batch, float32",
-               "bf16": {k: c16[k] for k in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by",
-                                            "max_abs_err")}}),
+               "bound_ms_cuda_core": c32["bound_ms_cuda_core"],
+               "weight_packs": la["conv3_weight_packs"],
+               "bf16": {k: c16[k] for k in summary}, "paths": paths}),
         entry("preprocess_u8", "transfer_em_tpu_torch/csrc/elementwise.cu",
               "transfer_em_tpu/ops/pallas_kernels.py:71",
               elem["preprocess_u8"], la["preprocess_u8"],
@@ -579,6 +688,9 @@ def main():
               elem["leaky_relu_float32"], la["leaky_relu"],
               {"passed": elem["leaky_relu_float32"]["ok"]
                and elem["leaky_relu_bfloat16"]["ok"],
+               "graph_ms": elem["leaky_relu_float32"]["graph_ms"],
+               "library_graph_ms":
+                   elem["leaky_relu_float32"]["library_graph_ms"],
                "per": "4 activations of one B=128 tile batch, float32"}),
     ]
     print(smi, flush=True)

@@ -14,6 +14,7 @@ CPU path never builds or loads the library.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -36,7 +37,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures (all return int = cudaError_t)
 _SIGNATURES = {
-    "tem_conv3": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _f, _vp],
+    "tem_conv3_tc": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                     _i, _f, _vp],
+    "tem_conv3_direct": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+                         _vp],
     "tem_preprocess_u8": [_vp, _vp, _ll, _f, _f, _vp],
     "tem_postprocess_u8": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _vp],
     "tem_leaky_relu": [_vp, _vp, _i, _ll, _f, _vp],
@@ -144,8 +148,16 @@ def launch(name: str, *args, device: torch.device) -> None:
     """Call C entry ``name`` on the current stream of ``device``; raise on a
     non-zero cudaError_t.  Does not synchronise."""
     lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # switching devices costs microseconds; only a foreign device needs it
+    ctx = (contextlib.nullcontext() if index == current
+           else torch.cuda.device(index))
+    with ctx:
+        # the raw cudaStream_t of the current stream; unlike
+        # torch.cuda.current_stream() it builds no Stream object, which
+        # costs several microseconds a launch
+        stream = torch._C._cuda_getCurrentRawStream(index)
         code = getattr(lib, name)(*args, stream)
     if code != 0:
         msg = lib.tem_error_string(code).decode()

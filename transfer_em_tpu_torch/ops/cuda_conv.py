@@ -1,21 +1,33 @@
-"""3x3x3 stride-1 VALID conv on a hand-written CUDA kernel.
+"""3x3x3 stride-1 VALID conv on two hand-written CUDA kernels.
 
-Counterpart of ``transfer_em_tpu/ops/pallas_conv.py``: the kernel
-(``csrc/conv3.cu``) replaces the Pallas Toeplitz-GEMM ``_tconv3_kernel``
-(pallas_conv.py:69-114, ``pallas_call`` at :174) reached through ``tconv3``
-(138-159), ``tconv3_op`` (196-219) and ``tconv3_act_op`` (224-246).  Unlike
-the TPU kernel, whose ``supported()`` (42-53) needs W >= 128/C and so leaves
-the C=1 stem to XLA at 74^3, it serves every k3 conv of the generator, the
-stem included.  conv3.cu's header says what bounds it on the H100 and what
-the simple design does about it.
+Counterpart of ``transfer_em_tpu/ops/pallas_conv.py``: the kernels replace
+the Pallas Toeplitz-GEMM ``_tconv3_kernel`` (pallas_conv.py:69-114,
+``pallas_call`` at :174) reached through ``tconv3`` (138-159), ``tconv3_op``
+(196-219) and ``tconv3_act_op`` (224-246).  Unlike the TPU kernel, whose
+``supported()`` (42-53) needs W >= 128/C and so leaves the C=1 stem to XLA
+at 74^3, they serve every k3 conv of the generator, the stem included.
 
-Inference only in this slice: the backward (``F.conv3d`` gradients, the
-``custom_vjp`` split of pallas_conv.py:206-216) comes with the train step.
+The wrapper picks one of two kernels by shape (:func:`conv3_path`):
+
+* ``"tc"`` (``csrc/conv3_tc.cu``), C >= 4 and O >= 8: an implicit GEMM on
+  the tensor cores (wgmma), float32 as 3xTF32 and bfloat16 as one bf16
+  product, both summed in f32.  Its weights are packed once per parameter
+  by :func:`pack_conv3_weights` into the MMA's B layout (cached).
+* ``"direct"`` (``csrc/conv3_direct.cu``), C < 4 or O < 8: a direct
+  convolution on the CUDA cores from shared-memory tiles; these shapes are
+  bound by bytes.
+
+Each source's header says what bounds it on the H100 and what its design
+does about it.  Inference only in this slice: the backward (``F.conv3d``
+gradients, the ``custom_vjp`` split of pallas_conv.py:206-216) comes with
+the train step.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,10 +35,139 @@ import torch.nn.functional as F
 from .. import kernels
 from .cuda_kernels import LEAKY_SLOPE
 
+# The tensor-core path needs C >= TC_MIN_IN and O >= TC_MIN_OUT.
+TC_MIN_IN, TC_MIN_OUT = 4, 8
+_MMA_DEPTH = {torch.float32: 8, torch.bfloat16: 16}  # wgmma k, elements
+_BLOCK_BYTES = 64            # most bytes of one voxel's channels in smem
+_OUT_CHUNKS = (8, 16, 32, 64)  # output channels per block (wgmma N)
+SMEM_LIMIT = 227 * 1024      # H100 dynamic shared memory per block
+# A channel block's 9 weight stages are loaded at once where the block then
+# needs at most this much shared memory: three blocks still fit on an SM.
+# (Above it, fewer resident blocks cost more than the streamed stages' waits
+# on the H100: head and up0.conv at wf=8 ran faster streamed.)
+RESIDENT_SMEM = 75 * 1024
+
+
+def conv3_path(c: int, o: int) -> str:
+    """Which kernel serves a (C -> O) conv3: ``"tc"`` or ``"direct"``."""
+    return "tc" if c >= TC_MIN_IN and o >= TC_MIN_OUT else "direct"
+
+
+@dataclass(frozen=True)
+class TCPlan:
+    """How the tensor-core kernel tiles one (C, O, dtype).
+
+    ``cb`` input channels per block (C zero-padded to ``n_cb * cb``), ``nc``
+    output channels per block (O padded to ``n_chunks * nc``), ``planes``
+    output planes per block (4, or 2 at nc = 64);
+    ``resident``: a channel block's 9 weight stages are loaded at once, else
+    they stream through 2 stage buffers; ``smem_bytes`` is what one block
+    asks for.  Must match ``Cfg`` in csrc/conv3_tc.cu."""
+    c: int
+    o: int
+    dtype: torch.dtype
+    kk: int
+    cb: int
+    n_cb: int
+    nc: int
+    n_chunks: int
+    planes: int
+    resident: bool
+    smem_bytes: int
+
+    @property
+    def parts(self) -> int:
+        return 2 if self.dtype == torch.float32 else 1
+
+
+def conv3_plan(c: int, o: int, dtype: torch.dtype) -> TCPlan:
+    kk = _MMA_DEPTH[dtype]
+    es = torch.empty((), dtype=dtype).element_size()
+    cb = min(-(-c // kk) * kk, _BLOCK_BYTES // es)
+    nc = next((n for n in _OUT_CHUNKS if n >= o), _OUT_CHUNKS[-1])
+    planes = 4 if nc <= 32 else 2
+    parts = 2 if dtype == torch.float32 else 1
+    stage = 3 * (cb // kk) * parts * nc * 32
+    inp = (planes + 2) * 100 * (32 if cb == kk else 96)  # bytes per voxel
+    resident = inp + 9 * stage <= RESIDENT_SMEM
+    smem = inp + (9 if resident else 2) * stage
+    return TCPlan(c, o, dtype, kk, cb, math.ceil(c / cb), nc,
+                  math.ceil(o / nc), planes, resident, smem)
+
+
+# -- weight packing (plain torch; reachable on the CPU) ---------------------
+
+def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 w -> (hi, lo): hi is w rounded to TF32 (10-bit mantissa,
+    round to nearest even, by integer operations on the bits) and
+    lo = w - hi, exact in float32, so hi + lo == w."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"split_tf32: expected float32, got {w.dtype}")
+    bits = w.contiguous().view(torch.int32)
+    hi = ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+    return hi, w - hi
+
+
+def pack_conv3_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(3, 3, 3, C, O) -> the tensor-core kernel's B operand in ``dtype``.
+
+    Shape (n_chunks, n_cb, 3, 3, 3, cb/kk, parts, nc/8, 2, 8, kk/2): for each
+    output-channel chunk and input-channel block, one stage per (kd, kh)
+    and, inside it, one k-step per (kw, kk channels), tap-major and
+    channel-minor.  A k-step holds ``parts`` (f32: TF32 hi and lo; bf16: 1)
+    K-major wgmma core matrices: 8 output channels x 16 bytes of K, the two
+    K halves 128 B apart, groups of 8 channels 256 B apart.  Inside a
+    k-step, K is permuted so that the kernel's A words k t and k t+4 (in
+    32-bit words) are neighbouring words of the input: K index h*kk/2 + e,
+    e = a*kk/8 + r, holds channel a*kk/4 + h*kk/8 + r.  C and O are
+    zero-padded."""
+    c, o = w.shape[3], w.shape[4]
+    p = conv3_plan(c, o, dtype)
+    wp = torch.zeros((3, 3, 3, p.n_cb * p.cb, p.n_chunks * p.nc),
+                     dtype=dtype, device=w.device)
+    wp[:, :, :, :c, :o] = w.to(dtype)
+    wp = wp.reshape(3, 3, 3, p.n_cb, p.cb // p.kk, 4, 2, p.kk // 8,
+                    p.n_chunks, p.nc // 8, 8)
+    # -> (chunk, cb, kd, kh, kw, k-step, 8-channel group, K half h, row, a, r)
+    wp = wp.permute(8, 3, 0, 1, 2, 4, 9, 6, 10, 5, 7).reshape(
+        p.n_chunks, p.n_cb, 3, 3, 3, p.cb // p.kk, p.nc // 8, 2, 8,
+        p.kk // 2)
+    if dtype == torch.float32:
+        parts = torch.stack(split_tf32(wp.contiguous()), dim=6)
+    else:
+        parts = wp.unsqueeze(6)
+    return parts.contiguous()
+
+
+def packed_weights(w: torch.Tensor) -> torch.Tensor:
+    """pack_conv3_weights(w, w.dtype), kept on w itself (``_conv3_packed``,
+    with the data_ptr and _version it was packed from): it lives as long as
+    the weight and is redone after an in-place change.  The served float32
+    path packs once per parameter (the parameter itself reaches conv3); a
+    bf16 cast is a fresh tensor each forward and repacks, as does an
+    inference tensor (no version counter).  ``packed_weights.packs`` counts
+    the packs."""
+    cacheable = not w.is_inference()
+    if cacheable:
+        key = (w.data_ptr(), w._version)
+        cached = getattr(w, "_conv3_packed", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+    packed = pack_conv3_weights(w, w.dtype)
+    packed_weights.packs += 1
+    if cacheable:
+        w._conv3_packed = (key, packed)
+    return packed
+
+
+packed_weights.packs = 0
+
+
+# -- the conv ----------------------------------------------------------------
 
 def conv3_plain(x: torch.Tensor, w: torch.Tensor,
                 leaky: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: float32 products and sums,
+    """The kernels' function in plain PyTorch: float32 products and sums,
     optional LeakyReLU, one rounding to x's dtype."""
     y = F.conv3d(x.to(torch.float32).permute(0, 4, 1, 2, 3),
                  w.to(torch.float32).permute(4, 3, 0, 1, 2))
@@ -54,16 +195,29 @@ def conv3(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv3: input {tuple(x.shape)} smaller than 3^3")
     y = torch.empty((bsz, d - 2, h - 2, wd - 2, o), dtype=x.dtype,
                     device=x.device)
-    kernels.launch("tem_conv3", x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                   kernels.DTYPE_CODES[x.dtype], bsz, d, h, wd, c, o,
-                   int(leaky is not None),
-                   float(leaky) if leaky is not None else 0.0,
-                   device=x.device)
+    act = int(leaky is not None)
+    slope = float(leaky) if leaky is not None else 0.0
+    code = kernels.DTYPE_CODES[x.dtype]
+    if conv3_path(c, o) == "tc":
+        plan = conv3_plan(c, o, x.dtype)
+        wp = packed_weights(w)
+        kernels.launch("tem_conv3_tc", x.data_ptr(), wp.data_ptr(),
+                       y.data_ptr(), code, bsz, d, h, wd, c, o, plan.cb,
+                       plan.nc, int(plan.resident), act, slope,
+                       device=x.device)
+        conv3.launches_tc += 1
+    else:
+        kernels.launch("tem_conv3_direct", x.data_ptr(), w.data_ptr(),
+                       y.data_ptr(), code, bsz, d, h, wd, c, o, act, slope,
+                       device=x.device)
+        conv3.launches_direct += 1
     conv3.launches += 1
     return y
 
 
-conv3.launches = 0
+conv3.launches = 0         # both kernels
+conv3.launches_tc = 0      # csrc/conv3_tc.cu
+conv3.launches_direct = 0  # csrc/conv3_direct.cu
 
 
 def conv3_act(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
