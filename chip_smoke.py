@@ -12,19 +12,24 @@ each printing one JSON line:
 1. env      nvidia-smi name and power limit, torch/CUDA versions, TF32 off.
 2. build    the kernels from transfer_em_tpu_torch/csrc/ with nvcc (sm_90a).
 3. kernel   every kernel against its plain PyTorch version on the card at
-            the main path's shapes (wf=8, B=128 tiles of 74^3): conv3 in
+            the main paths' shapes (wf=8, B=128 tiles of 74^3): conv3 in
             f32 and bf16, with and without the LeakyReLU epilogue, at the
             generator's 8 k3 layer shapes (each through the kernel its
             shape picks: tensor-core or direct) and at three more (wf=4
-            and wf=16 widths, a ragged small shape); preprocess,
-            postprocess and LeakyReLU at theirs (LeakyReLU also at an odd
-            length and a misaligned view).  Times (CUDA events) of the
-            kernel, the plain version and one library call, beside the
-            card's bound; LeakyReLU's and the library call's also from a
-            CUDA graph replay (device time without the launches' host
-            cost).
+            and wf=16 widths, a ragged small shape), and in f32 at the
+            discriminator's 4; preprocess, postprocess and LeakyReLU at
+            theirs (LeakyReLU also at the discriminator's, at an odd length
+            and on a misaligned view; postprocess also on its scalar path:
+            odd tpad, OW % 4 != 0).  Times (CUDA events) of the kernel, the
+            plain version and one library call, beside the card's bound;
+            LeakyReLU's, preprocess's, postprocess's and their library
+            calls' also from a CUDA graph replay (device time without the
+            launches' host cost).  Then conv3 and LeakyReLU, checked only,
+            at the train step's second-round batch (64 tiles), for both
+            networks.
 4. golden   the port's generator (kernels on) against the frozen TF output
-            tests/goldens/gen_3d.npz, f32 and bf16: PSNR >= 40 dB each.
+            tests/goldens/gen_3d.npz, f32 and bf16, and the 3D
+            discriminator against tests/goldens/disc_3d.npz: PSNR >= 40 dB.
 5. serve    ModelService(device="cuda") on 127.0.0.1 with the batcher on,
             over a seeded wf=8 export and a seeded, smoothed 384^3 uint8
             volume: 6 chunk requests of 128^3 (5 of them concurrent, one on
@@ -34,8 +39,24 @@ each printing one JSON line:
             versions on the same card (f32) within one level on at most
             1e-3 of the voxels, and every kernel's launch count must have
             risen during the timed requests.
-6. the card's nvidia-smi line, then the ``kernels`` line, then the ``ok``
-   line.  Any failed check exits non-zero before the last line.
+6. train_check  one CycleGAN train step (wf=8, B=4, dropout off) through
+            the kernels and one through the plain versions on the card, from
+            the same state: 7-loss vectors within rtol 1e-4, every
+            parameter's gradient within GRAD_TOL of its own largest |g|;
+            beside them the plain step's own spread under 1e-5 forward
+            noise (3 seeds) and what three planted faults in conv3's
+            backward read, each of which must exceed GRAD_TOL in every
+            network.
+7. train    create_state + make_train_step at the default CycleGANConfig
+            (3D, wf=8, 74^3, f32, B=64, dropout on): 5 steps (finite losses,
+            all four networks updated, conv3 tc/direct, LeakyReLU and
+            weight-pack counts per step equal to those derived from the
+            networks), median step time of steps 2-5, tiles/s, peak memory,
+            then one step under torch.profiler (busy share, device time by
+            kernel and by launching op).
+8. the card's nvidia-smi line, then the ``kernels`` line (``launches``
+   from the served round, ``train_launches`` from the 5 train steps), then
+   the ``ok`` line.  Any failed check exits non-zero before the last line.
 """
 
 import concurrent.futures as cf
@@ -82,6 +103,19 @@ CONV_EXTRA = [("wf4.32to64", (8, 26, 26, 26), 32, 64),
 LEAKY_SHAPES = [(B, 34, 34, 34, 8), (B, 15, 15, 15, 16), (B, 26, 26, 26, 16),
                 (B, 44, 44, 44, 8)]
 MS_X, MS_Y = (0.12, 0.85), (0.05, 0.6)
+# The train step (CycleGANConfig().batch_size = 64) runs both generators and
+# both discriminators at 2 x 64 = B tiles in its first round and at 64 in
+# its second (the cycles, the frozen discriminators on the fakes).
+TRAIN_B = 64
+# the 3D discriminator's k3 convs at wf=8 (layer, input side, Cin, O), each
+# with the LeakyReLU epilogue
+DISC_CONV_LAYERS = [("disc.down1.conv", 40, 1, 8), ("disc.hack", 18, 8, 16),
+                    ("disc.down2.conv", 16, 16, 32),
+                    ("disc.down3.conv", 6, 32, 32)]
+# its standalone LeakyReLUs: after down1.down, down2.down, down3.down, again
+# on down3's (the reference applies it twice) and after the 1x1 head
+DISC_LEAKY_SHAPES = [(B, 18, 18, 18, 8), (B, 6, 6, 6, 32)] + [
+    (B, 1, 1, 1, 32)] * 3
 
 
 def emit(obj):
@@ -193,7 +227,8 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act):
     ref = cuda_conv.conv3_plain(x, w, leaky)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs().max().item()
-    tol = rel_tol * max(1.0, ref.float().abs().max().item())
+    ref_max = ref.float().abs().max().item()
+    tol = rel_tol * max(1.0, ref_max)
     del got, ref
 
     def lib():
@@ -205,7 +240,8 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act):
            "path": cuda_conv.conv3_path(c, o),
            "dtype": str(dtype).replace("torch.", ""),
            "shape": list(shape) + [c], "out_channels": o, "epilogue": act,
-           "max_abs_err": err, "tol": tol, "ok": err <= tol,
+           "max_abs_err": err, "ref_max_abs": ref_max, "tol": tol,
+           "ok": err <= tol,
            "kernel_ms": k_ms,
            "plain_ms": cuda_ms(lambda: cuda_conv.conv3_plain(x, w, leaky)),
            "library_ms": cuda_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
@@ -220,40 +256,101 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act):
 
 def check_conv3(dev, gen):
     """Every conv3 case in f32 (tol 1e-4 max(1, |ref|)) and bf16 (1e-2);
-    per dtype, totals over the main path's 8 calls, overall and by path."""
+    per dtype, totals over the served batch's 8 calls, overall and by path;
+    in f32 also the discriminator's 4 k3 convs at the train step's B tiles,
+    totalled apart (``disc``).  ``rel_err``: the largest max_abs_err /
+    max |ref| of the f32 train-path cases (the gradient check's noise level
+    is set against it)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_cuda_core",
             "t_bytes", "t_ops")
     agg = {}
     for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
         tot = {k: 0.0 for k in keys}
-        tot.update(max_abs_err=0.0, checks=0, passed=0, paths={})
-        cases = [(n, (B, s, s, s), c, o, m) for n, s, c, o, m in CONV_LAYERS]
-        cases += [(n, shp, c, o, None) for n, shp, c, o in CONV_EXTRA]
-        for name, shape, c, o, main_act in cases:
-            for act in (False, True):
+        tot.update(max_abs_err=0.0, checks=0, passed=0, paths={}, rel_err=0.0)
+        cases = [(n, (B, s, s, s), c, o, m, "gen")
+                 for n, s, c, o, m in CONV_LAYERS]
+        cases += [(n, shp, c, o, None, "extra") for n, shp, c, o in CONV_EXTRA]
+        if dtype == torch.float32:  # the train step runs float32 only
+            cases += [(n, (B, s, s, s), c, o, True, "disc")
+                      for n, s, c, o in DISC_CONV_LAYERS]
+        for name, shape, c, o, main_act, net in cases:
+            for act in (False, True) if net != "disc" else (True,):
                 rec = _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o,
                                   act)
                 tot["checks"] += 1
                 tot["passed"] += int(rec["ok"])
                 if act != main_act:
                     continue  # not the main path's own call
-                part = tot["paths"].setdefault(
-                    rec["path"], {**{k: 0.0 for k in keys},
-                                  "max_abs_err": 0.0, "layers": []})
-                part["layers"].append(name)
-                for t in (tot, part):
+                tot["rel_err"] = max(tot["rel_err"], rec["max_abs_err"]
+                                     / max(rec["ref_max_abs"], 1e-30))
+                if net == "disc":
+                    group = tot.setdefault("disc", {**{k: 0.0 for k in keys},
+                                                    "max_abs_err": 0.0,
+                                                    "layers": []})
+                    parts = (group,)
+                else:
+                    group = tot["paths"].setdefault(
+                        rec["path"], {**{k: 0.0 for k in keys},
+                                      "max_abs_err": 0.0, "layers": []})
+                    parts = (tot, group)
+                group["layers"].append(name)
+                for t in parts:
                     t["ms"] += rec["kernel_ms"]
                     for k in keys[1:]:
                         t[k] += rec.get(k, 0.0)
                     t["max_abs_err"] = max(t["max_abs_err"],
                                            rec["max_abs_err"])
-        for t in (tot, *tot["paths"].values()):
+        for t in (tot, *tot["paths"].values(), *([tot["disc"]]
+                                                 if "disc" in tot else [])):
             t["bound_by"] = ("operations" if t.pop("t_ops") > t.pop("t_bytes")
                              else "bytes")
             if dtype != torch.float32:
                 t.pop("bound_ms_cuda_core")
         agg[str(dtype).replace("torch.", "")] = tot
     return agg
+
+
+def check_train_shapes(dev, gen):
+    """conv3 (f32, with each layer's own epilogue) and LeakyReLU (f32)
+    against their plain versions at the train step's second-round batch,
+    TRAIN_B tiles: both networks' shapes (the first round's, at B, are
+    checked and timed above).  Checked only, not timed; the same tolerances
+    (1e-4 max(1, |ref|) for conv3, bit-identical for LeakyReLU)."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    res = {"conv3_checks": 0, "conv3_passed": 0, "leaky_checks": 0,
+           "leaky_passed": 0, "max_abs_err": 0.0, "rel_err": 0.0}
+    convs = [(n, s, c, o, act) for n, s, c, o, act in CONV_LAYERS]
+    convs += [(n, s, c, o, True) for n, s, c, o in DISC_CONV_LAYERS]
+    for name, s, c, o, act in convs:
+        x = torch.randn((TRAIN_B, s, s, s, c), generator=gen, device=dev)
+        w = torch.randn((3, 3, 3, c, o), generator=gen, device=dev)
+        w = w / (27 * c) ** 0.5
+        leaky = ck.LEAKY_SLOPE if act else None
+        ref = cuda_conv.conv3_plain(x, w, leaky)
+        err = (cuda_conv.conv3(x, w, leaky) - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        ok = err <= 1e-4 * max(1.0, ref_max)
+        emit({"phase": "kernel", "kernel": "conv3", "layer": name,
+              "path": cuda_conv.conv3_path(c, o), "dtype": "float32",
+              "shape": [TRAIN_B, s, s, s, c], "out_channels": o,
+              "epilogue": act, "max_abs_err": err, "ref_max_abs": ref_max,
+              "ok": ok})
+        res["conv3_checks"] += 1
+        res["conv3_passed"] += int(ok)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["rel_err"] = max(res["rel_err"], err / max(ref_max, 1e-30))
+        del x, w, ref
+    for shape in LEAKY_SHAPES + DISC_LEAKY_SHAPES:
+        v = torch.randn((TRAIN_B,) + shape[1:], generator=gen, device=dev)
+        ok = torch.equal(ck.leaky_relu(v), ck.leaky_relu_plain(v))
+        emit({"phase": "kernel", "kernel": "leaky_relu", "dtype": "float32",
+              "shape": list(v.shape), "ok": ok})
+        res["leaky_checks"] += 1
+        res["leaky_passed"] += int(ok)
+        del v
+    return res
 
 
 def _tie_voxels(y, meanstd, tpad):
@@ -279,6 +376,8 @@ def check_elementwise(dev, gen):
            "ms": cuda_ms(lambda: ck.preprocess_u8(x, MS_X), 20),
            "plain_ms": cuda_ms(lambda: ck.preprocess_u8_plain(x, MS_X), 20),
            "library_ms": cuda_ms(lambda: x.float() * a + b, 20),
+           "graph_ms": graph_ms(lambda: ck.preprocess_u8(x, MS_X)),
+           "library_graph_ms": graph_ms(lambda: x.float() * a + b),
            "bound_ms": b_ms, "bound_by": b_by}
     emit({"phase": "kernel", "kernel": "preprocess_u8",
           "shape": list(x.shape), **rec})
@@ -286,35 +385,55 @@ def check_elementwise(dev, gen):
     del x, got, ref
 
     # postprocess: (B, 40^3, 1) f32, tpad 2 read in place -> (B, 36^3) u8
+    # (the vector path), timed; then the scalar path (odd tpad, OW % 4 != 0)
+    # and tpad 0, checked only.  Bit-identical to the plain version except
+    # at exact .5 ties of the f32 value, where one level is allowed.
+    def post_check(y, tpad):
+        got = ck.postprocess_u8(y, MS_Y, tpad)
+        ref = ck.postprocess_u8_plain(y, MS_Y, tpad)
+        diff = (got.int() - ref.int()).abs()
+        ties = _tie_voxels(y, MS_Y, tpad)
+        off_tie = int(diff[~ties].max().item()) if (~ties).any() else 0
+        return {"max_abs_err": float(diff.max().item()), "tol": 0,
+                "tie_voxels": int(ties.sum().item()),
+                "differing_voxels": int((diff > 0).sum().item()),
+                "ok": off_tie == 0 and int(diff.max().item()) <= 1}
+
     y = torch.randn((B, 40, 40, 40, 1), generator=gen, device=dev)
-    got = ck.postprocess_u8(y, MS_Y, 2)
-    ref = ck.postprocess_u8_plain(y, MS_Y, 2)
-    diff = (got.int() - ref.int()).abs()
-    ties = _tie_voxels(y, MS_Y, 2)
-    off_tie = int(diff[~ties].max().item()) if (~ties).any() else 0
-    ok = off_tie == 0 and int(diff.max().item()) <= 1
-    n_out = got.numel()
+    rec = post_check(y, 2)
+    n_out = B * 36 ** 3
     b_ms, b_by = bound(n_out * 5, 5.0 * n_out, torch.float32)
     lib = lambda: (y[:, 2:-2, 2:-2, 2:-2, 0] * MS_Y[1] + MS_Y[0] + 1.0).mul(
         127.5).round().clamp(0, 255).to(torch.uint8)
-    rec = {"max_abs_err": float(diff.max().item()), "tol": 0,
-           "tie_voxels": int(ties.sum().item()),
-           "differing_voxels": int((diff > 0).sum().item()), "ok": ok,
-           "ms": cuda_ms(lambda: ck.postprocess_u8(y, MS_Y, 2), 20),
-           "plain_ms": cuda_ms(lambda: ck.postprocess_u8_plain(y, MS_Y, 2),
-                               20),
-           "library_ms": cuda_ms(lib, 20), "bound_ms": b_ms, "bound_by": b_by}
-    emit({"phase": "kernel", "kernel": "postprocess_u8",
+    rec.update({
+        "ms": cuda_ms(lambda: ck.postprocess_u8(y, MS_Y, 2), 20),
+        "plain_ms": cuda_ms(lambda: ck.postprocess_u8_plain(y, MS_Y, 2), 20),
+        "library_ms": cuda_ms(lib, 20),
+        "graph_ms": graph_ms(lambda: ck.postprocess_u8(y, MS_Y, 2)),
+        "library_graph_ms": graph_ms(lib), "bound_ms": b_ms,
+        "bound_by": b_by})
+    emit({"phase": "kernel", "kernel": "postprocess_u8", "path": "vector",
           "shape": list(y.shape), "tpad": 2, **rec})
+    del y
+    for side, tpad, path in ((42, 1, "scalar: odd tpad"),
+                             (42, 2, "scalar: OW % 4 != 0"),
+                             (40, 0, "vector: tpad 0")):
+        case = post_check(torch.randn((8, side, side, side, 1), generator=gen,
+                                      device=dev), tpad)
+        emit({"phase": "kernel", "kernel": "postprocess_u8", "path": path,
+              "shape": [8, side, side, side, 1], "tpad": tpad, **case})
+        rec["ok"] = rec["ok"] and case["ok"]
     out["postprocess_u8"] = rec
-    del y, got, ref
 
-    # LeakyReLU at the four activations the conv epilogue cannot absorb
-    for dtype in (torch.float32, torch.bfloat16):
+    # LeakyReLU at the generator's four activations the conv epilogue cannot
+    # absorb, and (f32, the train step's dtype) at the discriminator's
+    for net, dtype, shapes in (("", torch.float32, LEAKY_SHAPES),
+                               ("", torch.bfloat16, LEAKY_SHAPES),
+                               ("disc_", torch.float32, DISC_LEAKY_SHAPES)):
         tot = {"max_abs_err": 0.0, "ok": True, "ms": 0.0, "plain_ms": 0.0,
                "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
                "graph_ms": 0.0, "library_graph_ms": 0.0}
-        for shape in LEAKY_SHAPES:
+        for shape in shapes:
             v = torch.randn(shape, generator=gen, device=dev).to(dtype)
             got, ref = ck.leaky_relu(v), ck.leaky_relu_plain(v)
             err = (got.float() - ref.float()).abs().max().item()
@@ -329,6 +448,7 @@ def check_elementwise(dev, gen):
                        lambda: F.leaky_relu(v, 0.3)),
                    "bound_ms": b_ms}
             emit({"phase": "kernel", "kernel": "leaky_relu",
+                  "net": net.rstrip("_") or "gen",
                   "dtype": str(dtype).replace("torch.", ""),
                   "shape": list(shape), **rec})
             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms",
@@ -337,6 +457,9 @@ def check_elementwise(dev, gen):
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             tot["ok"] = tot["ok"] and rec["ok"]
             del v, got, ref
+        out["leaky_relu_" + net + str(dtype).replace("torch.", "")] = tot
+        if net:
+            continue
         # an odd length (scalar tail) and a view 1 element off 16-byte
         # alignment (the scalar kernel): bit-identical, not timed
         base = torch.randn((1_000_004,), generator=gen, device=dev).to(dtype)
@@ -348,7 +471,6 @@ def check_elementwise(dev, gen):
                   "dtype": str(dtype).replace("torch.", ""),
                   "shape": list(v.shape), "ok": ok})
             tot["ok"] = tot["ok"] and ok
-        out["leaky_relu_" + str(dtype).replace("torch.", "")] = tot
     return out
 
 
@@ -370,6 +492,26 @@ def check_golden(dev):
             got = gen(x).cpu().numpy()
         res[cd or "float32"] = psnr(got, data["y"])
     return res
+
+
+def check_disc_golden(dev):
+    """The port's 3D discriminator (kernels on, f32) against the frozen TF
+    output tests/goldens/disc_3d.npz: PSNR >= 40 dB."""
+    from transfer_em_tpu_torch.models import Discriminator
+    from transfer_em_tpu_torch.models.convert import (DISC_ORDER_3D,
+                                                      params_from_tf_order)
+
+    data = np.load(os.path.join(ROOT, "tests", "goldens", "disc_3d.npz"))
+    disc = Discriminator(wf=8)
+    disc.load_state_dict(params_from_tf_order(data, DISC_ORDER_3D))
+    reset_counts()
+    with torch.inference_mode():
+        got = disc.to(dev).eval()(torch.from_numpy(data["x"]).to(dev))
+    launches = read_counts()
+    got = got.cpu().numpy()
+    err = float(np.abs(got - data["y"]).max())
+    return {"psnr_db": psnr(got, data["y"]), "max_abs_err": err,
+            "launches": launches}
 
 
 # -- phase 5: serving --------------------------------------------------------
@@ -400,18 +542,30 @@ def smooth_volume(side, seed, dev):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route the model and the tile step through the plain PyTorch versions
-    (on CUDA tensors too): the reference path of the serving check."""
+def plain_versions(noise=0.0, seed=5):
+    """Route the models and the tile step through the plain PyTorch versions
+    (on CUDA tensors too, differentiable by autograd): the reference path of
+    the serving and train checks.  ``noise`` > 0 multiplies every conv3
+    output by (1 + noise * N(0, 1)), drawn from ``seed``: a perturbation of
+    the plain path's forward of a chosen relative size."""
     from transfer_em_tpu_torch.infer import tiling
-    from transfer_em_tpu_torch.models import blocks
+    from transfer_em_tpu_torch.models import blocks, discriminator
     from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
-    swaps = [(blocks, "conv3", cuda_conv.conv3_plain),
-             (blocks, "conv3_act",
-              lambda x, w: cuda_conv.conv3_plain(x, w, ck.LEAKY_SLOPE)),
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def conv3(x, w, leaky=None):
+        y = cuda_conv.conv3_plain(x, w, leaky)
+        if noise:
+            y = y * (1.0 + noise * torch.randn(y.shape, generator=gen,
+                                                device=y.device))
+        return y
+
+    swaps = [(blocks, "conv3", conv3),
+             (blocks, "conv3_act", lambda x, w: conv3(x, w, ck.LEAKY_SLOPE)),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
+             (discriminator, "leaky_relu", ck.leaky_relu_plain),
              (tiling, "preprocess_u8", ck.preprocess_u8_plain),
              (tiling, "postprocess_to_u8", ck.postprocess_u8_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -594,6 +748,339 @@ def check_serving(dev, smi):
     return rec
 
 
+# -- phases 6-7: the train step ------------------------------------------------
+
+TREES = ("gg", "gf", "dx", "dy")
+
+
+def smooth_batches(n, std, seed, dev):
+    """Two seeded (n, 74, 74, 74, 1) float32 batches on the card: uniform
+    noise smoothed by two 3^3 box filters (like the serve volume),
+    standardized to mean 0 and ``std``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.rand((2 * n, 1, 74, 74, 74), generator=g, device=dev)
+    for _ in range(2):
+        v = F.avg_pool3d(v, 3, stride=1, padding=1, count_include_pad=False)
+    v = ((v - v.mean()) / v.std() * std).permute(0, 2, 3, 4, 1).contiguous()
+    return v[:n], v[n:]
+
+
+def redraw(state, seed):
+    """Every parameter drawn again on the card: kernels with std
+    1/sqrt(fan-in), 1-D params N(0, 0.1).  All four networks' outputs and
+    gradients are then O(1); at the N(0, 0.02) init the discriminators'
+    gradients sit at float32 rounding level, too small to compare."""
+    g = torch.Generator(device=state.gg.stem.kernel.device).manual_seed(seed)
+    with torch.no_grad():
+        for t in TREES:
+            for p in getattr(state, t).parameters():
+                std = 0.1 if p.dim() == 1 else math.prod(p.shape[:-1]) ** -0.5
+                p.copy_(torch.randn(p.shape, generator=g, device=p.device)
+                        * std)
+
+
+def expected_step_counts(state):
+    """Launches and weight packs per train step, derived from the networks:
+    with batched_apps each generator runs twice (round 1 on 2B tiles, then
+    its cycle) and each discriminator twice (real + detached fake, then
+    frozen on the fake).  A k3 conv launches conv3 on the path its (C, O)
+    picks; a standalone LeakyReLU follows each DownBlock's k4 conv and
+    UpBlock's transposed conv (two with use_norm), each 1x1 conv +
+    LeakyReLU, and the discriminator's double LeakyReLU.  Each tensor-core
+    weight is packed once a step, after the previous update (the frozen
+    discriminators' detached aliases hit that pack)."""
+    from transfer_em_tpu_torch.models import Discriminator
+    from transfer_em_tpu_torch.models.blocks import (ConvActND, ConvND,
+                                                     DownBlock, UpBlock)
+    from transfer_em_tpu_torch.ops.cuda_conv import conv3_path
+
+    out = dict.fromkeys(("conv3_tc", "conv3_direct", "leaky_relu",
+                         "conv3_weight_packs"), 0)
+    for t in TREES:
+        net = getattr(state, t)
+        per_app = dict.fromkeys(("conv3_tc", "conv3_direct", "leaky_relu"), 0)
+        for m in net.modules():
+            if isinstance(m, ConvND) and m._is_conv3():
+                per_app["conv3_" + conv3_path(*m.kernel.shape[3:])] += 1
+            elif isinstance(m, ConvActND):
+                per_app["leaky_relu"] += 1
+            elif isinstance(m, (DownBlock, UpBlock)):
+                per_app["leaky_relu"] += 2 if m.use_norm else 1
+        if isinstance(net, Discriminator):
+            per_app["leaky_relu"] += 1
+        for k, v in per_app.items():
+            out[k] += 2 * v
+        out["conv3_weight_packs"] += per_app["conv3_tc"]
+    out["conv3"] = out["conv3_tc"] + out["conv3_direct"]
+    return out
+
+
+def _grad_errors(state, ref_state):
+    """{network: {parameter: max |g - g_ref| / max |g_ref|}}: each
+    parameter's gradient against its own largest reference gradient (a
+    parameter that got no gradient counts as a zero one)."""
+    out = {}
+    for t in TREES:
+        out[t] = {}
+        for (n, p), q in zip(getattr(state, t).named_parameters(),
+                             getattr(ref_state, t).parameters()):
+            g = p.grad if p.grad is not None else torch.zeros_like(q.grad)
+            out[t][n] = ((g - q.grad).abs().max()
+                         / q.grad.abs().max().clamp_min(1e-30)).item()
+    return out
+
+
+def _worst(errs):
+    """Per network, the largest of its parameters' errors."""
+    return {t: max(e.values()) for t, e in errs.items()}
+
+
+@contextlib.contextmanager
+def planted_fault(kind):
+    """conv3's backward made wrong on purpose, for the train check to show
+    that its gradient tolerance catches such a fault: ``dx_dropped`` returns
+    no input gradient; ``mask_inverted`` puts the epilogue's LeakyReLU slope
+    on the non-negative outputs instead of the negative ones; ``slope_0.2``
+    uses slope 0.2 for 0.3 in that mask."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    right = cuda_conv._Conv3.__dict__["backward"]
+
+    def wrong(ctx, g):
+        x, w, y = ctx.saved_tensors
+        if ctx.leaky is not None:
+            if kind == "mask_inverted":
+                g = torch.where(y >= 0, g * ctx.leaky, g)
+            else:
+                g = torch.where(y >= 0, g, g * (
+                    0.2 if kind == "slope_0.2" else ctx.leaky))
+        dx, dw = cuda_conv.conv3_backward(x, w, g, *ctx.needs_input_grad[:2])
+        return (None if kind == "dx_dropped" else dx), dw, None
+
+    cuda_conv._Conv3.backward = staticmethod(wrong)
+    try:
+        yield
+    finally:
+        cuda_conv._Conv3.backward = right
+
+
+# The train check's gradient tolerance: every parameter's gradient within
+# GRAD_TOL of its own largest |g| in the plain step.  The float32 conv3
+# kernel's outputs differ from cuDNN's by up to ~1e-5 of a layer's largest
+# output (3xTF32 summed in the tensor cores; the kernel phase's rel_err),
+# and the step's gradients are not smooth in the forward: a LeakyReLU input
+# or a cycle difference |real - cycled| that sits within that error of 0
+# sends a different gradient back.  The check measures how far that moves
+# the gradients in the same run (``noise_floor``): the plain step against
+# itself with every conv3 output times (1 + 1e-5 N(0, 1)), over NOISE_SEEDS,
+# the largest reading per parameter; and what three planted faults in
+# conv3's backward read (``faults``).  GRAD_TOL sits between the two: on
+# an H100 80GB HBM3 at 700 W the floor read 1.3e-2 to 2.4e-2 by network,
+# the weakest fault (slope_0.2) 0.19 to 0.36, and the kernels' step 1.1e-4
+# to 7.6e-3.  The check fails unless every fault reads above GRAD_TOL in
+# every network.
+GRAD_TOL = 5e-2
+NOISE = 1e-5
+NOISE_SEEDS = (5, 6, 7)
+FAULTS = ("dx_dropped", "mask_inverted", "slope_0.2")
+
+
+def check_train_plain(dev, kernel_rel_err):
+    """One train step through the kernels and one through the plain
+    versions, on the card, from the same state and batches (wf=8, B=4,
+    dropout off): the 7-loss vectors within rtol 1e-4, every parameter's
+    gradient within GRAD_TOL of its own largest |g|; beside them the noise
+    floor and the planted faults' readings (see GRAD_TOL), and the check
+    fails unless every fault reads above GRAD_TOL in every network.
+    Batches have std 0.3 so
+    that |real - cycled| stays far from 2, where the focal CE's clip makes
+    the gradient jump; the weights are redrawn so that every network's
+    gradients are O(1)."""
+    import copy
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    cfg = CycleGANConfig()
+    state = create_state(cfg, seed=1, device=dev)
+    redraw(state, 2)
+    fresh = copy.deepcopy(state)
+    ref_state = copy.deepcopy(fresh)
+    x, y = smooth_batches(4, 0.3, 11, dev)
+    step = build_step_fn(cfg, deterministic=True)
+    reset_counts()
+    got = step(state, x, y, 0).cpu().numpy()
+    launches = read_counts()
+    with plain_versions():
+        want = step(ref_state, x, y, 0).cpu().numpy()
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    errs = _grad_errors(state, ref_state)
+    del state
+    floor = {t: dict.fromkeys(e, 0.0) for t, e in errs.items()}
+    for seed in NOISE_SEEDS:
+        noisy = copy.deepcopy(fresh)
+        with plain_versions(noise=NOISE, seed=seed):
+            step(noisy, x, y, 0)
+        for t, e in _grad_errors(noisy, ref_state).items():
+            for n, v in e.items():
+                floor[t][n] = max(floor[t][n], v)
+        del noisy
+    faults = {}
+    for kind in FAULTS:
+        broken = copy.deepcopy(fresh)
+        with planted_fault(kind):
+            step(broken, x, y, 0)
+        faults[kind] = _worst(_grad_errors(broken, ref_state))
+        del broken
+    worst = {t: [{"param": n, "err": v, "noise_floor": floor[t][n]}
+                 for n, v in sorted(e.items(), key=lambda kv: kv[1])[-3:]]
+             for t, e in errs.items()}
+    grad = _worst(errs)
+    caught = {k: min(v.values()) > GRAD_TOL for k, v in faults.items()}
+    rec = {"phase": "train_check", "batch": 4, "losses": got.tolist(),
+           "plain_losses": want.tolist(), "loss_max_rel_err": loss_rel,
+           "loss_rtol": 1e-4, "grad_max_err_over_own_max": grad,
+           "grad_tol": GRAD_TOL, "kernel_rel_err": kernel_rel_err,
+           "noise": NOISE, "noise_seeds": list(NOISE_SEEDS),
+           "noise_floor": _worst(floor), "faults": faults,
+           "faults_caught": caught, "worst_params": worst,
+           "launches": launches}
+    rec["ok"] = (loss_rel <= 1e-4
+                 and all(v <= GRAD_TOL for v in grad.values())
+                 and all(caught.values())
+                 and launches["conv3_tc"] > 0 and launches["conv3_direct"] > 0
+                 and launches["leaky_relu"] > 0)
+    emit(rec)
+    return rec
+
+
+def profile_train_step(run):
+    """Device time of one train step by kernel and by what launched it
+    (torch.profiler, CUPTI): conv3's kernels and LeakyReLU by name; cuDNN's
+    kernels by the op that launched them, split into dgrad / wgrad / other
+    by kernel name: conv3's backward (traced under a ``conv3.backward``
+    range for this step only), the k4, transposed and 1x1 convs' forward
+    and backward; the rest is torch's elementwise, reductions and copies."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    plain_bwd = cuda_conv.conv3_backward
+
+    def traced_bwd(*args, **kwargs):
+        with record_function("conv3.backward"):
+            return plain_bwd(*args, **kwargs)
+
+    cuda_conv.conv3_backward = traced_bwd
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cuda_conv.conv3_backward = plain_bwd
+    by_name = {"conv3_forward_kernels": 0.0, "leaky_relu_kernel": 0.0}
+    total = 0.0
+    rows = []
+    for e in prof.key_averages():
+        # device rows; the range's own mirror on the device timeline would
+        # count its kernels twice
+        if (not str(e.device_type).endswith("CUDA")
+                or e.key == "conv3.backward"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        ms = (e.self_cuda_time_total if us is None else us) / 1e3
+        rows.append((e.key[:100], ms, e.count))
+        total += ms
+        if "tem::" in e.key and "conv3" in e.key:
+            by_name["conv3_forward_kernels"] += ms
+        elif "tem::" in e.key and "leaky" in e.key:
+            by_name["leaky_relu_kernel"] += ms
+    by_op = {}
+    for e in prof.events():
+        kernels = [k for k in getattr(e, "kernels", ()) if "tem::" not in k.name]
+        if not kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        if "conv3.backward" in chain:
+            cat = "conv3_backward_cudnn"
+        elif any("convolution_backward" in n for n in chain):
+            cat = "k4_transposed_1x1_backward_cudnn"
+        elif any("convolution" in n for n in chain):
+            cat = "k4_transposed_1x1_forward_cudnn"
+        else:
+            cat = "torch_elementwise_and_other"
+        for k in kernels:
+            low = k.name.lower()
+            sub = "dgrad" if "dgrad" in low else (
+                "wgrad" if "wgrad" in low else "other")
+            part = by_op.setdefault(cat, {"ms": 0.0})
+            part["ms"] += k.duration / 1e3
+            part[sub] = part.get(sub, 0.0) + k.duration / 1e3
+    attributed = sum(by_name.values()) + sum(v["ms"] for v in by_op.values())
+    top = sorted(rows, key=lambda r: -r[1])[:16]
+    return {"wall_s": wall, "device_ms": total,
+            "device_busy_share": total / 1e3 / wall,
+            "by_kernel_name_ms": by_name, "by_launching_op_ms": by_op,
+            "unattributed_ms": total - attributed,
+            "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in top]}
+
+
+def check_train(dev, smi):
+    """The default CycleGANConfig (3D, wf=8, 74^3, float32, B=64, dropout
+    on): create_state and 5 steps of make_train_step on seeded smoothed
+    batches (std 1), then one step under the profiler."""
+    import statistics
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import create_state, make_train_step
+
+    cfg = CycleGANConfig()
+    bsz = cfg.batch_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_state(cfg, seed=0, device=dev)
+    expected = expected_step_counts(state)
+    before = {t: [p.detach().clone() for p in getattr(state, t).parameters()]
+              for t in TREES}
+    x, y = smooth_batches(bsz, 1.0, 12, dev)
+    step = make_train_step(cfg, device=dev)
+    times, losses, counts = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step(state, x, y, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+        losses.append(loss.cpu().tolist())
+    peak = torch.cuda.max_memory_allocated()
+    changed = {t: any(not torch.equal(a, b) for a, b in zip(
+        before[t], getattr(state, t).parameters())) for t in TREES}
+    median = statistics.median(times[1:])
+    trace = profile_train_step(lambda: step(state, x, y, 0))
+    totals = {k: sum(c[k] for c in counts) for k in counts[0]}
+    counts_ok = all(c[k] == v for c in counts for k, v in expected.items())
+    finite = bool(np.all(np.isfinite(losses)))
+    rec = {"phase": "train", "config": "CycleGANConfig() 3D wf=8 74^3 f32",
+           "batch": bsz, "steps": len(times), "step_s": times,
+           "median_step_s_2_to_5": median, "tiles_per_s": bsz / median,
+           "peak_memory_gb": peak / 1e9, "losses": losses,
+           "losses_finite": finite, "trees_changed": changed,
+           "per_step_counts": counts, "expected_per_step": expected,
+           "counts_ok": counts_ok, "launches": totals,
+           "profiled_step": trace, "card": smi}
+    rec["ok"] = finite and counts_ok and all(changed.values())
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -629,8 +1116,11 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     conv = check_conv3(dev, gen)
     elem = check_elementwise(dev, gen)
+    shapes = check_train_shapes(dev, gen)
     kernel_ok = (all(v["passed"] == v["checks"] for v in conv.values())
-                 and all(v["ok"] for v in elem.values()))
+                 and all(v["ok"] for v in elem.values())
+                 and shapes["conv3_passed"] == shapes["conv3_checks"]
+                 and shapes["leaky_passed"] == shapes["leaky_checks"])
     emit({"phase": "kernels_checked", "ok": kernel_ok})
     if not kernel_ok:
         fail("kernel", "a kernel disagrees with its plain version")
@@ -641,9 +1131,24 @@ def main():
     if not all(v >= 40 for v in golden.values()):
         fail("golden", "PSNR below 40 dB")
 
+    disc = check_disc_golden(dev)
+    disc_ok = disc["psnr_db"] >= 40 and disc["launches"]["conv3"] > 0
+    emit({"phase": "disc_golden", **disc, "bar_db": 40, "ok": disc_ok})
+    if not disc_ok:
+        fail("disc_golden", "discriminator PSNR below 40 dB")
+
     serve = check_serving(dev, smi)
     if not serve["ok"]:
         fail("serve", "serving check failed")
+
+    train_check = check_train_plain(
+        dev, max(conv["float32"]["rel_err"], shapes["rel_err"]))
+    train = check_train(dev, smi)
+    if not train_check["ok"]:
+        fail("train_check", "the kernels' train step disagrees with the "
+             "plain versions'")
+    if not train["ok"]:
+        fail("train", "train step check failed")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -653,45 +1158,67 @@ def main():
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], **extra}
 
-    la = serve["launches"]
+    la, lt = serve["launches"], train["launches"]
     c32, c16 = conv["float32"], conv["bfloat16"]
     conv_src = {"tc": "transfer_em_tpu_torch/csrc/conv3_tc.cu",
                 "direct": "transfer_em_tpu_torch/csrc/conv3_direct.cu"}
     summary = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                "max_abs_err")
+    disc_leaky = elem["leaky_relu_disc_float32"]
     paths = [entry(f"conv3.{p}", conv_src[p],
                    "transfer_em_tpu/ops/pallas_conv.py:174", rec,
                    la[f"conv3_{p}"],
-                   {"layers": rec["layers"],
+                   {"train_launches": lt[f"conv3_{p}"],
+                    "layers": rec["layers"],
                     "bound_ms_cuda_core": rec["bound_ms_cuda_core"],
                     "bf16": {k: c16["paths"][p][k] for k in summary}})
              for p, rec in sorted(c32["paths"].items())]
     lines = [
         entry("conv3", " + ".join(conv_src.values()),
               "transfer_em_tpu/ops/pallas_conv.py:174", c32, la["conv3"],
-              {"checks": c32["checks"] + c16["checks"],
-               "passed": c32["passed"] + c16["passed"],
+              {"train_launches": lt["conv3"],
+               "train_weight_packs": lt["conv3_weight_packs"],
+               "checks": c32["checks"] + c16["checks"]
+               + shapes["conv3_checks"],
+               "passed": c32["passed"] + c16["passed"]
+               + shapes["conv3_passed"],
                "per": "8 k3 convs of one B=128 tile batch, float32",
                "bound_ms_cuda_core": c32["bound_ms_cuda_core"],
                "weight_packs": la["conv3_weight_packs"],
-               "bf16": {k: c16[k] for k in summary}, "paths": paths}),
+               "bf16": {k: c16[k] for k in summary}, "paths": paths,
+               "train_disc": {**{k: c32["disc"][k] for k in summary},
+                              "layers": c32["disc"]["layers"],
+                              "per": "the discriminator's 4 k3 convs at "
+                                     "B=128, float32"}}),
         entry("preprocess_u8", "transfer_em_tpu_torch/csrc/elementwise.cu",
               "transfer_em_tpu/ops/pallas_kernels.py:71",
               elem["preprocess_u8"], la["preprocess_u8"],
-              {"passed": elem["preprocess_u8"]["ok"]}),
+              {"train_launches": lt["preprocess_u8"],
+               "passed": elem["preprocess_u8"]["ok"],
+               "graph_ms": elem["preprocess_u8"]["graph_ms"],
+               "library_graph_ms": elem["preprocess_u8"]["library_graph_ms"]}),
         entry("postprocess_u8", "transfer_em_tpu_torch/csrc/elementwise.cu",
               "transfer_em_tpu/ops/pallas_kernels.py:110",
               elem["postprocess_u8"], la["postprocess_u8"],
-              {"passed": elem["postprocess_u8"]["ok"]}),
+              {"train_launches": lt["postprocess_u8"],
+               "passed": elem["postprocess_u8"]["ok"],
+               "graph_ms": elem["postprocess_u8"]["graph_ms"],
+               "library_graph_ms":
+                   elem["postprocess_u8"]["library_graph_ms"]}),
         entry("leaky_relu", "transfer_em_tpu_torch/csrc/elementwise.cu",
               "transfer_em_tpu/ops/pallas_kernels.py:141",
               elem["leaky_relu_float32"], la["leaky_relu"],
-              {"passed": elem["leaky_relu_float32"]["ok"]
+              {"train_launches": lt["leaky_relu"],
+               "passed": elem["leaky_relu_float32"]["ok"]
                and elem["leaky_relu_bfloat16"]["ok"],
                "graph_ms": elem["leaky_relu_float32"]["graph_ms"],
                "library_graph_ms":
                    elem["leaky_relu_float32"]["library_graph_ms"],
-               "per": "4 activations of one B=128 tile batch, float32"}),
+               "per": "4 activations of one B=128 tile batch, float32",
+               "train_disc": {**{k: disc_leaky[k] for k in summary},
+                              "graph_ms": disc_leaky["graph_ms"],
+                              "per": "the discriminator's 5 activations "
+                                     "at B=128, float32"}}),
     ]
     print(smi, flush=True)
     emit({"kernels": lines})

@@ -20,6 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transfer_em_tpu")
 def _port_sources():
     files = sorted(glob.glob(os.path.join(ROOT, "transfer_em_tpu_torch",
                                           "**", "*.py"), recursive=True))
+    files += sorted(glob.glob(os.path.join(ROOT, "tools", "*.py")))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     return files
 
@@ -56,10 +57,13 @@ def _entry_points(tmp_path):
     from transfer_em_tpu_torch.infer import (load_generator,
                                              make_tile_batcher,
                                              make_tile_step, predict_tiled)
+    from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.models import UNetGenerator
     from transfer_em_tpu_torch.serve import ModelService
+    from transfer_em_tpu_torch.train import create_state, make_train_step
 
     gen = UNetGenerator(wf=32)
+    cfg = CycleGANConfig(dimsize=74, wf=32)
     fetch = lambda c, s: np.zeros((s,) * 3, np.uint8)
     return {
         "ModelService": lambda: ModelService(model_root=str(tmp_path)),
@@ -69,12 +73,15 @@ def _entry_points(tmp_path):
         "make_tile_batcher": lambda: make_tile_batcher(
             gen, None, None, 40, 17),
         "make_tile_step": lambda: make_tile_step(gen, None, None, 2),
+        "create_state": lambda: create_state(cfg, 0),
+        "make_train_step": lambda: make_train_step(cfg),
     }
 
 
 @pytest.mark.parametrize("name", ["ModelService", "load_generator",
                                   "predict_tiled", "make_tile_batcher",
-                                  "make_tile_step"])
+                                  "make_tile_step", "create_state",
+                                  "make_train_step"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """Called without ``device`` where CUDA is absent, every entry point
     raises instead of running on the CPU."""

@@ -1,10 +1,10 @@
-"""meta.json contract for exported generators.
+"""Training config and the meta.json contract for exported generators.
 
-Own copy of ``ExportMeta`` from ``transfer_em_tpu/config.py`` (reference
-utils.py:158-166 writes buffer / outdimsize / meanstd_x / meanstd_y; the
-JAX package adds dimsize / is3d / wf so a model can be rebuilt from its
-export alone).  The file format is shared: either package reads the other's
-meta.json.
+Own copies of ``CycleGANConfig`` and ``ExportMeta`` from
+``transfer_em_tpu/config.py``.  ExportMeta: reference utils.py:158-166
+writes buffer / outdimsize / meanstd_x / meanstd_y; the JAX package adds
+dimsize / is3d / wf so a model can be rebuilt from its export alone.  Both
+JSON formats are shared: either package reads the other's files.
 """
 
 from __future__ import annotations
@@ -12,6 +12,40 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Tuple
+
+
+@dataclasses.dataclass
+class CycleGANConfig:
+    """Model and training hyperparameters (reference EM2EM.__init__,
+    cgan.py:40): the JAX package's fields that the port's train step
+    (train/cgan.py) reads.  It takes 3D, float32, without ``remat`` or
+    ``ensemble_apps``, and raises NotImplementedError on the rest.  The JAX
+    package's other fields (``fast_conv``, ``dropout_impl``, the dataset's
+    ``epoch_size`` and ``buffer_size``) select nothing here: ``from_json``
+    drops them, and the port always runs its kernels and draws its dropout
+    masks from a torch.Generator."""
+
+    dimsize: int = 74
+    is3d: bool = True
+    wf: int = 8
+    focal_gamma: float = 2.0
+    use_norm: bool = False          # norm_type is disabled upstream
+    learning_rate: float = 2e-4
+    adam_beta1: float = 0.5
+    compute_dtype: str = "float32"
+    remat: bool = False
+    ensemble_apps: bool = False
+    accum_steps: int = 1            # microbatches per optimizer update
+    batch_size: int = 64            # reference datasets.py:10
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "CycleGANConfig":
+        d = json.loads(s)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 @dataclasses.dataclass

@@ -18,6 +18,11 @@
 // element size for LeakyReLU) at 3.35 TB/s.  The design reads and writes each
 // element exactly once, with neighbouring threads on neighbouring addresses
 // (4 voxels per thread with 4-byte/16-byte vector accesses in preprocess).
+// Postprocess walks output rows (grid over (b, od) planes, a few rows per
+// warp) so that its index arithmetic is 32-bit and free of divisions inside
+// the loop (a flat index split by 64-bit divisions made the first version
+// bound by issued instructions), and moves 4 outputs a thread: two 8-byte
+// loads and one 4-byte store.
 // LeakyReLU moves 16-byte vectors (4 f32 or 8 bf16), kLeakyUnroll of them in
 // flight per thread before the first store, over a grid that covers the
 // tensor in one pass (on the H100 at the main path's four shapes this beat a
@@ -57,28 +62,76 @@ __global__ void preprocess_u8_scalar(const uint8_t* __restrict__ x,
   }
 }
 
-__global__ void postprocess_u8_kernel(const float* __restrict__ y,
-                                      uint8_t* __restrict__ out, int B, int D,
-                                      int H, int W, int tpad, int has_ms,
-                                      float mean, float std) {
-  const int OD = D - 2 * tpad, OH = H - 2 * tpad, OW = W - 2 * tpad;
-  const long long n = (long long)B * OD * OH * OW;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int ow = static_cast<int>(i % OW);
-    long long r = i / OW;
-    const int oh = static_cast<int>(r % OH);
-    r /= OH;
-    const int od = static_cast<int>(r % OD);
-    const long long b = r / OD;
-    float v = y[((b * D + od + tpad) * H + oh + tpad) * W + ow + tpad];
-    if (has_ms) v = __fadd_rn(__fmul_rn(v, std), mean);
-    v = __fmul_rn(__fadd_rn(v, 1.0f), 127.5f);
-    v = rintf(v);  // round half to even (never roundf)
-    v = fminf(fmaxf(v, 0.0f), 255.0f);
-    out[i] = static_cast<uint8_t>(v);
+// One model output value -> one uint8 grey level, in the main path's order.
+__device__ __forceinline__ uint8_t post_u8(float v, int has_ms, float mean,
+                                           float std) {
+  if (has_ms) v = __fadd_rn(__fmul_rn(v, std), mean);
+  v = __fmul_rn(__fadd_rn(v, 1.0f), 127.5f);
+  v = rintf(v);  // round half to even (never roundf)
+  v = fminf(fmaxf(v, 0.0f), 255.0f);
+  return static_cast<uint8_t>(v);
+}
+
+constexpr int kPostMaxWarps = 4;
+
+// Output rows of the trimmed window, one block per output (b, od) plane.
+// A row is Q = OW / V units of V outputs.  Where Q <= 32 a warp covers
+// R = 32 / Q rows at once (lane -> (row, unit), worked out once, before the
+// loop), else one row in steps of 32 units; the warps of the block step
+// down the plane's OH rows.  All index arithmetic inside the loop is 32-bit
+// and division-free: the one 64-bit offset is the plane's base pointer.
+// V = 4: two 8-byte float2 loads and one uchar4 store a thread (needs OW % 4
+// == 0 and, for the loads' alignment, even W and even tpad); V = 1: one
+// float and one byte a thread (every other shape).
+template <int V>
+__global__ void __launch_bounds__(kPostMaxWarps * 32)
+    postprocess_u8_rows(const float* __restrict__ y, uint8_t* __restrict__ out,
+                        int D, int H, int W, int OD, int OH, int OW, int tpad,
+                        int has_ms, float mean, float std) {
+  const int plane = blockIdx.x;
+  const int b = plane / OD, od = plane - b * OD;
+  const float* src =
+      y + ((static_cast<size_t>(b) * D + od + tpad) * H + tpad) * W + tpad;
+  uint8_t* dst = out + static_cast<size_t>(plane) * OH * OW;
+  const int Q = OW / V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int R = Q <= 32 ? 32 / Q : 1;
+  const int rl = Q <= 32 ? lane / Q : 0;
+  const int q0 = Q <= 32 ? lane - rl * Q : lane;
+  if (rl >= R) return;  // the lanes left over past R whole rows
+  const int row_step = (blockDim.x >> 5) * R;
+  for (int r = warp * R + rl; r < OH; r += row_step) {
+    const float* s = src + r * W;
+    uint8_t* d = dst + r * OW;
+    for (int q = q0; q < Q; q += 32) {
+      if (V == 4) {
+        const float2 a = *reinterpret_cast<const float2*>(s + 4 * q);
+        const float2 c = *reinterpret_cast<const float2*>(s + 4 * q + 2);
+        uchar4 o;
+        o.x = post_u8(a.x, has_ms, mean, std);
+        o.y = post_u8(a.y, has_ms, mean, std);
+        o.z = post_u8(c.x, has_ms, mean, std);
+        o.w = post_u8(c.y, has_ms, mean, std);
+        *reinterpret_cast<uchar4*>(d + 4 * q) = o;
+      } else {
+        d[q] = post_u8(s[q], has_ms, mean, std);
+      }
+    }
   }
+}
+
+template <int V>
+void launch_postprocess(const float* y, uint8_t* out, int B, int D, int H,
+                        int W, int tpad, int has_ms, float mean, float std,
+                        cudaStream_t s) {
+  const int OD = D - 2 * tpad, OH = H - 2 * tpad, OW = W - 2 * tpad;
+  const int Q = OW / V;
+  const int R = Q <= 32 ? 32 / Q : 1;
+  int warps = (OH + R - 1) / R;
+  warps = warps > kPostMaxWarps ? kPostMaxWarps : warps;
+  postprocess_u8_rows<V><<<static_cast<unsigned int>(B * OD), warps * 32, 0,
+                           s>>>(y, out, D, H, W, OD, OH, OW, tpad, has_ms,
+                                mean, std);
 }
 
 constexpr int kLeakyThreads = 256;
@@ -195,12 +248,19 @@ int tem_postprocess_u8(const void* y, void* out, int B, int D, int H, int W,
                        int tpad, int has_ms, float mean, float std,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)B * (D - 2 * tpad) * (H - 2 * tpad) *
-                      (W - 2 * tpad);
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  tem::postprocess_u8_kernel<<<tem::grid_for(n), 256, 0, s>>>(
-      static_cast<const float*>(y), static_cast<uint8_t*>(out), B, D, H, W,
-      tpad, has_ms, mean, std);
+  const int OW = W - 2 * tpad;
+  if (B <= 0 || D <= 2 * tpad || H <= 2 * tpad || OW <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const float* yf = static_cast<const float*>(y);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  const bool vec = OW % 4 == 0 && W % 2 == 0 && tpad % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  if (vec) {
+    tem::launch_postprocess<4>(yf, o, B, D, H, W, tpad, has_ms, mean, std, s);
+  } else {
+    tem::launch_postprocess<1>(yf, o, B, D, H, W, tpad, has_ms, mean, std, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

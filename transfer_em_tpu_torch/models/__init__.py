@@ -1,5 +1,6 @@
-"""Models of the port (3D U-Net generator for this slice)."""
+"""Models of the port: the 3D U-Net generator and the 3D discriminator."""
 
+from .discriminator import Discriminator
 from .generator import UNetGenerator
 
-__all__ = ["UNetGenerator"]
+__all__ = ["Discriminator", "UNetGenerator"]

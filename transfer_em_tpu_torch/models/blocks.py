@@ -1,4 +1,5 @@
-"""Building blocks: VALID conv stacks and the TF-exact transposed conv.
+"""Building blocks: VALID conv stacks, the TF-exact transposed conv,
+InstanceNorm and dropout.
 
 Counterpart of ``transfer_em_tpu/models/blocks.py`` (reference
 transfer_em/models/utils.py), as ``nn.Module``s.  Kernels are stored in the
@@ -8,14 +9,16 @@ maps one to one onto the flax param tree (models/convert.py).
 * 3x3x3 stride-1 convs run on the hand-written conv3 kernel
   (ops/cuda_conv.py), with LeakyReLU fused into its epilogue where the
   block has one.
-* k4 stride-2 down convs and the TF-SAME transposed convs run on
+* k4 stride-2 down convs, the TF-SAME transposed convs and 1x1 convs run on
   ``torch.nn.functional`` (ops/convs.py); the LeakyReLU after each runs on
   the hand-written leaky_relu kernel (ops/cuda_kernels.py).
+* Both kernels carry autograd Functions (forward on the kernel, backward in
+  plain torch), so the same modules train.
 
 LeakyReLU slope 0.3 (Keras default; torch's default is 0.01).  Weight init
 N(0, 0.02) (tf.random_normal_initializer(0, .02)), from an explicit
-``torch.Generator``.  InstanceNorm waits for the training slice: the
-serving path runs ``use_norm=False`` like the reference.
+``torch.Generator``.  ``use_norm`` turns on the InstanceNorm call sites that
+the reference comments out; it is off by default, as upstream.
 """
 
 from __future__ import annotations
@@ -32,34 +35,39 @@ from ..ops.cuda_kernels import LEAKY_SLOPE, leaky_relu
 WEIGHT_STD = 0.02
 
 __all__ = ["LEAKY_SLOPE", "ConvND", "ConvActND", "ConvTransposeND",
-           "DownBlock", "UpBlock"]
+           "InstanceNorm", "DownBlock", "UpBlock", "dropout_half"]
 
 
-def _init_kernel(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
+def _init_normal(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
     w = torch.empty(shape, dtype=torch.float32)
     w.normal_(0.0, WEIGHT_STD, generator=generator)
     return nn.Parameter(w)
 
 
 class ConvND(nn.Module):
-    """VALID conv, channels last; kernel (k, k, k, Cin, Cout), no bias."""
+    """VALID conv, channels last; kernel (k, k, k, Cin, Cout); a ``bias``
+    (zeros at init) only with ``use_bias`` (the discriminator's ``out``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, *,
+                 stride: int = 1, *, use_bias: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride = stride
-        self.kernel = _init_kernel((kernel_size,) * 3
+        self.kernel = _init_normal((kernel_size,) * 3
                                    + (in_features, features), generator)
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
 
     def _is_conv3(self) -> bool:
         return self.kernel.shape[0] == 3 and self.stride == 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel.to(x.dtype)
-        if self._is_conv3():
-            return conv3(x, w)
-        return conv_nd(x, w, stride=self.stride)
+        y = conv3(x, w) if self._is_conv3() else conv_nd(x, w,
+                                                         stride=self.stride)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class ConvActND(ConvND):
@@ -80,41 +88,98 @@ class ConvTransposeND(nn.Module):
     def __init__(self, in_features: int, features: int, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.kernel = _init_kernel((4, 4, 4, in_features, features),
+        self.kernel = _init_normal((4, 4, 4, in_features, features),
                                    generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_transpose_nd(x, self.kernel.to(x.dtype), stride=2)
 
 
+class InstanceNorm(nn.Module):
+    """Instance normalization over the spatial axes (reference
+    utils.py:10-38).  ``scale`` is stored MINUS 1, as the flax module keeps
+    it (init N(0, 0.02), applied as scale + 1); ``offset`` starts at 0."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = _init_normal((features,), generator)
+        self.offset = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(1, x.dim() - 1))
+        mean = x.mean(dim=axes, keepdim=True)
+        var = x.var(dim=axes, correction=0, keepdim=True)
+        inv = torch.rsqrt(var + self.epsilon)
+        return (self.scale + 1.0) * (x - mean) * inv + self.offset
+
+
+def dropout_half(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Dropout(0.5) as the JAX package's ``rbg8`` draws it: one random byte
+    per element, kept where it is < 128 (probability 1/2 exactly), kept
+    values scaled by 1/keep = 2.  The bytes come from ``generator`` (a
+    torch.Generator on y's device); the TPU's bit stream is not reproduced,
+    only its distribution."""
+    keep = torch.randint(0, 256, y.shape, generator=generator,
+                         device=y.device, dtype=torch.uint8) < 128
+    return torch.where(keep, y * 2.0, 0.0)
+
+
 class DownBlock(nn.Module):
     """3x3 VALID conv -> LeakyReLU (skip tap) -> 4x4 s2 VALID conv ->
     LeakyReLU; returns (downsampled, skip) like reference ``downsample``
-    (utils.py:41-85)."""
+    (utils.py:41-85).  ``use_norm`` puts InstanceNorm (``norm1``, ``norm2``)
+    before each LeakyReLU."""
 
     def __init__(self, in_features: int, features: int, *,
+                 use_norm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.conv = ConvActND(in_features, features, 3, generator=generator)
-        self.down = ConvND(features, features, 4, stride=2,
-                           generator=generator)
+        g = generator
+        self.use_norm = use_norm
+        conv = ConvND if use_norm else ConvActND
+        self.conv = conv(in_features, features, 3, generator=g)
+        self.norm1 = InstanceNorm(features, generator=g) if use_norm else None
+        self.down = ConvND(features, features, 4, stride=2, generator=g)
+        self.norm2 = InstanceNorm(features, generator=g) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.use_norm:
+            skip = leaky_relu(self.norm1(self.conv(x)))
+            return leaky_relu(self.norm2(self.down(skip))), skip
         skip = self.conv(x)
         return leaky_relu(self.down(skip)), skip
 
 
 class UpBlock(nn.Module):
     """3x3 VALID conv (2x filters) -> LeakyReLU -> 4x4 s2 SAME convT ->
-    Dropout(0.5) -> LeakyReLU (reference utils.py:89-137).  Inference only
-    in this slice: Dropout is deterministic, i.e. the identity."""
+    Dropout(0.5) -> LeakyReLU (reference utils.py:89-137).  Dropout runs
+    only with ``deterministic=False``, from ``dropout_generator``;
+    ``use_norm`` puts InstanceNorm ``norm1`` before the first LeakyReLU."""
 
     def __init__(self, in_features: int, features: int, *,
+                 use_norm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.conv = ConvActND(in_features, features * 2, 3,
-                              generator=generator)
-        self.up = ConvTransposeND(features * 2, features, generator=generator)
+        g = generator
+        self.use_norm = use_norm
+        conv = ConvND if use_norm else ConvActND
+        self.conv = conv(in_features, features * 2, 3, generator=g)
+        self.norm1 = (InstanceNorm(features * 2, generator=g) if use_norm
+                      else None)
+        self.up = ConvTransposeND(features * 2, features, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self.up(self.conv(x)))
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        y = self.conv(x)
+        if self.use_norm:
+            y = leaky_relu(self.norm1(y))
+        y = self.up(y)
+        if not deterministic:
+            if dropout_generator is None:
+                raise ValueError("UpBlock: deterministic=False needs a "
+                                 "dropout_generator")
+            y = dropout_half(y, dropout_generator)
+        return leaky_relu(y)

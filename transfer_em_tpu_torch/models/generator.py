@@ -13,8 +13,9 @@ generator.py:22-119), layer for layer:
     head 3x3 conv (128/wf) -> LeakyReLU                      44 -> 42
     out  3x3 conv (1, no bias)                               42 -> 40
 
-No norm layers, no bias, no output nonlinearity.  Inputs and outputs are
-channels-last (B, D, H, W, 1) like the JAX module.
+No bias, no output nonlinearity; norm layers only with ``use_norm`` (off
+by default, as in the reference).  Inputs and outputs are channels-last
+(B, D, H, W, 1) like the JAX module.
 """
 
 from __future__ import annotations
@@ -53,35 +54,46 @@ class UNetGenerator(nn.Module):
       compute_dtype: None/float32, or bfloat16: the input is cast at entry
         and activations stay bf16 end to end (convs sum in f32), like
         generator.py:54-56; the output is cast back to float32.
+      use_norm: the reference's (disabled) InstanceNorm call sites in down2,
+        up1 and up0, as in the JAX module.
       generator: torch.Generator for the N(0, 0.02) weight init.
+
+    ``forward(x, deterministic=True, dropout_generator=None)``: with
+    ``deterministic=False`` the two UpBlocks apply Dropout(0.5), drawing from
+    ``dropout_generator`` (a torch.Generator on x's device).
     """
 
     def __init__(self, wf: int = 8, compute_dtype: DTypeLike = None, *,
+                 use_norm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.wf = wf
         self.compute_dtype = compute_dtype_of(compute_dtype)
         c1, c2, c4 = 64 // wf, 128 // wf, 256 // wf
-        g = generator
+        g, n = generator, use_norm
         self.stem = ConvActND(1, c1, 3, generator=g)
         self.down1 = DownBlock(c1, c1, generator=g)
-        self.down2 = DownBlock(c1, c2, generator=g)
-        self.up1 = UpBlock(c2, c2, generator=g)
+        self.down2 = DownBlock(c1, c2, use_norm=n, generator=g)
+        self.up1 = UpBlock(c2, c2, use_norm=n, generator=g)
         self.mid = ConvActND(c2 + c2, c4, 3, generator=g)
-        self.up0 = UpBlock(c4, c1, generator=g)
+        self.up0 = UpBlock(c4, c1, use_norm=n, generator=g)
         self.head = ConvActND(c1 + c1, c2, 3, generator=g)
         self.out = ConvND(c2, 1, 3, generator=g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        drop = {"deterministic": deterministic,
+                "dropout_generator": dropout_generator}
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         x = self.stem(x)
         down1, skip0 = self.down1(x)
         down2, skip1 = self.down2(down1)
-        up1 = self.up1(down2)
+        up1 = self.up1(down2, **drop)
         x = torch.cat([up1, crop_to_match(skip1, up1)], dim=-1)
         x = self.mid(x)
-        up0 = self.up0(x)
+        up0 = self.up0(x, **drop)
         x = torch.cat([up0, crop_to_match(skip0, up0)], dim=-1)
         x = self.head(x)
         return self.out(x).to(torch.float32)

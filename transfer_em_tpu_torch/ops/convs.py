@@ -78,6 +78,12 @@ def center_crop(x: torch.Tensor,
     return x[tuple(slices)]
 
 
+def zero_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad every spatial axis by ``pad`` per face (Keras
+    ZeroPadding3D), channels last."""
+    return F.pad(x, (0, 0) + (pad, pad) * (x.dim() - 2))
+
+
 def asymmetric_center_crop(x: torch.Tensor, target) -> torch.Tensor:
     """Crop each spatial axis down to ``target`` (int or per-axis tuple); an
     odd leftover voxel goes to the HIGH side (reference generator.py:74-86)."""

@@ -18,9 +18,17 @@ The wrapper picks one of two kernels by shape (:func:`conv3_path`):
   bound by bytes.
 
 Each source's header says what bounds it on the H100 and what its design
-does about it.  Inference only in this slice: the backward (``F.conv3d``
-gradients, the ``custom_vjp`` split of pallas_conv.py:206-216) comes with
-the train step.
+does about it.
+
+Gradients: where autograd needs them, :func:`conv3` runs through a
+``torch.autograd.Function`` whose forward is the kernel and whose backward
+is ``F.conv3d``'s gradients in float32 (:func:`conv3_backward`), cast back
+to the input dtypes: the ``custom_vjp`` split of pallas_conv.py:196-246
+(``_bwd`` 206-216, ``_act_bwd`` 234-243), whose backward is ``lax.conv``'s
+VJP, not a Pallas kernel.  With the LeakyReLU epilogue the backward takes
+the mask from the SAVED OUTPUT (``y >= 0``); it differs from JAX's mask on
+the recomputed pre-activation only where ``pre * 0.3`` underflows to -0,
+and it costs no recomputed forward.
 """
 
 from __future__ import annotations
@@ -140,23 +148,35 @@ def pack_conv3_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def packed_weights(w: torch.Tensor) -> torch.Tensor:
-    """pack_conv3_weights(w, w.dtype), kept on w itself (``_conv3_packed``,
-    with the data_ptr and _version it was packed from): it lives as long as
-    the weight and is redone after an in-place change.  The served float32
-    path packs once per parameter (the parameter itself reaches conv3); a
-    bf16 cast is a fresh tensor each forward and repacks, as does an
-    inference tensor (no version counter).  ``packed_weights.packs`` counts
-    the packs."""
-    cacheable = not w.is_inference()
-    if cacheable:
-        key = (w.data_ptr(), w._version)
-        cached = getattr(w, "_conv3_packed", None)
-        if cached is not None and cached[0] == key:
-            return cached[1]
-    packed = pack_conv3_weights(w, w.dtype)
+    """pack_conv3_weights(w, w.dtype), cached on w's STORAGE, keyed by the
+    view (offset, shape, strides, dtype) and stamped with w's version
+    counter: it lives as long as the weight's memory.
+
+    * A ``.detach()`` alias of a parameter (the frozen discriminators'
+      ``functional_call``) shares the parameter's storage and version
+      counter, so it hits the parameter's pack.
+    * An in-place update of the parameter (``Adam``'s ``p.add_`` under
+      ``no_grad``) bumps the version, so the next call repacks.  A write
+      through ``p.data`` does NOT bump it and is not seen: the port's
+      optimizer never writes through ``.data``.
+
+    The served float32 path packs once per parameter; a bf16 cast is a
+    fresh tensor each forward and repacks, as does an inference tensor (no
+    version counter).  ``packed_weights.packs`` counts the packs."""
+    if w.is_inference():
+        packed_weights.packs += 1
+        return pack_conv3_weights(w, w.dtype)
+    storage = w.untyped_storage()
+    view = (w.storage_offset(), tuple(w.shape), w.stride(), w.dtype)
+    cache = getattr(storage, "_conv3_packs", None)
+    if cache is None:
+        cache = storage._conv3_packs = {}
+    hit = cache.get(view)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    packed = pack_conv3_weights(w.detach(), w.dtype)
     packed_weights.packs += 1
-    if cacheable:
-        w._conv3_packed = (key, packed)
+    cache[view] = (w._version, packed)
     return packed
 
 
@@ -177,11 +197,56 @@ def conv3_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype).contiguous()
 
 
+def conv3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                   need_x: bool = True, need_w: bool = True
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Gradients of the VALID conv (no epilogue) w.r.t. x and w for the
+    output cotangent g: ``F.conv3d``'s backward in float32 (cuDNN on the
+    card), cast back to x's and w's dtypes; None where not needed."""
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g.to(torch.float32).permute(0, 4, 1, 2, 3),
+        x.to(torch.float32).permute(0, 4, 1, 2, 3),
+        w.to(torch.float32).permute(4, 3, 0, 1, 2), None, [1, 1, 1],
+        [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1, [need_x, need_w, False])
+    if dx is not None:
+        dx = dx.permute(0, 2, 3, 4, 1).to(x.dtype)
+    if dw is not None:
+        dw = dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+    return dx, dw
+
+
+class _Conv3(torch.autograd.Function):
+    """conv3 with gradients: the kernel forward, conv3_backward behind it."""
+
+    @staticmethod
+    def forward(ctx, x, w, leaky):
+        y = _conv3(x, w, leaky)
+        ctx.leaky = leaky
+        ctx.save_for_backward(x, w, y if leaky is not None else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        if ctx.leaky is not None:  # the mask from the saved output
+            g = torch.where(y >= 0, g, g * ctx.leaky)
+        dx, dw = conv3_backward(x, w, g, *ctx.needs_input_grad[:2])
+        return dx, dw, None
+
+
 def conv3(x: torch.Tensor, w: torch.Tensor,
           leaky: Optional[float] = None) -> torch.Tensor:
     """(B, D, H, W, C) * (3, 3, 3, C, O) -> (B, D-2, H-2, W-2, O) in x's
     dtype (float32 or bfloat16; w must have the same dtype).  ``leaky``
-    fuses LeakyReLU(negative_slope=leaky) into the epilogue."""
+    fuses LeakyReLU(negative_slope=leaky) into the epilogue.  Where autograd
+    needs a gradient the call goes through :class:`_Conv3` (same forward)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3.apply(x, w, leaky)
+    return _conv3(x, w, leaky)
+
+
+def _conv3(x: torch.Tensor, w: torch.Tensor,
+           leaky: Optional[float]) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3_plain(x, w, leaky)
     kernels.check_cuda_tensor(x, "conv3 x", tuple(kernels.DTYPE_CODES), 5)

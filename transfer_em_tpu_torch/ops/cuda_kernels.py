@@ -119,9 +119,33 @@ def leaky_relu_plain(x: torch.Tensor,
     return torch.where(v >= 0, v, v * negative_slope).to(x.dtype)
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """leaky_relu with a gradient: the kernel forward, and the backward
+    where(x >= 0, g, slope * g) in plain torch (the VJP of the JAX
+    package's where(x >= 0, x, slope * x); it has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, negative_slope):
+        ctx.slope = negative_slope
+        ctx.save_for_backward(x)
+        return _leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * ctx.slope), None
+
+
 def leaky_relu(x: torch.Tensor,
                negative_slope: float = LEAKY_SLOPE) -> torch.Tensor:
-    """Elementwise LeakyReLU, float32 or bfloat16."""
+    """Elementwise LeakyReLU, float32 or bfloat16; through
+    :class:`_LeakyReLU` where autograd needs a gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _LeakyReLU.apply(x, negative_slope)
+    return _leaky_relu(x, negative_slope)
+
+
+def _leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return leaky_relu_plain(x, negative_slope)
     kernels.check_cuda_tensor(x, "leaky_relu", tuple(kernels.DTYPE_CODES))
