@@ -54,9 +54,28 @@ each printing one JSON line:
             networks), median step time of steps 2-5, tiles/s, peak memory,
             then one step under torch.profiler (busy share, device time by
             kernel and by launching op).
-8. the card's nvidia-smi line, then the ``kernels`` line (``launches``
-   from the served round, ``train_launches`` from the 5 train steps), then
-   the ``ok`` line.  Any failed check exits non-zero before the last line.
+8. em2em    the training entry point as a user runs it (the README quick
+            start in 3D): datasets from 64 seeded 74^3 cubes of a smoothed
+            256^3 uint8 volume (target; source through make_warp_map) and a
+            streaming dataset over corner_stream, one epoch of each timed
+            alone; EM2EM(74, wf=8) trains 2 epochs at B=16 (f32, dropout
+            on; per-epoch seconds and tiles/s from the metrics log, peak
+            memory, launch and pack counts per step against those derived
+            from the networks, finite losses, all four networks updated);
+            a second EM2EM of the same experiment auto-restores epoch 2
+            bit-equal and trains a third epoch on fixed batches, which the
+            first model also takes uninterrupted: under cuDNN's
+            deterministic algorithms the two end bit-equal; restore(1) into
+            the first model, whose conv3 weights are packed, then predict
+            must repack
+            and match a fresh model restored at 1 bit for bit; save_model
+            from epoch 3 -> load_generator -> predict_tiled on a 128^3
+            chunk within one grey level on at most 1e-3 of the voxels of
+            the plain versions.  All four kernels must launch in the phase.
+9. the card's nvidia-smi line, then the ``kernels`` line (``launches``
+   from the served round, ``train_launches`` from the 5 train steps,
+   ``em2em_launches`` from the em2em phase), then the ``ok`` line.  Any
+   failed check exits non-zero before the last line.
 """
 
 import concurrent.futures as cf
@@ -1081,6 +1100,228 @@ def check_train(dev, smi):
     return rec
 
 
+# -- phase 8: EM2EM, the training entry point --------------------------------
+
+EM_SIDE, EM_CUBES, EM_BATCH, EM_WF = 256, 64, 16, 8
+
+
+def _state_tensors(state):
+    """Every parameter and Adam moment of a train state, in a fixed order,
+    and its step and Adam counts."""
+    tensors, ints = [], [state.step]
+    for t in TREES:
+        tensors += list(getattr(state, t).parameters())
+        opt = getattr(state, "opt_" + t)
+        tensors += [opt.mu[k] for k in sorted(opt.mu)]
+        tensors += [opt.nu[k] for k in sorted(opt.nu)]
+        ints.append(opt.count)
+    return tensors, ints
+
+
+def _states_equal(a, b):
+    ta, ia = _state_tensors(a)
+    tb, ib = _state_tensors(b)
+    return ia == ib and len(ta) == len(tb) and all(
+        torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms for the block."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _epoch_s(datasets):
+    """Seconds for one synchronised epoch of the datasets, zipped."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for batches in zip(*datasets):
+        n += 1
+        for b in batches:
+            if b.device.type != "cuda":
+                fail("em2em", f"a batch came on {b.device}")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, n
+
+
+def check_em2em(dev, smi):
+    """The README quick start in 3D at full width on the card: datasets from
+    64 seeded 74^3 cubes of a smoothed 256^3 volume (target; source through
+    make_warp_map) and a streaming dataset over corner_stream, 2 epochs of
+    EM2EM.train (wf=8, B=16, float32, dropout on, a checkpoint each epoch),
+    an auto-restored second model that trains a third epoch bit-equal to
+    the first model's uninterrupted one, restore(1)
+    into the trained model then predict (against a fresh model restored at
+    1), and save_model -> load_generator -> predict_tiled on a 128^3 chunk
+    against the plain versions."""
+    from transfer_em_tpu_torch import (EM2EM, create_dataset_from_generator,
+                                       create_dataset_from_tensors)
+    from transfer_em_tpu_torch.data.sources import (_parallel_fetch,
+                                                    corner_stream)
+    from transfer_em_tpu_torch.infer import (load_generator, predict_tiled,
+                                             save_model)
+    from transfer_em_tpu_torch.native import gather_box
+    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops.warp import make_warp_map
+
+    torch.cuda.empty_cache()
+    rec = {"phase": "em2em", "config": f"EM2EM(74, is3d=True, wf={EM_WF}) f32",
+           "batch": EM_BATCH, "cubes": EM_CUBES, "card": smi}
+    vol = smooth_volume(EM_SIDE, seed=21, dev=dev)
+    hi = EM_SIDE - 74
+    corners = np.random.default_rng(22).integers(0, hi + 1, (EM_CUBES, 3))
+    cubes = [vol[z:z + 74, y:y + 74, x:x + 74] for z, y, x in corners]
+    fetch = lambda c: vol[c[2]:c[2] + 74, c[1]:c[1] + 74, c[0]:c[0] + 74]
+
+    t0 = time.perf_counter()
+    target, ms_y = create_dataset_from_tensors(cubes, batch_size=EM_BATCH,
+                                               device=dev)
+    source, ms_x = create_dataset_from_tensors(
+        cubes, batch_size=EM_BATCH, custom_map=make_warp_map(5), device=dev)
+    streamed, ms_s = create_dataset_from_generator(
+        lambda: _parallel_fetch(corner_stream(((0, 0, 0), (hi, hi, hi)), 74,
+                                              seed=23), fetch, 4),
+        batch_size=EM_BATCH, epoch_size=EM_CUBES, device=dev)
+    rec["datasets_build_s"] = time.perf_counter() - t0
+    rec["meanstd"] = {"x": ms_x, "y": ms_y, "streamed": ms_s}
+    pipe_s, pairs = _epoch_s((source, target))
+    stream_s, n_stream = _epoch_s((streamed,))
+    rec["pipeline"] = {"pair_batches": pairs, "epoch_s": pipe_s,
+                       "tiles_per_s": pairs * EM_BATCH / pipe_s,
+                       "stream_batches": n_stream, "stream_epoch_s": stream_s,
+                       "stream_tiles_per_s": n_stream * EM_BATCH / stream_s}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ckpt")
+        log = os.path.join(tmp, "metrics.jsonl")
+        model = EM2EM(74, "smoke", wf=EM_WF, checkpoint_root=root,
+                      device=dev)
+        expected = expected_step_counts(model.state)
+        before = {t: [p.detach().clone() for p in
+                      getattr(model.state, t).parameters()] for t in TREES}
+        per_step = []
+        step = model.train_step
+
+        def counted_step(x, y):
+            c0 = read_counts()
+            out = step(x, y)
+            per_step.append({k: v - c0[k] for k, v in read_counts().items()})
+            return out
+
+        model.train_step = counted_step
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        model.train(source, target, epochs=2, check_freq=1, metrics_log=log)
+        train_s = time.perf_counter() - t0
+        model.train_step = step
+        epochs = [json.loads(line) for line in open(log)]
+        rec["train"] = {
+            "wall_s": train_s, "epochs": epochs,
+            "tiles_per_s": [e["steps"] * EM_BATCH / e["seconds"]
+                            for e in epochs],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "per_step_counts": per_step, "expected_per_step": expected}
+        losses_ok = all(np.isfinite(list(e["loss"].values())).all()
+                        for e in epochs)
+        changed = {t: any(not torch.equal(a, b) for a, b in zip(
+            before[t], getattr(model.state, t).parameters())) for t in TREES}
+        counts_ok = len(per_step) == 2 * EM_CUBES // EM_BATCH and all(
+            c[k] == v for c in per_step for k, v in expected.items())
+        rec["train"].update(losses_finite=losses_ok, trees_changed=changed,
+                            counts_ok=counts_ok)
+
+        # auto-restore: a second model of the same experiment
+        resumed = EM2EM(74, "smoke", wf=EM_WF, checkpoint_root=root,
+                        device=dev)
+        restored_equal = _states_equal(resumed.state, model.state)
+        # The resumed model trains epoch 3 and the first one the same
+        # batches, uninterrupted: they must end bit-equal.  cuDNN's default
+        # conv gradients do not repeat bit for bit (tools/
+        # train_repeat_probe.py), so both run its deterministic ones.
+        steps = EM_CUBES // EM_BATCH
+        bx, by = source.take_batches(steps), target.take_batches(steps)
+        with cudnn_deterministic():
+            resumed.train(bx, by, epochs=1, start=2, check_freq=1,
+                          metrics_log=log)
+            for x, y in zip(bx, by):
+                model.train_step(x, y)
+        del bx, by
+        third = json.loads(open(log).read().splitlines()[-1])
+        rec["resume"] = {"step": resumed.state.step,
+                         "restored_bit_equal": restored_equal,
+                         "epoch3_cudnn_deterministic": third,
+                         "continued_bit_equal": _states_equal(
+                             resumed.state, model.state),
+                         "losses_finite": bool(np.isfinite(
+                             list(third["loss"].values())).all())}
+
+        # restore(1) into the model whose conv3 weights are packed from
+        # epoch 3, then predict at once: a stale pack would give epoch 3's.
+        # Bit-equality needs cuDNN's deterministic algorithms: the
+        # transposed convs' default (a dgrad algorithm) need not repeat
+        # bit for bit, which the record shows beside the check.
+        x = target.take_batches(1)[0][:4]
+        with cudnn_deterministic():
+            before = model.predict(x)
+            packs0 = cuda_conv.packed_weights.packs
+            model.restore(1)
+            got = model.predict(x)
+            packs = cuda_conv.packed_weights.packs - packs0
+            fresh = EM2EM(74, "fresh", wf=EM_WF, checkpoint_root=root,
+                          device=dev, ckpt_restore=os.path.join(
+                              model.checkpoint_path, "1"))
+            want = fresh.predict(x)
+        again = [fresh.predict(x) for _ in range(2)]
+        rec["restore_then_predict"] = {
+            "packs": packs, "bit_equal_to_fresh": bool(torch.equal(got, want)),
+            "differs_from_epoch3": not torch.equal(got, before),
+            "default_cudnn_repeat_max_abs_diff":
+                (again[0] - again[1]).abs().max().item()}
+
+        # export from the epoch-3 checkpoint and serve a 128^3 chunk
+        export = os.path.join(tmp, "export")
+        save_model(export, os.path.join(resumed.checkpoint_path, "3"), ms_x,
+                   ms_y, 74, True, EM_WF, device=dev)
+        gen, meta = load_generator(export, device=dev)
+        start, size = (64, 32, 96), (128,) * 3
+        args = (lambda c, n: gather_box(vol, c, (n,) * 3), gen, start, size,
+                meta.outdimsize, meta.buffer, meta.meanstd_x, meta.meanstd_y)
+        t0 = time.perf_counter()
+        out = predict_tiled(*args, batch_size=64, device=dev)
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()
+        with plain_versions():
+            ref = predict_tiled(*args, batch_size=64, device=dev)
+        diff = np.abs(out.astype(int) - ref.astype(int))
+        rec["export_serve"] = {"predict_tiled_s": serve_s,
+                               "u8_max_diff": int(diff.max()),
+                               "u8_frac_differing": float((diff > 0).mean()),
+                               "output_std": float(out.std())}
+        del model, resumed, fresh, gen
+    rec["launches"] = launches
+    serve_ok = (rec["export_serve"]["u8_max_diff"] <= 1
+                and rec["export_serve"]["u8_frac_differing"] <= 1e-3)
+    restore_ok = (packs > 0 and rec["restore_then_predict"][
+        "bit_equal_to_fresh"] and rec["restore_then_predict"][
+        "differs_from_epoch3"])
+    rec["ok"] = bool(
+        pairs == EM_CUBES // EM_BATCH and n_stream == EM_CUBES // EM_BATCH
+        and losses_ok and all(changed.values()) and counts_ok
+        and restored_equal and rec["resume"]["continued_bit_equal"]
+        and rec["resume"]["step"] == 3 * EM_CUBES // EM_BATCH
+        and rec["resume"]["losses_finite"] and restore_ok and serve_ok
+        and all(launches[k] > 0 for k in counters()))
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -1149,6 +1390,10 @@ def main():
              "plain versions'")
     if not train["ok"]:
         fail("train", "train step check failed")
+
+    em2em = check_em2em(dev, smi)
+    if not em2em["ok"]:
+        fail("em2em", "the EM2EM phase failed a check")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1220,6 +1465,11 @@ def main():
                               "per": "the discriminator's 5 activations "
                                      "at B=128, float32"}}),
     ]
+    le = em2em["launches"]
+    for line in lines:
+        line["em2em_launches"] = le[line["name"]]
+    for p in paths:
+        p["em2em_launches"] = le["conv3_" + p["name"].split(".")[1]]
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

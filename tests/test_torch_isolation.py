@@ -60,7 +60,10 @@ def _entry_points(tmp_path):
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.models import UNetGenerator
     from transfer_em_tpu_torch.serve import ModelService
-    from transfer_em_tpu_torch.train import create_state, make_train_step
+    from transfer_em_tpu_torch.train import (EM2EM, create_state,
+                                             make_train_step)
+    from transfer_em_tpu_torch.data import (create_dataset_from_generator,
+                                            create_dataset_from_tensors)
 
     gen = UNetGenerator(wf=32)
     cfg = CycleGANConfig(dimsize=74, wf=32)
@@ -75,13 +78,23 @@ def _entry_points(tmp_path):
         "make_tile_step": lambda: make_tile_step(gen, None, None, 2),
         "create_state": lambda: create_state(cfg, 0),
         "make_train_step": lambda: make_train_step(cfg),
+        "EM2EM": lambda: EM2EM(74, "x", wf=32,
+                               checkpoint_root=str(tmp_path)),
+        "create_dataset_from_tensors": lambda: create_dataset_from_tensors(
+            [np.zeros((8, 8, 8), np.uint8)] * 2, batch_size=1),
+        "create_dataset_from_generator": lambda:
+            create_dataset_from_generator(
+                lambda: iter([np.zeros((8, 8, 8), np.uint8)] * 2),
+                batch_size=1),
     }
 
 
 @pytest.mark.parametrize("name", ["ModelService", "load_generator",
                                   "predict_tiled", "make_tile_batcher",
                                   "make_tile_step", "create_state",
-                                  "make_train_step"])
+                                  "make_train_step", "EM2EM",
+                                  "create_dataset_from_tensors",
+                                  "create_dataset_from_generator"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """Called without ``device`` where CUDA is absent, every entry point
     raises instead of running on the CPU."""

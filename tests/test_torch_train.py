@@ -128,12 +128,12 @@ def test_keras_adam_is_not_torch_adam():
 
 def test_config_reads_the_jax_packages_json():
     """The port's CycleGANConfig reads the JAX package's JSON: the fields
-    the port's step reads keep their values, the JAX-only ones (which
-    select nothing in the port) are dropped."""
+    the port has keep their values (the dataset's among them), the
+    JAX-only ones (which select nothing in the port) are dropped."""
     jax_cfg = JaxConfig(wf=16, focal_gamma=1.5, accum_steps=2, batch_size=8,
                         fast_conv=True, dropout_impl="ref", epoch_size=16)
     assert CycleGANConfig.from_json(jax_cfg.to_json()) == CycleGANConfig(
-        wf=16, focal_gamma=1.5, accum_steps=2, batch_size=8)
+        wf=16, focal_gamma=1.5, accum_steps=2, batch_size=8, epoch_size=16)
 
 
 def test_state_conversion_roundtrip():

@@ -6,11 +6,16 @@ it.  Every Pallas kernel on the ported path is a hand-written CUDA kernel
 under ``csrc/`` (built with nvcc for sm_90a at first use, ``kernels/``);
 each wrapper runs its plain PyTorch version only for tensors on the CPU.
 
-Entry points (``load_generator``, ``predict_tiled``, ``make_tile_batcher``,
-``ModelService``) run on ``cuda`` unless the caller passes ``device="cpu"``,
-and raise when CUDA is asked for but absent.
+Entry points (``EM2EM``, ``create_dataset_from_tensors``,
+``create_dataset_from_generator``, ``save_model``, ``load_generator``,
+``predict_tiled``, ``make_tile_batcher``, ``ModelService``) run on ``cuda``
+unless the caller passes ``device="cpu"``, and raise when CUDA is asked for
+but absent.
 """
 
+from .data import create_dataset_from_generator, create_dataset_from_tensors
 from .device import resolve_device
+from .train import EM2EM
 
-__all__ = ["resolve_device"]
+__all__ = ["EM2EM", "create_dataset_from_generator",
+           "create_dataset_from_tensors", "resolve_device"]

@@ -17,13 +17,14 @@ from typing import Tuple
 @dataclasses.dataclass
 class CycleGANConfig:
     """Model and training hyperparameters (reference EM2EM.__init__,
-    cgan.py:40): the JAX package's fields that the port's train step
-    (train/cgan.py) reads.  It takes 3D, float32, without ``remat`` or
-    ``ensemble_apps``, and raises NotImplementedError on the rest.  The JAX
-    package's other fields (``fast_conv``, ``dropout_impl``, the dataset's
-    ``epoch_size`` and ``buffer_size``) select nothing here: ``from_json``
-    drops them, and the port always runs its kernels and draws its dropout
-    masks from a torch.Generator."""
+    cgan.py:40), the JAX package's fields but two.  The train step
+    (train/cgan.py) takes 3D, float32, without ``remat`` or
+    ``ensemble_apps``, and raises NotImplementedError on the rest.
+    ``batch_size``, ``epoch_size`` and ``buffer_size`` are the dataset's
+    (reference datasets.py:10-12), for a caller that builds the pipelines.
+    The JAX package's ``fast_conv`` and ``dropout_impl`` select nothing
+    here, and ``from_json`` drops them: the port always runs its kernels and
+    draws its dropout masks from a torch.Generator."""
 
     dimsize: int = 74
     is3d: bool = True
@@ -36,7 +37,9 @@ class CycleGANConfig:
     remat: bool = False
     ensemble_apps: bool = False
     accum_steps: int = 1            # microbatches per optimizer update
-    batch_size: int = 64            # reference datasets.py:10
+    batch_size: int = 64            # reference datasets.py:10-12
+    epoch_size: int = 4096
+    buffer_size: int = 4096
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)

@@ -8,6 +8,10 @@ layout, so a machine with numpy alone can read it.  It also reads the JAX
 package's ``generator.msgpack`` when ``msgpack`` is importable (flax stores
 each ndarray as msgpack ext type 1 holding ``(shape, dtype name, bytes)``).
 A reference TF SavedModel waits for the TF-interop slice.
+
+``save_model`` (reference utils.py:133-167; transfer_em_tpu/infer/
+export.py:95-110) rebuilds ``EM2EM`` from one of its checkpoints and
+exports generator G.
 """
 
 from __future__ import annotations
@@ -91,3 +95,21 @@ def load_generator(model_dir: str, device="cuda",
     gen = UNetGenerator(wf=meta.wf, compute_dtype=compute_dtype)
     gen.load_state_dict(_read_params(model_dir), strict=True)
     return gen.to(dev).eval(), meta
+
+
+def save_model(name: str, ckpt_dir, meanstd_x: Tuple[float, float],
+               meanstd_y: Tuple[float, float], size: int = 74,
+               is3d: bool = True, wf: int = 8, device="cuda") -> None:
+    """Rebuild ``EM2EM`` from the checkpoint ``ckpt_dir`` (a step directory
+    ``.../train_<exp>/<step>``) on ``device`` and export its generator G to
+    the directory ``name`` (generator.npz + meta.json).  As in the JAX
+    package, ``size`` defaults to 74 (the reference's 132 is a stale recipe
+    its own VALID_DIMS rejects)."""
+    from ..train.cgan import EM2EM
+    model = EM2EM(size, name, is3d=is3d, wf=wf, ckpt_restore=ckpt_dir,
+                  device=device)
+    meta = ExportMeta(buffer=model.buffer, outdimsize=model.outdimsize,
+                      meanstd_x=tuple(map(float, meanstd_x)),
+                      meanstd_y=tuple(map(float, meanstd_y)),
+                      dimsize=size, is3d=is3d, wf=wf)
+    export_generator(model.state.gg, meta, name)

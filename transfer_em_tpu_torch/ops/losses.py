@@ -6,7 +6,8 @@ Counterpart of ``transfer_em_tpu/ops/losses.py:29-105`` (which replaces
 * per-element loss alpha_t * (1 - p_t)**gamma * ce, summed over the channel
   axis, then the mean over everything else (SUM_OVER_BATCH_SIZE);
 * the composite losses with the reference's x2, LAMBDA (= 2) and 0.5
-  factors and the ``tconf = 1 - |a - b| / 2`` trick (cgan.py:110-142).
+  factors and the ``tconf = 1 - |a - b| / 2`` trick (cgan.py:110-142);
+* ``rmse`` and ``psnr`` (losses.py:108-118), the debug tools' scores.
 
 Plain torch, differentiable by autograd.  Where the JAX functions have a
 kink (``maximum``, ``clip``) the port uses ``torch.maximum`` /
@@ -93,3 +94,18 @@ def identity_loss(real: torch.Tensor, same: torch.Tensor, *,
                   gamma: float = 2.0) -> torch.Tensor:
     """LAMBDA (= 2) * 0.5 * tconf focal (cgan.py:122-131)."""
     return 2.0 * 0.5 * _tconf_focal(real, same, gamma=gamma)
+
+
+def rmse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Root mean squared error in float32 (reference debug.py:65-71
+    ``accuracy``)."""
+    d = a.to(torch.float32) - b.to(torch.float32)
+    return torch.sqrt(torch.mean(d * d))
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, peak: float = 2.0) -> torch.Tensor:
+    """PSNR in dB; the default peak 2.0 is the range of data scaled to
+    [-1, 1]."""
+    d = a.to(torch.float32) - b.to(torch.float32)
+    mse = torch.clamp_min(torch.mean(d * d), 1e-20)
+    return 10.0 * torch.log10(peak * peak / mse)

@@ -21,17 +21,22 @@ package).  Dropout draws from a torch.Generator on the batch's device,
 seeded from (seed, step): the same seed and step give the same masks, but
 not the JAX package's bits.
 
+``EM2EM`` (transfer_em_tpu/train/cgan.py:476-872) drives the step from
+the data pipelines, with checkpoints (``train/checkpoints.py``) and metrics
+(``train/metrics.py``); ``create_prior_helper`` taps an exported generator
+for ``disc_prior``.
+
 Waiting for later slices (each raises NotImplementedError where a caller
-reaches it): 2D, bf16 training, ``ensemble_apps``, ``remat``,
-``make_scan_train_step``, the EM2EM orchestrator with its checkpoints and
-metrics, and the data pipelines.  A prior is built from a loaded generator
-with ``_tap_prior``; ``create_prior_helper`` (a prior from an export path)
-comes with the orchestrator.
+reaches it): 2D (ROADMAP A1.7), bf16 training (A1.6), ``ensemble_apps``,
+``remat`` and the scan window (A1.5), ``to_mesh`` (A4),
+``from_reference_checkpoint`` and Keras priors (A3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import os
+import time
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +48,10 @@ from ..models.discriminator import Discriminator
 from ..models.generator import UNetGenerator
 from ..ops import losses as L
 from ..ops.convs import center_crop, zero_pad
+from ..rng import derive_seed
 from ..shapes import generator_shapes, is_valid_dimsize
+from .checkpoints import (CheckpointManager, load_into, read_checkpoint,
+                          snapshot)
 from .state import CycleGANState, make_optimizer
 
 # (7,) [g_gen_total, f_gen_total, disc_y, disc_x, g_gen_only, f_gen_only,
@@ -93,11 +101,13 @@ def _tap_prior(gen: UNetGenerator, last_layer: str) -> Callable:
 def _check_config(config: CycleGANConfig) -> None:
     if not config.is3d:
         raise NotImplementedError("2D CycleGAN training comes with a later "
-                                  "slice of the port; this slice is 3D")
+                                  "slice of the port (ROADMAP A1.7); this "
+                                  "slice is 3D")
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {config.compute_dtype!r}: bf16 training comes "
-            "with a later slice of the port; this slice trains in float32")
+            "with a later slice of the port (ROADMAP A1.6); this slice "
+            "trains in float32")
 
 
 def build_models(config: CycleGANConfig, disc_prior: Optional[Callable] = None,
@@ -221,8 +231,7 @@ def _dropout_generator(device: torch.device, seed: int, step: int,
     from (seed, step[, micro]), as the JAX step folds the step (and the
     microbatch index) into its key."""
     words = [seed, step] if micro is None else [seed, step, micro]
-    s = int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(s & (2 ** 63 - 1))
+    return torch.Generator(device=device).manual_seed(derive_seed(*words))
 
 
 def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
@@ -240,7 +249,7 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
     if config.ensemble_apps or config.remat:
         raise NotImplementedError(
             "ensemble_apps and remat are opt-ins of the JAX package that "
-            "come with a later slice of the port")
+            "come with a later slice of the port (ROADMAP A1.5)")
     accum = int(config.accum_steps)
     if accum < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum}")
@@ -303,14 +312,292 @@ def make_scan_train_step(*_args, **_kwargs):
     """Several steps per dispatch (JAX ``lax.scan``): not in this slice."""
     raise NotImplementedError(
         "make_scan_train_step (the scan window) is an opt-in of the JAX "
-        "package that comes with a later slice of the port")
+        "package that comes with a later slice of the port (ROADMAP A1.5)")
+
+
+def create_prior_helper(model_dir: str, last_layer: str, device="cuda"
+                        ) -> Callable:
+    """A weight-frozen tap of an exported generator's ``last_layer``
+    submodule, to pass as ``disc_prior`` (transfer_em_tpu/train/cgan.py:
+    48-76, reference cgan.py:21-29).  ``model_dir`` is the port's export
+    (generator.npz + meta.json) or the JAX package's (generator.msgpack +
+    meta.json); it is loaded onto ``device`` (default ``cuda``).  Priors
+    from reference Keras assets (.h5, SavedModel) come with the TF-interop
+    slice (ROADMAP A3)."""
+    if (model_dir.endswith((".h5", ".keras"))
+            or os.path.exists(os.path.join(model_dir, "saved_model.pb"))):
+        raise NotImplementedError(
+            "priors from reference Keras assets come with the TF-interop "
+            "slice of the port (ROADMAP A3)")
+    from ..infer.export import load_generator
+
+    gen, _ = load_generator(model_dir, device=device)
+    return _tap_prior(gen, last_layer)
+
+
+class BoundModel:
+    """A network of the live train state, callable as the reference's Keras
+    model attributes are (cgan.py:58-62): a forward with the CURRENT
+    parameters, without gradients, on the model's device.  ``.module`` is
+    the ``nn.Module``, ``.params`` its parameters by name."""
+
+    def __init__(self, module: torch.nn.Module, device: torch.device):
+        self.module = module
+        self._device = device
+
+    @property
+    def params(self):
+        return dict(self.module.named_parameters())
+
+    def __call__(self, x) -> torch.Tensor:
+        with torch.no_grad():
+            return self.module(torch.as_tensor(x).to(self._device))
 
 
 class EM2EM:
-    """The training orchestrator (checkpoints, metrics, data pipelines)."""
+    """CycleGAN model for 1-channel 3D data: train and predict (counterpart
+    of transfer_em_tpu/train/cgan.py:476-872, reference cgan.py:32-293).
 
-    def __init__(self, *_args, **_kwargs):
+    The constructor keeps the JAX package's arguments and adds ``device``
+    (default ``cuda``; raises where it is absent).  ``norm_type`` is
+    deprecated upstream and ``dropout_impl`` selects nothing here (dropout
+    masks come from a torch.Generator seeded from (seed, step)).  Later
+    slices (each raises NotImplementedError): 2D (``is3d=False``, ROADMAP
+    A1.7), bf16 (A1.6), ``remat`` / ``ensemble_apps`` and ``train``'s
+    ``scan_window`` (A1.5), ``to_mesh`` (A4), ``from_reference_checkpoint``
+    (A3).
+
+    Checkpoints (``train/checkpoints.py``): ``torch.save`` files under
+    ``<checkpoint_root>/train_<exp_name>/<epoch>/``, written on a background
+    thread from a synchronous host copy, committed by rename, at most 50
+    kept.  The latest committed one is restored at construction, unless
+    ``ckpt_restore`` (a step or a step directory of any experiment) names
+    another.
+    """
+
+    def __init__(self, dimsize: int, exp_name: str, is3d: bool = True,
+                 norm_type: str = "instancenorm",
+                 ckpt_restore: Optional[str] = None, wf: int = 8,
+                 focal_gamma: float = 2.0,
+                 disc_prior: Optional[Callable] = None,
+                 compute_dtype: str = "float32",
+                 checkpoint_root: str = "./checkpoints",
+                 seed: int = 0, remat: bool = False,
+                 ensemble_apps: bool = False, accum_steps: int = 1,
+                 dropout_impl: str = "rbg8", device="cuda"):
+        del norm_type, dropout_impl
+        self.device = resolve_device(device)
+        self.config = CycleGANConfig(
+            dimsize=dimsize, is3d=is3d, wf=wf, focal_gamma=focal_gamma,
+            compute_dtype=compute_dtype, remat=remat,
+            ensemble_apps=ensemble_apps, accum_steps=accum_steps)
+        self.exp_name = exp_name
+        self.is3d = is3d
+        self.disc_prior = disc_prior
+        self.seed = seed
+        self.state = create_state(self.config, seed, self.device, disc_prior)
+        shapes = generator_shapes(dimsize)
+        if shapes.out % 2:  # cgan.py:64
+            raise ValueError(f"dimsize {dimsize} gives an odd output size")
+        self.buffer = shapes.buffer
+        self.outdimsize = shapes.out
+        self._train_step = make_train_step(self.config, self.device)
+
+        self.checkpoint_path = os.path.abspath(
+            os.path.join(checkpoint_root, f"train_{exp_name}"))
+        self._ckpt = CheckpointManager(self.checkpoint_path, max_to_keep=50)
+        if ckpt_restore is not None:
+            self.restore(ckpt_restore)
+        elif self._ckpt.latest_step() is not None:
+            self.restore(self._ckpt.latest_step())
+            print("Latest checkpoint restored!!")
+
+    # ------------------------------------------------------------------ ckpt
+    def make_checkpoint(self, epoch_num: int) -> None:
+        """Save the state as step ``epoch_num`` (reference cgan.py:105-108):
+        a synchronous host copy now, written and committed on the
+        background writer.  ``wait_until_finished`` drains it."""
+        self._ckpt.save(epoch_num, snapshot(self.state))
+        print(f"Saving checkpoint for epoch {epoch_num} at "
+              f"{self.checkpoint_path}/{epoch_num}")
+
+    def wait_until_finished(self) -> None:
+        """Block until the checkpoint in flight, if any, is committed."""
+        self._ckpt.wait_until_finished()
+
+    def restore(self, ckpt_restore) -> None:
+        """Restore a checkpoint into the live state, in place: a step
+        number of this experiment, or a step directory
+        ``.../train_<exp>/<step>`` of any experiment (reference
+        cgan.py:98-100)."""
+        self.wait_until_finished()
+        s = str(ckpt_restore).rstrip(os.sep)
+        if isinstance(ckpt_restore, int) or os.sep not in s:
+            path = self._ckpt.step_path(int(s))
+        else:
+            path = os.path.abspath(s)
+        load_into(self.state, read_checkpoint(path))
+        print(f"checkpoint {ckpt_restore} restored")
+
+    @classmethod
+    def from_reference_checkpoint(cls, *_args, **_kwargs) -> "EM2EM":
+        """Continue a reference TF run: needs ``compat``."""
         raise NotImplementedError(
-            "EM2EM, its checkpoints and metrics and the data pipelines come "
-            "with a later slice of the port; drive create_state and "
-            "make_train_step directly")
+            "from_reference_checkpoint reads TF checkpoints through compat, "
+            "which comes with the TF-interop slice of the port (ROADMAP A3)")
+
+    def to_mesh(self, mesh=None) -> "EM2EM":
+        """Data-parallel training over several cards."""
+        raise NotImplementedError(
+            "to_mesh (data-parallel training) comes with the parallel slice "
+            "of the port (ROADMAP A4)")
+
+    # ----------------------------------------------------------------- train
+    def train_step(self, real_x, real_y) -> torch.Tensor:
+        """One optimization step; returns the 7-loss vector on the device
+        (cgan.py:144)."""
+        return self._train_step(self.state, real_x, real_y, self.seed)
+
+    def train(self, train_input: Iterable, train_target: Iterable,
+              epochs: int = 3000, start: int = 0, debug: bool = False,
+              sample=None, sample_gt=None, enable_eager: bool = False,
+              num_samples: int = 4096, check_freq: int = 1,
+              metrics_log: Optional[str] = None,
+              profile_dir: Optional[str] = None,
+              scan_window: int = 1) -> None:
+        """The training loop (reference cgan.py:242-287).
+
+        train_input / train_target: batches, re-iterable per epoch (the
+        data pipelines, or any pair of iterables of float batches).  Each
+        epoch's loss is summed on the device and read once, at its end.
+        Every ``check_freq`` epochs a checkpoint is made; with ``debug`` and
+        a ``sample`` the sample is predicted, scored against ``sample_gt``
+        and written as ``<exp_name>_sample.png``.  ``metrics_log``: a JSONL
+        path for per-epoch losses and timing; ``profile_dir``: a
+        torch.profiler trace of the run.  ``enable_eager`` is accepted and
+        changes nothing: the port runs eagerly anyway."""
+        from .metrics import MetricsLogger, profile_trace
+
+        del enable_eager
+        if int(scan_window) > 1:
+            raise NotImplementedError(
+                "scan_window > 1 (several steps per dispatch) comes with a "
+                "later slice of the port (ROADMAP A1.5)")
+        logger = MetricsLogger(metrics_log)
+        pbar = None
+        try:
+            with profile_trace(profile_dir):
+                for epoch in range(start, start + epochs):
+                    t0 = time.time()
+                    pbar = None
+                    if debug:
+                        try:  # progress bar (reference cgan.py:256-262)
+                            import tqdm
+                            pbar = tqdm.tqdm(total=num_samples)
+                        except ImportError:
+                            pass
+                    loss_acc, count = None, 0
+                    for data_f, data_g in zip(train_input, train_target):
+                        lv = self.train_step(data_f, data_g)
+                        loss_acc = lv if loss_acc is None else loss_acc + lv
+                        count += 1
+                        if pbar is not None:
+                            pbar.update(1)
+                    if pbar is not None:
+                        pbar.close()
+                        pbar = None
+                    loss = (np.zeros((7,), np.float32) if loss_acc is None
+                            else loss_acc.cpu().numpy() / count)
+                    print(f"Epoch {epoch+1} loss [g_gen_total, f_gen_total, "
+                          f"disc_y, disc_x, g_gen_only, f_gen_only, cycle]: "
+                          f"{loss}")
+                    logger.log_epoch(epoch + 1, loss, time.time() - t0, count)
+
+                    if (epoch + 1) % check_freq == 0:
+                        self.make_checkpoint(epoch + 1)
+                        if debug and sample is not None:  # cgan.py:275
+                            self._score_sample(sample, sample_gt)
+                    print(f"Time taken for epoch {epoch+1} is "
+                          f"{time.time()-t0}")
+        finally:
+            if pbar is not None:  # left open by a mid-epoch exception
+                pbar.close()
+            try:
+                self.wait_until_finished()  # drain the checkpoint writer
+            finally:
+                logger.close()
+
+    def _score_sample(self, sample, sample_gt) -> None:
+        from ..debug import accuracy, generate_images
+
+        pred = self.predict(sample)
+        if sample_gt is not None:
+            gt = center_crop(torch.as_tensor(sample_gt).to(self.device),
+                             self.buffer)
+            print(f"Accuracy on sample: {accuracy(gt[0], pred[0])}")
+        generate_images(sample, pred, show=False,
+                        save_path=f"{self.exp_name}_sample.png")
+
+    # ------------------------------------------------------------ inspection
+    def plot_generator(self, location: str) -> None:
+        """Write the generator's submodules and parameter shapes (reference
+        cgan.py:237-240 used keras plot_model): a text table, or an image
+        of it when ``location`` ends with .png."""
+        self._plot_model(self.state.gg, location)
+
+    def plot_discriminator(self, location: str) -> None:
+        """The discriminator's table (reference cgan.py:232-235)."""
+        self._plot_model(self.state.dx, location)
+
+    @staticmethod
+    def _plot_model(module: torch.nn.Module, location: str) -> None:
+        rows = [(n, str(tuple(p.shape)), str(p.numel()))
+                for n, p in module.named_parameters()]
+        rows.append(("total", "", str(sum(p.numel()
+                                          for p in module.parameters()))))
+        w = [max(len(r[i]) for r in rows + [("parameter", "shape", "size")])
+             for i in range(3)]
+        lines = [str(module), ""] + [
+            f"{a:<{w[0]}}  {b:<{w[1]}}  {c:>{w[2]}}"
+            for a, b, c in [("parameter", "shape", "size")] + rows]
+        table = "\n".join(lines) + "\n"
+        if location.endswith(".png"):
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            fig = plt.figure(figsize=(14, max(4, table.count("\n") * 0.22)))
+            fig.text(0.01, 0.99, table, family="monospace", fontsize=6,
+                     va="top")
+            plt.axis("off")
+            plt.savefig(location, dpi=150, bbox_inches="tight")
+            plt.close(fig)
+        else:
+            with open(location, "w") as f:
+                f.write(table)
+
+    # --------------------------------------------------------------- predict
+    def predict(self, data) -> torch.Tensor:
+        """Generator G forward, without dropout (reference cgan.py:289-293);
+        a tensor on the model's device."""
+        return self.generator_g(data)
+
+    def predict_f(self, data) -> torch.Tensor:
+        """Generator F forward (Y -> X)."""
+        return self.generator_f(data)
+
+    # ---- the reference's network attributes (cgan.py:58-62), live ----
+    @property
+    def generator_g(self) -> BoundModel:
+        return BoundModel(self.state.gg, self.device)
+
+    @property
+    def generator_f(self) -> BoundModel:
+        return BoundModel(self.state.gf, self.device)
+
+    @property
+    def discriminator_x(self) -> BoundModel:
+        return BoundModel(self.state.dx, self.device)
+
+    @property
+    def discriminator_y(self) -> BoundModel:
+        return BoundModel(self.state.dy, self.device)
