@@ -39,7 +39,26 @@ each printing one JSON line:
             versions on the same card (f32) within one level on at most
             1e-3 of the voxels, and every kernel's launch count must have
             risen during the timed requests.
-6. train_check  one CycleGAN train step (wf=8, B=4, dropout off) through
+6. volume   predict_volume at bench_infer.py's request (a 360^3 region at
+            (20, 20, 20) of a seeded smoothed 400^3 volume, 1000 tiles),
+            wf=8 seeded generator, f32, B=128: device (the volume uploaded
+            once), slab, stream (np.memmap source and out=, at a 160 MB
+            budget, one chunk, and at a 19 MB one, five chunks) and tiles,
+            one warm and 3 timed calls each (wall, Mvox/s, tiles/s, peak
+            memory, launches) and one call under torch.profiler.  Under
+            cudnn.deterministic stream (each budget twice, its out= and
+            pinned host blocks first filled with one of two sentinels),
+            auto and tiles must equal device bit for bit; device and slab
+            must be within one level on at most 1e-3 of the voxels of the
+            same mode through the plain versions (slab against device is
+            printed, not gated); bf16 device against f32 >= 40 dB, not
+            equal to it, with every conv3 launch on bf16 operands; every
+            kernel call of one slab forward (conv3 at all 8 layers,
+            LeakyReLU at 4, preprocess, postprocess), recorded at its own
+            shape, against its plain version, with times beside the bound;
+            device mode at B = 64, 128, 256; every kernel must launch in
+            every mode.
+7. train_check  one CycleGAN train step (wf=8, B=4, dropout off) through
             the kernels and one through the plain versions on the card, from
             the same state: 7-loss vectors within rtol 1e-4, every
             parameter's gradient within GRAD_TOL of its own largest |g|;
@@ -47,14 +66,14 @@ each printing one JSON line:
             noise (3 seeds) and what three planted faults in conv3's
             backward read, each of which must exceed GRAD_TOL in every
             network.
-7. train    create_state + make_train_step at the default CycleGANConfig
+8. train    create_state + make_train_step at the default CycleGANConfig
             (3D, wf=8, 74^3, f32, B=64, dropout on): 5 steps (finite losses,
             all four networks updated, conv3 tc/direct, LeakyReLU and
             weight-pack counts per step equal to those derived from the
             networks), median step time of steps 2-5, tiles/s, peak memory,
             then one step under torch.profiler (busy share, device time by
             kernel and by launching op).
-8. em2em    the training entry point as a user runs it (the README quick
+9. em2em    the training entry point as a user runs it (the README quick
             start in 3D): datasets from 64 seeded 74^3 cubes of a smoothed
             256^3 uint8 volume (target; source through make_warp_map) and a
             streaming dataset over corner_stream, one epoch of each timed
@@ -72,9 +91,11 @@ each printing one JSON line:
             from epoch 3 -> load_generator -> predict_tiled on a 128^3
             chunk within one grey level on at most 1e-3 of the voxels of
             the plain versions.  All four kernels must launch in the phase.
-9. the card's nvidia-smi line, then the ``kernels`` line (``launches``
-   from the served round, ``train_launches`` from the 5 train steps,
-   ``em2em_launches`` from the em2em phase), then the ``ok`` line.  Any
+10. the card's nvidia-smi line, then the ``kernels`` line (``launches``
+   from the served round, ``volume_launches`` from the volume phase's timed
+   calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
+   from the em2em phase, ``slab_shapes`` from the volume phase's kernel
+   checks), then the ``ok`` line.  Any
    failed check exits non-zero before the last line.
 """
 
@@ -379,6 +400,60 @@ def _tie_voxels(y, meanstd, tpad):
     return (z - z.floor() - 0.5).abs() < 1e-6
 
 
+def post_check(y, tpad):
+    """postprocess against its plain version: bit-identical except at exact
+    .5 ties of the f32 value, where one level is allowed."""
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    got = ck.postprocess_u8(y, MS_Y, tpad)
+    ref = ck.postprocess_u8_plain(y, MS_Y, tpad)
+    diff = (got.int() - ref.int()).abs()
+    ties = _tie_voxels(y, MS_Y, tpad)
+    off_tie = int(diff[~ties].max().item()) if (~ties).any() else 0
+    return {"max_abs_err": float(diff.max().item()), "tol": 0,
+            "tie_voxels": int(ties.sum().item()),
+            "differing_voxels": int((diff > 0).sum().item()),
+            "ok": off_tie == 0 and int(diff.max().item()) <= 1}
+
+
+def _pre_case(x):
+    """preprocess on uint8 ``x`` against its plain version (within 1e-6),
+    with its times beside the bound."""
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    got, ref = ck.preprocess_u8(x, MS_X), ck.preprocess_u8_plain(x, MS_X)
+    err = (got - ref).abs().max().item()
+    del got, ref
+    a, b = ck.preprocess_affine(MS_X)
+    b_ms, b_by = bound(x.numel() * 5, 2.0 * x.numel(), torch.float32)
+    return {"max_abs_err": err, "tol": 1e-6, "ok": err <= 1e-6,
+            "ms": cuda_ms(lambda: ck.preprocess_u8(x, MS_X), 20),
+            "plain_ms": cuda_ms(lambda: ck.preprocess_u8_plain(x, MS_X), 20),
+            "library_ms": cuda_ms(lambda: x.float() * a + b, 20),
+            "graph_ms": graph_ms(lambda: ck.preprocess_u8(x, MS_X)),
+            "library_graph_ms": graph_ms(lambda: x.float() * a + b),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _leaky_case(v):
+    """LeakyReLU on ``v`` against its plain version (bit-identical), with
+    its times beside the bound."""
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    got, ref = ck.leaky_relu(v), ck.leaky_relu_plain(v)
+    err = (got.float() - ref.float()).abs().max().item()
+    del got, ref
+    b_ms, b_by = bound(2 * v.numel() * v.element_size(), 2.0 * v.numel(),
+                       v.dtype)
+    return {"max_abs_err": err, "tol": 0.0, "ok": err == 0.0,
+            "ms": cuda_ms(lambda: ck.leaky_relu(v), 20),
+            "plain_ms": cuda_ms(lambda: ck.leaky_relu_plain(v), 20),
+            "library_ms": cuda_ms(lambda: F.leaky_relu(v, 0.3), 20),
+            "graph_ms": graph_ms(lambda: ck.leaky_relu(v)),
+            "library_graph_ms": graph_ms(lambda: F.leaky_relu(v, 0.3)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def check_elementwise(dev, gen):
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
@@ -386,38 +461,15 @@ def check_elementwise(dev, gen):
     # preprocess: (B, 74^3) uint8 -> (B, 74^3, 1) f32
     x = torch.randint(0, 256, (B, 74, 74, 74), generator=gen, device=dev,
                       dtype=torch.uint8)
-    got, ref = ck.preprocess_u8(x, MS_X), ck.preprocess_u8_plain(x, MS_X)
-    err = (got - ref).abs().max().item()
-    a, b = ck.preprocess_affine(MS_X)
-    nbytes = x.numel() * 5
-    b_ms, b_by = bound(nbytes, 2.0 * x.numel(), torch.float32)
-    rec = {"max_abs_err": err, "tol": 1e-6, "ok": err <= 1e-6,
-           "ms": cuda_ms(lambda: ck.preprocess_u8(x, MS_X), 20),
-           "plain_ms": cuda_ms(lambda: ck.preprocess_u8_plain(x, MS_X), 20),
-           "library_ms": cuda_ms(lambda: x.float() * a + b, 20),
-           "graph_ms": graph_ms(lambda: ck.preprocess_u8(x, MS_X)),
-           "library_graph_ms": graph_ms(lambda: x.float() * a + b),
-           "bound_ms": b_ms, "bound_by": b_by}
+    rec = _pre_case(x)
     emit({"phase": "kernel", "kernel": "preprocess_u8",
           "shape": list(x.shape), **rec})
     out["preprocess_u8"] = rec
-    del x, got, ref
+    del x
 
     # postprocess: (B, 40^3, 1) f32, tpad 2 read in place -> (B, 36^3) u8
     # (the vector path), timed; then the scalar path (odd tpad, OW % 4 != 0)
-    # and tpad 0, checked only.  Bit-identical to the plain version except
-    # at exact .5 ties of the f32 value, where one level is allowed.
-    def post_check(y, tpad):
-        got = ck.postprocess_u8(y, MS_Y, tpad)
-        ref = ck.postprocess_u8_plain(y, MS_Y, tpad)
-        diff = (got.int() - ref.int()).abs()
-        ties = _tie_voxels(y, MS_Y, tpad)
-        off_tie = int(diff[~ties].max().item()) if (~ties).any() else 0
-        return {"max_abs_err": float(diff.max().item()), "tol": 0,
-                "tie_voxels": int(ties.sum().item()),
-                "differing_voxels": int((diff > 0).sum().item()),
-                "ok": off_tie == 0 and int(diff.max().item()) <= 1}
-
+    # and tpad 0, checked only.
     y = torch.randn((B, 40, 40, 40, 1), generator=gen, device=dev)
     rec = post_check(y, 2)
     n_out = B * 36 ** 3
@@ -454,18 +506,7 @@ def check_elementwise(dev, gen):
                "graph_ms": 0.0, "library_graph_ms": 0.0}
         for shape in shapes:
             v = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            got, ref = ck.leaky_relu(v), ck.leaky_relu_plain(v)
-            err = (got.float() - ref.float()).abs().max().item()
-            b_ms, _ = bound(2 * v.numel() * v.element_size(), 2.0 * v.numel(),
-                            dtype)
-            rec = {"max_abs_err": err, "tol": 0.0, "ok": err == 0.0,
-                   "ms": cuda_ms(lambda: ck.leaky_relu(v), 20),
-                   "plain_ms": cuda_ms(lambda: ck.leaky_relu_plain(v), 20),
-                   "library_ms": cuda_ms(lambda: F.leaky_relu(v, 0.3), 20),
-                   "graph_ms": graph_ms(lambda: ck.leaky_relu(v)),
-                   "library_graph_ms": graph_ms(
-                       lambda: F.leaky_relu(v, 0.3)),
-                   "bound_ms": b_ms}
+            rec = _leaky_case(v)
             emit({"phase": "kernel", "kernel": "leaky_relu",
                   "net": net.rstrip("_") or "gen",
                   "dtype": str(dtype).replace("torch.", ""),
@@ -473,9 +514,9 @@ def check_elementwise(dev, gen):
             for k in ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms",
                       "library_graph_ms"):
                 tot[k] += rec[k]
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
             tot["ok"] = tot["ok"] and rec["ok"]
-            del v, got, ref
+            del v
         out["leaky_relu_" + net + str(dtype).replace("torch.", "")] = tot
         if net:
             continue
@@ -567,7 +608,7 @@ def plain_versions(noise=0.0, seed=5):
     the serving and train checks.  ``noise`` > 0 multiplies every conv3
     output by (1 + noise * N(0, 1)), drawn from ``seed``: a perturbation of
     the plain path's forward of a chosen relative size."""
-    from transfer_em_tpu_torch.infer import tiling
+    from transfer_em_tpu_torch.infer import device_stitch, slab, tiling
     from transfer_em_tpu_torch.models import blocks, discriminator
     from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
@@ -585,13 +626,55 @@ def plain_versions(noise=0.0, seed=5):
              (blocks, "conv3_act", lambda x, w: conv3(x, w, ck.LEAKY_SLOPE)),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
              (discriminator, "leaky_relu", ck.leaky_relu_plain),
-             (tiling, "preprocess_u8", ck.preprocess_u8_plain),
-             (tiling, "postprocess_to_u8", ck.postprocess_u8_plain)]
+             *[(m, n, f) for m in (tiling, device_stitch, slab)
+               for n, f in (("preprocess_u8", ck.preprocess_u8_plain),
+                            ("postprocess_to_u8", ck.postprocess_u8_plain))]]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
             setattr(m, n, f)
         yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Record the distinct kernel-wrapper calls of the generator and the
+    slab path: yields a list of ("conv3", x shape, O, epilogue),
+    ("leaky_relu", shape), ("preprocess_u8", shape) and ("postprocess_u8",
+    shape, tpad) in the order of their first call."""
+    from transfer_em_tpu_torch.infer import slab
+    from transfer_em_tpu_torch.models import blocks
+
+    calls = []
+
+    def recording(m, name, key):
+        f = getattr(m, name)
+
+        def wrapped(*args):
+            k = key(*args)
+            if k not in calls:
+                calls.append(k)
+            return f(*args)
+        return wrapped
+
+    swaps = [
+        (blocks, "conv3", lambda x, w: ("conv3", tuple(x.shape),
+                                        w.shape[-1], False)),
+        (blocks, "conv3_act", lambda x, w: ("conv3", tuple(x.shape),
+                                            w.shape[-1], True)),
+        (blocks, "leaky_relu", lambda v: ("leaky_relu", tuple(v.shape))),
+        (slab, "preprocess_u8", lambda x, ms: ("preprocess_u8",
+                                               tuple(x.shape))),
+        (slab, "postprocess_to_u8", lambda y, ms, tpad=0: (
+            "postprocess_u8", tuple(y.shape), tpad))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, key in swaps:
+            setattr(m, n, recording(m, n, key))
+        yield calls
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
@@ -647,16 +730,19 @@ def reset_counts():
     for c in counters().values():
         c.launches = 0
     cuda_conv.conv3.launches_tc = cuda_conv.conv3.launches_direct = 0
+    cuda_conv.conv3.launches_bf16 = 0
     cuda_conv.packed_weights.packs = 0
 
 
 def read_counts():
-    """Launches per kernel, conv3 also per path (tc, direct), and the
-    weight packs (plain torch, not a kernel launch)."""
+    """Launches per kernel, conv3 also per path (tc, direct) and those on
+    bfloat16 operands, and the weight packs (plain torch, not a kernel
+    launch)."""
     from transfer_em_tpu_torch.ops import cuda_conv
     out = {k: c.launches for k, c in counters().items()}
     out["conv3_tc"] = cuda_conv.conv3.launches_tc
     out["conv3_direct"] = cuda_conv.conv3.launches_direct
+    out["conv3_bf16"] = cuda_conv.conv3.launches_bf16
     out["conv3_weight_packs"] = cuda_conv.packed_weights.packs
     return out
 
@@ -767,7 +853,257 @@ def check_serving(dev, smi):
     return rec
 
 
-# -- phases 6-7: the train step ------------------------------------------------
+# -- phase 6: large-volume inference (predict_volume) ------------------------
+
+# bench_infer.py's request: a 360^3 region at (20, 20, 20) of a 400^3
+# volume, 1000 tiles of 36^3 at B=128 in the tile-grid modes.
+VOL_SIDE, VOL_START, VOL_SIZE, VOL_B = 400, (20, 20, 20), (360,) * 3, 128
+# Stream budgets: bench_infer.py's 160 MB, which holds this request in one
+# chunk (398^3 bytes, 63 MB); and 120 * 398^2 bytes (19 MB), five chunks of
+# 360 x 360 x 72 (200 tiles each), so that the pipeline overlaps.
+VOL_BUDGETS = {"stream": 160 << 20, "stream_5_chunks": 120 * 398 ** 2}
+VOL_SWEEP = (64, 128, 256)
+SENTINELS = (0xA5, 0x5A)  # stream's exactness runs, one call each
+
+
+def poison_pinned(shapes, fill, n=4):
+    """Fill the pinned host blocks the caching host allocator holds for
+    uint8 tensors of ``shapes`` (and more, up to ``n`` a shape) with
+    ``fill``, then free them: the next pinned allocations of those shapes
+    start from ``fill``, not from an earlier call's data."""
+    held = [torch.full(shape, fill, dtype=torch.uint8, pin_memory=True)
+            for shape in shapes for _ in range(n)]
+    del held
+
+
+def _timed(run, reps=3):
+    """One warm call, then ``reps`` synchronised calls with the launch
+    counts zeroed just before them: (last result, seconds per call, peak
+    device memory of the timed calls, launches of the timed calls)."""
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    return out, times, torch.cuda.max_memory_allocated(), launches
+
+
+def _u8_diff(got, want):
+    diff = np.abs(np.asarray(got).astype(np.int16)
+                  - np.asarray(want).astype(np.int16))
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def check_volume(dev, smi):
+    """predict_volume on the card at bench_infer.py's request: device (the
+    volume uploaded once), slab, stream (np.memmap source and out=, at two
+    budgets) and tiles, f32, one warm and 3 timed calls each (wall, Mvox/s,
+    tiles/s, peak memory, launches) and one profiled call; under
+    cudnn.deterministic stream (behind sentinels), auto and tiles bit-equal
+    to device; device and slab within one level on at most 1e-3 of the
+    voxels of the same mode through the plain versions; bf16 device against
+    f32 (PSNR >= 40 dB, not equal, bf16 conv3 launches only); every kernel
+    call of one slab forward against its plain version at its shape;
+    device mode at B in VOL_SWEEP."""
+    from transfer_em_tpu_torch.infer import plan_tiles, predict_volume
+    from transfer_em_tpu_torch.infer.stream import plan_chunks
+    from transfer_em_tpu_torch.models import UNetGenerator
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = seeded_generator(3, dev)
+    vol = smooth_volume(VOL_SIDE, seed=31, dev=dev)
+    t0 = time.perf_counter()
+    vol_d = torch.from_numpy(vol).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    nvox = math.prod(VOL_SIZE)
+    n_tiles = plan_tiles(VOL_START, VOL_SIZE, 40, 17).num_tiles
+    args = (VOL_START, VOL_SIZE, MS_X, MS_Y)
+    rec = {"phase": "volume", "card": smi, "request": {
+        "volume": [VOL_SIDE] * 3, "start": VOL_START, "size": VOL_SIZE,
+        "tiles": n_tiles, "batch": VOL_B, "wf": 8, "dtype": "float32"},
+        "upload_s": upload_s, "chunks": {
+            k: plan_chunks(VOL_START, VOL_SIZE, 40, 17, b).num_chunks
+            for k, b in VOL_BUDGETS.items()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = np.memmap(os.path.join(tmp, "src.u8"), np.uint8, "w+",
+                        shape=vol.shape)
+        src[:] = vol
+        src.flush()
+        out_mm = np.memmap(os.path.join(tmp, "out.u8"), np.uint8, "w+",
+                           shape=VOL_SIZE[::-1])
+
+        def mode_run(mode, source=vol_d, g=gen, bsz=VOL_B, **kw):
+            return lambda: predict_volume(source, g, *args, mode=mode,
+                                          batch_size=bsz, device=dev, **kw)
+
+        runs = {"device": mode_run("device"), "slab": mode_run("slab")}
+        for name, budget in VOL_BUDGETS.items():
+            runs[name] = mode_run("stream", src, max_block_bytes=budget,
+                                  out=out_mm)
+        runs["tiles"] = mode_run("tiles", vol)
+        modes, outs = {}, {}
+        for name, run in runs.items():
+            out, times, peak, launches = _timed(run)
+            med = sorted(times)[len(times) // 2]
+            outs[name] = np.array(out)
+            modes[name] = {"wall_s": times, "median_s": med,
+                           "mvox_per_s": nvox / med / 1e6,
+                           "tiles_per_s": n_tiles / med,
+                           "peak_memory_gb": peak / 1e9,
+                           "launches": launches,
+                           "profiled": profile_round(run)}
+            emit({"phase": "volume_mode", "mode": name, **modes[name]})
+        rec["modes"] = modes
+        launches_ok = all(m["launches"][k] > 0 for m in modes.values()
+                          for k in (*counters(), "conv3_tc", "conv3_direct"))
+
+        # exactness: the tile-grid modes bit-equal under cuDNN's
+        # deterministic algorithms (its defaults need not repeat bit for
+        # bit; tools/train_repeat_probe.py).  Each stream budget runs twice,
+        # into an out= and pinned host blocks filled first with one of two
+        # sentinels, so that no voxel of an earlier call can pass for this
+        # one's: a dropped chunk write or a write before its download landed
+        # reads a sentinel, and no voxel equals both.
+        with cudnn_deterministic():
+            exact = {name: np.array(runs[name]())
+                     for name in ("device", "tiles")}
+            exact["auto"] = mode_run("auto", vol)()
+            for name, budget in VOL_BUDGETS.items():
+                plan = plan_chunks(VOL_START, VOL_SIZE, 40, 17, budget)
+                for fill in SENTINELS:
+                    poison_pinned((plan.chunk[::-1], plan.block[::-1]), fill)
+                    out_mm[:] = fill
+                    exact[f"{name}_{fill:#x}"] = np.array(runs[name]())
+        ref = exact["device"]
+        equal = {k: bool(np.array_equal(v, ref)) for k, v in exact.items()
+                 if k != "device"}
+        rec["bit_equal_to_device"] = equal
+        rec["differing_voxels_vs_device"] = {
+            k: int((v != ref).sum()) for k, v in exact.items()
+            if k != "device"}
+    slab_diff = _u8_diff(outs["slab"], ref)
+    rec["slab_vs_device"] = {"u8_max_diff": slab_diff[0],
+                             "u8_frac_differing": slab_diff[1]}
+
+    # the plain versions, the same modes
+    with plain_versions():
+        plain = {name: runs[name]() for name in ("device", "slab")}
+    rec["vs_plain"] = {}
+    for name, want in plain.items():
+        worst, frac = _u8_diff(exact["device"] if name == "device"
+                               else outs["slab"], want)
+        rec["vs_plain"][name] = {"u8_max_diff": worst,
+                                 "u8_frac_differing": frac}
+    plain_ok = all(v["u8_max_diff"] <= 1 and v["u8_frac_differing"] <= 1e-3
+                   for v in rec["vs_plain"].values())
+
+    # bf16: the same weights, activations in bf16
+    gen16 = UNetGenerator(wf=8, compute_dtype="bfloat16")
+    gen16.load_state_dict(gen.state_dict())
+    gen16 = gen16.to(dev).eval()
+    out16, times16, peak16, launches16 = _timed(mode_run("device", g=gen16))
+    med16 = sorted(times16)[1]
+    diff16 = _u8_diff(out16, ref)
+    rec["bf16_device"] = {"wall_s": times16, "mvox_per_s": nvox / med16 / 1e6,
+                          "peak_memory_gb": peak16 / 1e9,
+                          "psnr_db_vs_f32": psnr(out16, ref),
+                          "u8_max_diff_vs_f32": diff16[0],
+                          "u8_frac_differing_vs_f32": diff16[1],
+                          "launches": launches16}
+    # bf16 ran: every conv3 launch on bf16 operands, none in f32 device
+    # mode, and the output is not f32's
+    bf16_ok = (rec["bf16_device"]["psnr_db_vs_f32"] >= 40
+               and launches16["conv3_bf16"] == launches16["conv3"] > 0
+               and modes["device"]["launches"]["conv3_bf16"] == 0
+               and diff16[0] > 0)
+    del gen16, out16
+
+    # batch sweep, device mode
+    rec["batch_sweep"] = {}
+    for bsz in VOL_SWEEP:
+        _, times, peak, _ = _timed(mode_run("device", bsz=bsz))
+        med = sorted(times)[1]
+        rec["batch_sweep"][bsz] = {"wall_s": times, "median_s": med,
+                                   "mvox_per_s": nvox / med / 1e6,
+                                   "peak_memory_gb": peak / 1e9}
+
+    # every kernel call of one slab forward, at its own shape, against its
+    # plain version: conv3 f32 (each layer's epilogue; 1e-4 max(1, |ref|)),
+    # LeakyReLU (bit-identical), preprocess (1e-6), postprocess (ties)
+    with recorded_calls() as calls:
+        predict_volume(vol_d, gen, VOL_START, VOL_SIZE[:2] + (40,), MS_X,
+                       MS_Y, mode="slab", device=dev)
+    torch.cuda.synchronize()
+    del vol_d, gen
+    torch.cuda.empty_cache()
+    layer = {(c, o): n for n, _, c, o, _ in CONV_LAYERS}
+    g = torch.Generator(device=dev).manual_seed(41)
+    slab_kernels = []
+    for call in calls:
+        kind, shape = call[:2]
+        if kind == "conv3":
+            c, o, act = shape[-1], call[2], call[3]
+            slab_kernels.append(_conv3_case(
+                dev, g, torch.float32, 1e-4,
+                "slab." + layer.get((c, o), f"{c}to{o}"),
+                shape[:-1], c, o, act))
+            continue
+        if kind == "leaky_relu":
+            k = _leaky_case(torch.randn(shape, generator=g, device=dev))
+        elif kind == "preprocess_u8":
+            k = _pre_case(torch.randint(0, 256, shape, generator=g,
+                                        device=dev, dtype=torch.uint8))
+        else:  # postprocess: B * OD thread blocks (40 at the slab's shape)
+            tpad = call[2]
+            y = torch.randn(shape, generator=g, device=dev)
+            k = post_check(y, tpad)
+            n_out = shape[0] * math.prod(s - 2 * tpad for s in shape[1:4])
+            b_ms, b_by = bound(n_out * 5, 5.0 * n_out, torch.float32)
+            t = (slice(None),) + tuple(slice(tpad, s - tpad)
+                                       for s in shape[1:4]) + (0,)
+            lib = lambda: (y[t] * MS_Y[1] + MS_Y[0] + 1.0).mul(
+                127.5).round().clamp(0, 255).to(torch.uint8)
+            k.update({
+                "tpad": tpad, "blocks": shape[0] * (shape[1] - 2 * tpad),
+                "ms": cuda_ms(lambda: ck.postprocess_u8(y, MS_Y, tpad), 20),
+                "plain_ms": cuda_ms(
+                    lambda: ck.postprocess_u8_plain(y, MS_Y, tpad), 20),
+                "library_ms": cuda_ms(lib, 20),
+                "graph_ms": graph_ms(lambda: ck.postprocess_u8(y, MS_Y, tpad)),
+                "library_graph_ms": graph_ms(lib), "bound_ms": b_ms,
+                "bound_by": b_by})
+        k.update(kernel=kind, layer="slab." + kind, shape=list(shape))
+        emit({"phase": "kernel", **k})
+        slab_kernels.append(k)
+        torch.cuda.empty_cache()
+    rec["slab_kernels"] = slab_kernels
+    slab_counts = {n: sum(k["kernel"] == n for k in slab_kernels)
+                   for n in counters()}
+    rec["slab_kernel_checks"] = slab_counts
+    slab_ok = (all(k["ok"] for k in slab_kernels)
+               and slab_counts["conv3"] == len(CONV_LAYERS)
+               and all(slab_counts.values()))
+
+    rec["launches"] = {k: sum(m["launches"][k] for m in modes.values())
+                       for k in modes["device"]["launches"]}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(
+        all(equal.values()) and plain_ok and launches_ok and bf16_ok
+        and slab_ok and float(np.std(ref)) > 2.0)
+    emit(rec)
+    return rec
+
+
+# -- phases 7-8: the train step -----------------------------------------------
 
 TREES = ("gg", "gf", "dx", "dy")
 
@@ -1100,7 +1436,7 @@ def check_train(dev, smi):
     return rec
 
 
-# -- phase 8: EM2EM, the training entry point --------------------------------
+# -- phase 9: EM2EM, the training entry point --------------------------------
 
 EM_SIDE, EM_CUBES, EM_BATCH, EM_WF = 256, 64, 16, 8
 
@@ -1382,6 +1718,10 @@ def main():
     if not serve["ok"]:
         fail("serve", "serving check failed")
 
+    volume = check_volume(dev, smi)
+    if not volume["ok"]:
+        fail("volume", "the volume phase failed a check")
+
     train_check = check_train_plain(
         dev, max(conv["float32"]["rel_err"], shapes["rel_err"]))
     train = check_train(dev, smi)
@@ -1465,11 +1805,21 @@ def main():
                               "per": "the discriminator's 5 activations "
                                      "at B=128, float32"}}),
     ]
-    le = em2em["launches"]
+    le, lv = em2em["launches"], volume["launches"]
     for line in lines:
         line["em2em_launches"] = le[line["name"]]
+        line["volume_launches"] = lv[line["name"]]
     for p in paths:
         p["em2em_launches"] = le["conv3_" + p["name"].split(".")[1]]
+        p["volume_launches"] = lv["conv3_" + p["name"].split(".")[1]]
+    slab_keys = ("layer", "shape", "path", "kernel_ms", "ms", "graph_ms", "plain_ms",
+                 "library_ms", "library_graph_ms", "bound_ms", "bound_by",
+                 "max_abs_err")
+    for line in lines:
+        line["slab_shapes"] = [
+            {k: r[k] for k in slab_keys if k in r}
+            for r in volume["slab_kernels"]
+            if r["kernel"] == line["name"]]
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

@@ -54,9 +54,13 @@ def test_no_jax_imports(path):
 
 
 def _entry_points(tmp_path):
-    from transfer_em_tpu_torch.infer import (load_generator,
+    from transfer_em_tpu_torch.infer import (device_predict_tiled,
+                                             load_generator,
                                              make_tile_batcher,
-                                             make_tile_step, predict_tiled)
+                                             make_tile_step, predict_tiled,
+                                             predict_volume,
+                                             predict_volume_streaming,
+                                             slab_predict)
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.models import UNetGenerator
     from transfer_em_tpu_torch.serve import ModelService
@@ -68,6 +72,8 @@ def _entry_points(tmp_path):
     gen = UNetGenerator(wf=32)
     cfg = CycleGANConfig(dimsize=74, wf=32)
     fetch = lambda c, s: np.zeros((s,) * 3, np.uint8)
+    vol = np.zeros((80, 80, 80), np.uint8)
+    region = ((0, 0, 0), (36, 36, 36))
     return {
         "ModelService": lambda: ModelService(model_root=str(tmp_path)),
         "load_generator": lambda: load_generator(str(tmp_path)),
@@ -76,6 +82,13 @@ def _entry_points(tmp_path):
         "make_tile_batcher": lambda: make_tile_batcher(
             gen, None, None, 40, 17),
         "make_tile_step": lambda: make_tile_step(gen, None, None, 2),
+        "predict_volume": lambda: predict_volume(vol, gen, *region, None,
+                                                 None),
+        "device_predict_tiled": lambda: device_predict_tiled(
+            vol, gen, *region, 40, 17, None, None),
+        "slab_predict": lambda: slab_predict(vol, gen, *region, None, None),
+        "predict_volume_streaming": lambda: predict_volume_streaming(
+            vol, gen, *region, None, None),
         "create_state": lambda: create_state(cfg, 0),
         "make_train_step": lambda: make_train_step(cfg),
         "EM2EM": lambda: EM2EM(74, "x", wf=32,
@@ -91,7 +104,9 @@ def _entry_points(tmp_path):
 
 @pytest.mark.parametrize("name", ["ModelService", "load_generator",
                                   "predict_tiled", "make_tile_batcher",
-                                  "make_tile_step", "create_state",
+                                  "make_tile_step", "predict_volume",
+                                  "device_predict_tiled", "slab_predict",
+                                  "predict_volume_streaming", "create_state",
                                   "make_train_step", "EM2EM",
                                   "create_dataset_from_tensors",
                                   "create_dataset_from_generator"])

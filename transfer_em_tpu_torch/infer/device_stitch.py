@@ -1,0 +1,142 @@
+"""Device-resident tiled inference: gather -> predict -> stitch on the card.
+
+Counterpart of ``transfer_em_tpu/infer/device_stitch.py``.  The uint8
+source volume lives on the device; per tile batch the card
+
+  1. gathers the (padded) input tiles out of the volume,
+  2. runs preprocess + generator + postprocess (the tile step's kernels),
+  3. writes the uint8 results into the output volume,
+
+so the host never touches a voxel between upload and download.  The JAX
+package runs this as one ``lax.scan`` of ``dynamic_slice`` /
+``dynamic_update_slice``; here the tile corners lie on a regular grid of
+step ``outdimsize`` (``plan_tiles``), so ``unfold`` gives a strided view of
+every tile with no copy, and one advanced index per batch gathers a
+contiguous ``(B, s, s, s)`` batch; one ``index_put`` per batch stitches.
+The index tensors are built once, on the device: the batch loop launches
+no per-tile work and never waits for the card.
+
+Out-of-bounds halos read zeros, as ``gather_blocks`` gives the host path:
+the volume is zero-padded by exactly enough for every tile slice to lie in
+range (a torch slice past the end would come back short, and one with a
+negative start would wrap), and the range is checked before any launch.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import reject_mesh, resolve_device
+from ..ops.normalize import postprocess_to_u8, preprocess_u8
+from .tiling import (_DEVICE_LOCK, TilePlan, check_generator, meanstd_tuple,
+                     plan_tiles, tile_batch)
+
+
+def volume_on(vol_zyx, dev: torch.device) -> torch.Tensor:
+    """The uint8 zyx volume on ``dev``: a uint8 tensor already there is used
+    in place (upload once, predict many); anything else is copied."""
+    if isinstance(vol_zyx, torch.Tensor):
+        return vol_zyx.to(dev, torch.uint8)
+    return torch.from_numpy(np.ascontiguousarray(vol_zyx, np.uint8)).to(dev)
+
+
+def to_result(out: torch.Tensor, as_numpy: bool):
+    """The exact-size result: a numpy array, or the tensor on its device."""
+    out = out.contiguous()
+    return out.cpu().numpy() if as_numpy else out
+
+
+def device_predict_tiled(
+        vol_zyx, gen: nn.Module,
+        start: Sequence[int], size: Sequence[int],
+        outdimsize: int, buffer: int,
+        meanstd_x, meanstd_y,
+        batch_size: int = 8,
+        as_numpy: bool = True,
+        mesh=None,
+        prepadded: bool = False,
+        device="cuda"):
+    """Tiled inference over a device-resident uint8 zyx volume.
+
+    Semantics match ``infer.tiling.predict_tiled`` over an in-memory source
+    (out-of-bounds halos read zeros); the result is the stitched zyx uint8
+    block of ``size`` (xyz).  ``vol_zyx`` is a numpy array or a tensor; a
+    uint8 tensor already on ``device`` is used in place.  ``as_numpy=False``
+    returns the uint8 tensor on the device.  ``prepadded``: the caller
+    guarantees every tile read lies inside ``vol_zyx`` (infer/stream.py
+    fetches haloed blocks), so no padding copy is made.  Batches run at
+    ``tiling.tile_batch``'s shape, as ``predict_tiled``'s do.  ``mesh``:
+    multi-GPU fan-out is a later slice (raises ``NotImplementedError``).
+    """
+    reject_mesh(mesh)
+    dev = resolve_device(device)
+    check_generator(gen, dev)
+    plan = plan_tiles(start, size, outdimsize, buffer)
+    out = stitch_plan(vol_zyx, gen, plan,
+                      tile_batch(plan.num_tiles, batch_size),
+                      meanstd_x, meanstd_y, prepadded, dev)
+    return to_result(out, as_numpy)
+
+
+def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
+                meanstd_x, meanstd_y, prepadded: bool,
+                dev: torch.device) -> torch.Tensor:
+    """Every tile of ``plan`` gathered from ``vol_zyx``, predicted ``batch``
+    tiles a step and stitched on ``dev``: the zyx uint8 tensor of the
+    request.  infer/stream.py runs each chunk through this at its whole
+    request's batch, so the chunking changes no voxel."""
+    s, od = plan.insize, plan.outdimsize
+    sx, sy, sz = plan.size
+    T = plan.num_tiles
+    if T == 0:  # zero-extent request
+        return torch.zeros((sz, sy, sx), dtype=torch.uint8, device=dev)
+
+    vol = volume_on(vol_zyx, dev)
+    corners = np.asarray(plan.corners, np.int64)[:, ::-1]  # (T, 3) zyx
+    if prepadded:
+        pad = 0
+    else:
+        # Pad by the corners' real overhang, rounded up to a multiple of
+        # insize as in the JAX package; interior requests pad 0 and copy
+        # nothing.
+        need = int(max(0, -corners.min(),
+                       (corners + s - np.asarray(vol.shape)).max()))
+        pad = -(-need // s) * s
+    if pad:
+        vol = F.pad(vol, (pad,) * 6)
+    corners = corners + pad
+    if corners.min() < 0 or (corners + s > np.asarray(vol.shape)).any():
+        raise ValueError(
+            f"tile reads reach outside the {tuple(vol.shape)} volume"
+            + (" (prepadded=True, but the block does not cover every tile's"
+               " halo)" if prepadded else ""))
+
+    # plan_tiles walks x outermost and z innermost, so tile t sits at grid
+    # cell (t // (nz ny), t // nz % ny, t % nz) of both the input windows
+    # (step od from the first corner) and the output.  Padding tiles
+    # repeat the last tile, whose duplicate writes carry the same voxels.
+    # The cells are computed on the device: no copy, no wait.
+    nb = -(-T // batch)
+    pz, py, px = plan.padded_size
+    nz, ny = pz // od, py // od
+    t = torch.arange(nb * batch, device=dev).clamp_(max=T - 1)
+    gz, gy, gx = t % nz, t // nz % ny, t // (nz * ny)
+    first = corners[0]
+    windows = (vol[first[0]:, first[1]:, first[2]:]
+               .unfold(0, s, od).unfold(1, s, od).unfold(2, s, od))
+    out = torch.zeros(plan.padded_size, dtype=torch.uint8, device=dev)
+    out_tiles = out.view(pz // od, od, py // od, od, px // od, od).permute(
+        0, 2, 4, 1, 3, 5)
+
+    ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
+    with _DEVICE_LOCK, torch.inference_mode():
+        for i in range(0, nb * batch, batch):
+            idx = (gz[i:i + batch], gy[i:i + batch], gx[i:i + batch])
+            y = gen(preprocess_u8(windows[idx], ms_x))
+            out_tiles[idx] = postprocess_to_u8(y, ms_y, plan.tpad)
+    return out[:sz, :sy, :sx]

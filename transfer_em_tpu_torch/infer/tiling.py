@@ -86,8 +86,18 @@ def plan_tiles(start: Sequence[int], size: Sequence[int], outdimsize: int,
                     padded_size=padded_zyx)
 
 
-def _model_device(gen: nn.Module) -> torch.device:
-    return next(gen.parameters()).device
+def check_generator(gen: nn.Module, dev: torch.device) -> None:
+    """Raise unless ``gen``'s parameters live on ``dev``."""
+    on = next(gen.parameters()).device
+    if on != dev:
+        raise ValueError(f"generator lives on {on}, the prediction was "
+                         f"asked for {dev}")
+
+
+def meanstd_tuple(meanstd):
+    """A (mean, std) pair of Python floats, or None; accepts any 2-sequence
+    (an ndarray included)."""
+    return tuple(float(v) for v in meanstd) if meanstd is not None else None
 
 
 def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
@@ -95,11 +105,9 @@ def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
     """Fused step: (B, s, s, s) uint8 numpy -> (B, o, o, o) uint8 numpy on
     ``device`` (where ``gen`` must already live)."""
     dev = resolve_device(device)
-    if _model_device(gen) != dev:
-        raise ValueError(f"generator lives on {_model_device(gen)}, the "
-                         f"step was asked for {dev}")
-    ms = lambda v: tuple(map(float, v)) if v is not None else None
-    ms_x, ms_y, tpad = ms(meanstd_x), ms(meanstd_y), int(tpad)
+    check_generator(gen, dev)
+    ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
+    tpad = int(tpad)
 
     def step(tiles_u8: np.ndarray) -> np.ndarray:
         arr = np.ascontiguousarray(tiles_u8, np.uint8)
@@ -121,13 +129,29 @@ def scatter_tiles(out_zyx: np.ndarray, tiles_u8: np.ndarray,
 def default_batch_size(gen: nn.Module) -> int:
     """Width-aware device batch: 128 * 32 / widest conv output, rounded
     down to a multiple of 8, within [8, 128] (wf=8 -> 128, wf=4 -> 64,
-    wf=1 -> 16), the JAX package's rule (tiling.py:150-172).  Not yet
-    re-derived for the H100."""
+    wf=1 -> 16), the JAX package's rule (tiling.py:150-172).
+
+    128 at wf=8 holds on the H100: device mode over a 360^3 request (1000
+    tiles, f32) ran 127.9-134.1 / 131.4-134.7 / 133.0-134.5 Mvox/s at
+    B = 64 / 128 / 256 in three calls of chip_smoke.py (``volume``; NVIDIA
+    H100 80GB HBM3, 700 W), with peak memory 2.1 / 4.2 / 8.2 GB: no batch
+    is faster by more than the spread between calls, and 256 takes twice
+    the memory.  The rule for other widths is not measured on the card."""
     widest = max((int(p.shape[-1]) for p in gen.parameters()
                   if p.dim() >= 4), default=0)
     if widest <= 0:
         return 128
     return max(8, min(128, (128 * 32 // widest) // 8 * 8))
+
+
+def tile_batch(n_tiles: int, batch_size: int) -> int:
+    """Tiles per device step for a request of ``n_tiles``: small requests
+    must not pay full-batch padding, so ``batch_size`` is clamped to the
+    tile count rounded up to a multiple of 8 (as in the JAX package).  The
+    tile-grid modes (tiles, device, stream) all run at this shape, so they
+    agree bit for bit: a conv's summation order may depend on the batch."""
+    ladder = n_tiles if n_tiles <= 8 else -(-n_tiles // 8) * 8
+    return max(1, min(batch_size, ladder))
 
 
 def _check_batcher(batcher, plan: TilePlan, gen, meanstd_x, meanstd_y,
@@ -199,11 +223,7 @@ def predict_tiled(
     reject_mesh(mesh, sharding)
     dev = resolve_device(device)
     plan = plan_tiles(start, size, outdimsize, buffer)
-    # Small requests must not pay full-batch padding: clamp to the tile
-    # count rounded up to a multiple of 8.
-    n_tiles = len(plan.corners)
-    ladder = n_tiles if n_tiles <= 8 else -(-n_tiles // 8) * 8
-    batch_size = max(1, min(batch_size, ladder))
+    batch_size = tile_batch(plan.num_tiles, batch_size)
     if out is not None:
         want = (size[2], size[1], size[0])  # zyx
         if tuple(out.shape) != want:

@@ -276,6 +276,8 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
                        y.data_ptr(), code, bsz, d, h, wd, c, o, act, slope,
                        device=x.device)
         conv3.launches_direct += 1
+    if x.dtype == torch.bfloat16:
+        conv3.launches_bf16 += 1
     conv3.launches += 1
     return y
 
@@ -283,6 +285,7 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
 conv3.launches = 0         # both kernels
 conv3.launches_tc = 0      # csrc/conv3_tc.cu
 conv3.launches_direct = 0  # csrc/conv3_direct.cu
+conv3.launches_bf16 = 0    # both kernels, bfloat16 operands
 
 
 def conv3_act(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
