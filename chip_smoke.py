@@ -39,11 +39,26 @@ each printing one JSON line:
             versions on the same card (f32) within one level on at most
             1e-3 of the voxels, and every kernel's launch count must have
             risen during the timed requests.
+5b. serve_ng  which of tensorstore, requests, PIL and google.cloud.storage
+            import here; serve's six requests again through ModelService
+            from a .npy location (NumpyVolume) and, with tensorstore, from a
+            file:// ng-precomputed copy (TensorstoreVolume, first read
+            bit-equal to NumpyVolume at every tile corner), with each
+            request's backend read seconds, block-write seconds and wall
+            (timers of this script around ``read`` and
+            ``model_service.write_ng_blocks``), the blocks held to serve's
+            bar; predict_ng_cube over tensorstore and, with requests,
+            through the port's DataService on 127.0.0.1 (in-process);
+            TransferEMPredictor (base64) and NgOutputPredictor (local
+            destination, blocks and info read back).  A sub-check whose
+            package is missing is listed under ``not_run``.
 6. volume   predict_volume at bench_infer.py's request (a 360^3 region at
             (20, 20, 20) of a seeded smoothed 400^3 volume, 1000 tiles),
             wf=8 seeded generator, f32, B=128: device (the volume uploaded
             once), slab, stream (np.memmap source and out=, at a 160 MB
-            budget, one chunk, and at a 19 MB one, five chunks) and tiles,
+            budget, one chunk, at a 19 MB one, five chunks, and at the
+            block of a 40-tile chunk, 30 chunks each at its own batch) and
+            tiles,
             one warm and 3 timed calls each (wall, Mvox/s, tiles/s, peak
             memory, launches) and one call under torch.profiler.  Under
             cudnn.deterministic stream (each budget twice, its out= and
@@ -52,7 +67,10 @@ each printing one JSON line:
             must be within one level on at most 1e-3 of the voxels of the
             same mode through the plain versions (slab against device is
             printed, not gated); bf16 device against f32 >= 40 dB, not
-            equal to it, with every conv3 launch on bf16 operands; every
+            equal to it, with every conv3 launch on bf16 operands, its
+            weights packed on the first call only (6 packs, then 0) and its
+            output bit-equal to a call with the pack cache cleared; device
+            mode at the 40-tile chunks' batch bit-equal to B=128; every
             kernel call of one slab forward (conv3 at all 8 layers,
             LeakyReLU at 4, preprocess, postprocess), recorded at its own
             shape, against its plain version, with times beside the bound;
@@ -94,8 +112,9 @@ each printing one JSON line:
 10. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
-   from the em2em phase, ``slab_shapes`` from the volume phase's kernel
-   checks), then the ``ok`` line.  Any
+   from the em2em phase, ``serve_ng_launches`` from the serve_ng phase,
+   ``slab_shapes`` from the volume phase's kernel checks), then the ``ok``
+   line.  Any
    failed check exits non-zero before the last line.
 """
 
@@ -853,6 +872,291 @@ def check_serving(dev, smi):
     return rec
 
 
+# -- phase 5b: ng-precomputed volumes, the data service, the predictors -----
+
+NG_PACKAGES = ("tensorstore", "requests", "PIL", "google.cloud.storage")
+
+
+def has_module(name):
+    """Whether ``name`` imports here (find_spec, without importing it)."""
+    import importlib.util
+    try:
+        return importlib.util.find_spec(name) is not None
+    except ModuleNotFoundError:  # a parent package is missing
+        return False
+
+
+def write_ng_volume(path, vol_zyx):
+    """The zyx volume as a local ng-precomputed volume (raw, 64^3 chunks);
+    returns its file:// location."""
+    import tensorstore as ts
+    spec = {"driver": "neuroglancer_precomputed",
+            "kvstore": {"driver": "file", "path": path},
+            "scale_metadata": {"size": list(vol_zyx.shape[::-1]),
+                               "resolution": [8, 8, 8],
+                               "chunk_size": [64, 64, 64], "encoding": "raw"},
+            "multiscale_metadata": {"data_type": "uint8", "num_channels": 1,
+                                    "type": "image"},
+            "create": True}
+    ts.open(spec).result()[...] = vol_zyx.transpose(2, 1, 0)[..., None]
+    return "file://" + path
+
+
+def read_ng_blocks(dest, start, size):
+    """Stitch the gzip 64^3 blocks under ``dest`` into a zyx array."""
+    got = np.zeros(size[::-1], np.uint8)
+    names = sorted(os.listdir(dest))
+    for nm in names:
+        (x0, x1), (y0, y1), (z0, z1) = (
+            tuple(int(v) for v in p.split("-")) for p in nm.split("_"))
+        raw = gzip.decompress(open(os.path.join(dest, nm), "rb").read())
+        got[z0 - start[2]:z1 - start[2], y0 - start[1]:y1 - start[1],
+            x0 - start[0]:x1 - start[0]] = np.frombuffer(
+                raw, np.uint8).reshape(z1 - z0, y1 - y0, x1 - x0)
+    return got, len(names)
+
+
+@contextlib.contextmanager
+def host_timers(backend, tile_owner):
+    """Seconds of ``backend.read`` (the instance open_volume caches) by
+    request, ``tile_owner(corner)`` naming a read's request, and of
+    model_service.write_ng_blocks by destination: timers of this script
+    only, around the package's own functions."""
+    from transfer_em_tpu_torch.serve import model_service
+
+    reads, writes = {}, {}
+    read, write = backend.read, model_service.write_ng_blocks
+
+    def timed_read(start, size):
+        t0 = time.perf_counter()
+        out = read(start, size)
+        key = tile_owner(tuple(start))
+        reads[key] = reads.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    def timed_write(data, dest, offset, **kw):
+        t0 = time.perf_counter()
+        write(data, dest, offset, **kw)
+        writes[dest] = writes.get(dest, 0.0) + time.perf_counter() - t0
+
+    backend.read, model_service.write_ng_blocks = timed_read, timed_write
+    try:
+        yield reads, writes
+    finally:
+        del backend.read
+        model_service.write_ng_blocks = write
+
+
+def check_serve_ng(dev, smi):
+    """Serving from remote-style sources on the card: serve's six 128^3
+    requests (one alone, then five concurrent) through ModelService from a
+    .npy location (NumpyVolume) and, with tensorstore, from a file://
+    ng-precomputed copy of the same volume (TensorstoreVolume, read
+    bit-equal to NumpyVolume at every tile corner first), each request's
+    backend read seconds, block-write seconds and wall; the blocks against
+    predict_tiled through the plain versions (serve's bar); predict_ng_cube
+    over tensorstore and (with requests) through the port's DataService on
+    127.0.0.1; TransferEMPredictor (base64) and NgOutputPredictor (a local
+    destination, read back).  A sub-check whose package is missing is
+    listed as not run."""
+    from transfer_em_tpu_torch.config import ExportMeta
+    from transfer_em_tpu_torch.infer import (export_generator, plan_tiles,
+                                             predict_tiled)
+    from transfer_em_tpu_torch.infer.tiling import predict_ng_cube
+    from transfer_em_tpu_torch.native import gather_box
+    from transfer_em_tpu_torch.serve import (DataService, ModelService,
+                                             NgOutputPredictor, NumpyVolume,
+                                             TensorstoreVolume,
+                                             TransferEMPredictor, open_volume)
+
+    t_phase = time.perf_counter()
+    have = {m: has_module(m) for m in NG_PACKAGES}
+    rec = {"phase": "serve_ng", "card": smi, "packages": have,
+           "not_run": {}, "checks": {}}
+    side, size = 384, 128
+    starts = [(0, 0, 0), (128, 64, 192), (256, 256, 256), (64, 192, 0),
+              (192, 0, 128), (256, 128, 64)]
+    vol = smooth_volume(side, seed=7, dev=dev)  # serve's volume
+    gen_ref = seeded_generator(3, dev)
+
+    def bar(got, want):
+        worst, frac = _u8_diff(got, want)
+        return {"u8_max_diff": worst, "u8_frac_differing": frac,
+                "ok": worst <= 1 and frac <= 1e-3}
+
+    with plain_versions():
+        want = [predict_tiled(lambda c, n: gather_box(vol, c, (n,) * 3),
+                              gen_ref, s, (size,) * 3, 40, 17, MS_X, MS_Y,
+                              batch_size=64, device=dev) for s in starts]
+    owner = {}
+    for i, s in enumerate(starts):
+        for c in plan_tiles(s, (size,) * 3, 40, 17).corners:
+            owner[c] = i if owner.get(c, i) == i else "shared"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = ExportMeta(buffer=17, outdimsize=40, meanstd_x=MS_X,
+                          meanstd_y=MS_Y, dimsize=74, is3d=True, wf=8)
+        model_dir = os.path.join(tmp, "models", "smoke", "v1")
+        export_generator(gen_ref, meta, model_dir)
+        npy = os.path.join(tmp, "vol.npy")
+        np.save(npy, vol)
+        locations = {"numpy": npy}
+        if have["tensorstore"]:
+            ng = write_ng_volume(os.path.join(tmp, "ng"), vol)
+            locations["tensorstore"] = ng
+            tsv, npv = TensorstoreVolume(ng), NumpyVolume(vol)
+            t0 = time.perf_counter()
+            mismatched = sum(
+                not np.array_equal(tsv.read(c, (74,) * 3),
+                                   npv.read(c, (74,) * 3))
+                for c in owner)
+            rec["checks"]["tensorstore_reads_equal_numpy"] = {
+                "corners": len(owner), "mismatched": mismatched,
+                "seconds": time.perf_counter() - t0, "ok": mismatched == 0}
+        else:
+            rec["not_run"]["tensorstore"] = [
+                "TensorstoreVolume reads against NumpyVolume",
+                "ModelService over a file:// ng volume",
+                "predict_ng_cube over tensorstore",
+                "the predictors over tensorstore"]
+
+        svc = ModelService(model_root=os.path.join(tmp, "models"),
+                           device=dev)
+        svc.start()
+
+        def request(i, loc, tag):
+            cfg = {"location": loc, "start": list(starts[i]),
+                   "glbstart": [0, 0, 0], "size": [size] * 3,
+                   "model_name": "smoke:v1",
+                   "dest": os.path.join(tmp, f"{tag}{i}")}
+            t0 = time.perf_counter()
+            body = urllib.request.urlopen(urllib.request.Request(
+                svc.url + "/", data=json.dumps(cfg).encode(),
+                headers={"Content-type": "application/json"}),
+                timeout=600).read()
+            if body != b"success":
+                fail("serve_ng", f"{tag} request {i} answered {body!r}")
+            return time.perf_counter() - t0
+
+        reset_counts()
+        rec["served"] = {}
+        try:
+            for kind, loc in locations.items():
+                backend = open_volume(loc)
+                with host_timers(backend, owner.get) as (reads, writes):
+                    walls = {0: request(0, loc, kind)}
+                    t0 = time.perf_counter()
+                    with cf.ThreadPoolExecutor(max_workers=5) as ex:
+                        futs = {i: ex.submit(request, i, loc, kind)
+                                for i in range(1, len(starts))}
+                        walls.update({i: f.result(timeout=900)
+                                      for i, f in futs.items()})
+                    wall = time.perf_counter() - t0
+                if open_volume(loc) is not backend:
+                    fail("serve_ng", f"open_volume did not cache {loc}")
+                per = []
+                for i, s in enumerate(starts):
+                    got, n_blocks = read_ng_blocks(
+                        os.path.join(tmp, f"{kind}{i}"), s, (size,) * 3)
+                    dest = os.path.join(tmp, f"{kind}{i}")
+                    per.append({"start": list(s), "wall_s": walls[i],
+                                "read_s": reads.get(i, 0.0),
+                                "write_s": writes.get(dest, 0.0),
+                                "blocks": n_blocks, **bar(got, want[i])})
+                rec["served"][kind] = {
+                    "backend": type(backend).__name__,
+                    "concurrent_wall_s": wall,
+                    "tiles_per_s": 5 * (-(-size // 36)) ** 3 / wall,
+                    "shared_corner_read_s": reads.get("shared", 0.0),
+                    "requests": per,
+                    "ok": all(r["ok"] and r["blocks"] == 8 for r in per)}
+        finally:
+            svc.stop()
+
+        # predict_ng_cube, the data service and the predictors
+        s1 = starts[1]
+        if have["tensorstore"]:
+            rec["checks"]["predict_ng_cube_tensorstore"] = bar(
+                predict_ng_cube(locations["tensorstore"], s1, (size,) * 3,
+                                gen_ref, MS_X, MS_Y, outdimsize=40,
+                                buffer=17, device=dev), want[1])
+        data_svc = None
+        if have["requests"]:
+            data_svc = DataService()
+            data_svc.start()
+        else:
+            rec["not_run"]["requests"] = [
+                "predict_ng_cube through the DataService"]
+        try:
+            if data_svc is not None:
+                for kind, loc in locations.items():
+                    rec["checks"][f"predict_ng_cube_data_service_{kind}"] = bar(
+                        predict_ng_cube(loc, s1, (size,) * 3, gen_ref, MS_X,
+                                        MS_Y, data_svc.url, outdimsize=40,
+                                        buffer=17, device=dev), want[1])
+            # the predictors: over tensorstore, else through the service
+            if have["tensorstore"]:
+                inst = {"location": locations["tensorstore"],
+                        "cloudrun": None}
+            elif data_svc is not None:
+                inst = {"location": npy, "cloudrun": data_svc.url}
+            else:
+                inst = None
+                rec["not_run"]["predictors"] = "neither tensorstore nor "\
+                    "requests"
+            if inst is not None:
+                inst.update(start=list(s1), size=[size] * 3)
+                rec["predictors_source"] = (
+                    "tensorstore" if inst["cloudrun"] is None
+                    else "data_service")
+                pred = TransferEMPredictor.from_path(model_dir, device=dev)
+                try:
+                    (b64,) = pred.predict([dict(inst)])
+                finally:
+                    pred.close()
+                import base64
+                rec["checks"]["transfer_em_predictor"] = bar(
+                    np.frombuffer(base64.b64decode(b64), np.uint8).reshape(
+                        (size,) * 3), want[1])
+                ng_root = os.path.join(tmp, "ng_out")
+                pred = NgOutputPredictor.from_path(model_dir, device=dev,
+                                                   dest_root=ng_root)
+                try:
+                    (url,) = pred.predict([dict(inst)])
+                finally:
+                    pred.close()
+                (run,) = os.listdir(ng_root)
+                info = json.load(open(os.path.join(ng_root, run, "info")))
+                scale = info["scales"][0]
+                got, n_blocks = read_ng_blocks(
+                    os.path.join(ng_root, run, "64_64_64"), (0, 0, 0),
+                    (size,) * 3)
+                info_ok = (info["data_type"] == "uint8"
+                           and info["num_channels"] == 1
+                           and scale["size"] == [size] * 3
+                           and scale["chunk_sizes"] == [[64, 64, 64]]
+                           and scale["encoding"] == "raw"
+                           and scale["key"] == "64_64_64")
+                out = bar(got, want[1])
+                out.update(blocks=n_blocks, info_ok=info_ok,
+                           url_ok=f"precomputed://{ng_root}" in url)
+                out["ok"] = (out["ok"] and info_ok and out["url_ok"]
+                             and n_blocks == 8)
+                rec["checks"]["ng_output_predictor"] = out
+        finally:
+            if data_svc is not None:
+                data_svc.stop()
+    launches = read_counts()
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(
+        all(v["ok"] for v in rec["served"].values())
+        and all(v["ok"] for v in rec["checks"].values())
+        and all(launches[k] > 0 for k in counters()))
+    emit(rec)
+    return rec
+
+
 # -- phase 6: large-volume inference (predict_volume) ------------------------
 
 # bench_infer.py's request: a 360^3 region at (20, 20, 20) of a 400^3
@@ -860,8 +1164,13 @@ def check_serving(dev, smi):
 VOL_SIDE, VOL_START, VOL_SIZE, VOL_B = 400, (20, 20, 20), (360,) * 3, 128
 # Stream budgets: bench_infer.py's 160 MB, which holds this request in one
 # chunk (398^3 bytes, 63 MB); and 120 * 398^2 bytes (19 MB), five chunks of
-# 360 x 360 x 72 (200 tiles each), so that the pipeline overlaps.
-VOL_BUDGETS = {"stream": 160 << 20, "stream_5_chunks": 120 * 398 ** 2}
+# 360 x 360 x 72 (200 tiles each), so that the pipeline overlaps; and the
+# haloed block of a 360 x 144 x 36 chunk (40 tiles, fewer than the batch:
+# 30 chunks), where each chunk runs at its own batch on CUDA.
+SMALL_CHUNK = (360, 144, 36)
+VOL_BUDGETS = {"stream": 160 << 20, "stream_5_chunks": 120 * 398 ** 2,
+               "stream_40_tile_chunks": math.prod(c + 2 * 19
+                                                  for c in SMALL_CHUNK)}
 VOL_SWEEP = (64, 128, 256)
 SENTINELS = (0xA5, 0x5A)  # stream's exactness runs, one call each
 
@@ -913,7 +1222,9 @@ def check_volume(dev, smi):
     device mode at B in VOL_SWEEP."""
     from transfer_em_tpu_torch.infer import plan_tiles, predict_volume
     from transfer_em_tpu_torch.infer.stream import plan_chunks
+    from transfer_em_tpu_torch.infer.tiling import tile_batch
     from transfer_em_tpu_torch.models import UNetGenerator
+    from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
     t_phase = time.perf_counter()
@@ -933,6 +1244,23 @@ def check_volume(dev, smi):
         "upload_s": upload_s, "chunks": {
             k: plan_chunks(VOL_START, VOL_SIZE, 40, 17, b).num_chunks
             for k, b in VOL_BUDGETS.items()}}
+    small = plan_chunks(VOL_START, VOL_SIZE, 40, 17,
+                        VOL_BUDGETS["stream_40_tile_chunks"])
+    chunk_tiles = plan_tiles((0, 0, 0), small.chunk, 40, 17).num_tiles
+    if small.chunk != SMALL_CHUNK or chunk_tiles >= VOL_B:
+        fail("volume", f"the small budget plans {small.chunk} chunks of "
+             f"{chunk_tiles} tiles")
+    # C2: tiles computed at each chunk's own batch against the request's
+    c2 = {"budget": VOL_BUDGETS["stream_40_tile_chunks"],
+          "chunk": list(small.chunk), "chunks": small.num_chunks,
+          "chunk_tiles": chunk_tiles,
+          "chunk_batch": tile_batch(chunk_tiles, VOL_B),
+          "request_tiles": n_tiles,
+          "tiles_computed_at_chunk_batch":
+              small.num_chunks * -(-chunk_tiles // tile_batch(
+                  chunk_tiles, VOL_B)) * tile_batch(chunk_tiles, VOL_B),
+          "tiles_computed_at_request_batch":
+              small.num_chunks * -(-chunk_tiles // VOL_B) * VOL_B}
     with tempfile.TemporaryDirectory() as tmp:
         src = np.memmap(os.path.join(tmp, "src.u8"), np.uint8, "w+",
                         shape=vol.shape)
@@ -977,6 +1305,9 @@ def check_volume(dev, smi):
             exact = {name: np.array(runs[name]())
                      for name in ("device", "tiles")}
             exact["auto"] = mode_run("auto", vol)()
+            # C2: device mode at the small chunks' own batch
+            exact["device_at_chunk_batch"] = np.array(mode_run(
+                "device", bsz=c2["chunk_batch"])())
             for name, budget in VOL_BUDGETS.items():
                 plan = plan_chunks(VOL_START, VOL_SIZE, 40, 17, budget)
                 for fill in SENTINELS:
@@ -990,6 +1321,11 @@ def check_volume(dev, smi):
         rec["differing_voxels_vs_device"] = {
             k: int((v != ref).sum()) for k, v in exact.items()
             if k != "device"}
+        c2["device_bit_equal_at_chunk_batch"] = equal["device_at_chunk_batch"]
+        c2["stream_bit_equal"] = all(
+            v for k, v in equal.items()
+            if k.startswith("stream_40_tile_chunks"))
+        rec["c2_chunk_batch"] = c2
     slab_diff = _u8_diff(outs["slab"], ref)
     rec["slab_vs_device"] = {"u8_max_diff": slab_diff[0],
                              "u8_frac_differing": slab_diff[1]}
@@ -1006,11 +1342,30 @@ def check_volume(dev, smi):
     plain_ok = all(v["u8_max_diff"] <= 1 and v["u8_frac_differing"] <= 1e-3
                    for v in rec["vs_plain"].values())
 
-    # bf16: the same weights, activations in bf16
+    # bf16: the same weights, activations in bf16.  C1: its conv3 weights
+    # pack on the first call only (6 tensor-core layers), and the output
+    # equals the one with the pack cache cleared before the call.
     gen16 = UNetGenerator(wf=8, compute_dtype="bfloat16")
     gen16.load_state_dict(gen.state_dict())
     gen16 = gen16.to(dev).eval()
-    out16, times16, peak16, launches16 = _timed(mode_run("device", g=gen16))
+    run16 = mode_run("device", g=gen16)
+    packs16, outs16 = [], []
+    with cudnn_deterministic():
+        for clear in (False, False, False, True):
+            if clear:
+                for p in gen16.parameters():
+                    getattr(p.untyped_storage(), "_conv3_packs", {}).clear()
+            cuda_conv.packed_weights.packs = 0
+            outs16.append(np.array(run16()))
+            packs16.append(cuda_conv.packed_weights.packs)
+    rec["c1_bf16_packs"] = {
+        "packs_per_call": packs16[:3], "packs_cache_cleared": packs16[3],
+        "bit_equal_to_cache_cleared": all(
+            np.array_equal(o, outs16[3]) for o in outs16[:3])}
+    c1_ok = (packs16 == [6, 0, 0, 6]
+             and rec["c1_bf16_packs"]["bit_equal_to_cache_cleared"])
+    del outs16
+    out16, times16, peak16, launches16 = _timed(run16)
     med16 = sorted(times16)[1]
     diff16 = _u8_diff(out16, ref)
     rec["bf16_device"] = {"wall_s": times16, "mvox_per_s": nvox / med16 / 1e6,
@@ -1098,7 +1453,7 @@ def check_volume(dev, smi):
     rec["phase_s"] = time.perf_counter() - t_phase
     rec["ok"] = bool(
         all(equal.values()) and plain_ok and launches_ok and bf16_ok
-        and slab_ok and float(np.std(ref)) > 2.0)
+        and c1_ok and slab_ok and float(np.std(ref)) > 2.0)
     emit(rec)
     return rec
 
@@ -1718,6 +2073,10 @@ def main():
     if not serve["ok"]:
         fail("serve", "serving check failed")
 
+    serve_ng = check_serve_ng(dev, smi)
+    if not serve_ng["ok"]:
+        fail("serve_ng", "the serve_ng phase failed a check")
+
     volume = check_volume(dev, smi)
     if not volume["ok"]:
         fail("volume", "the volume phase failed a check")
@@ -1805,13 +2164,16 @@ def main():
                               "per": "the discriminator's 5 activations "
                                      "at B=128, float32"}}),
     ]
-    le, lv = em2em["launches"], volume["launches"]
+    le, lv, ln = em2em["launches"], volume["launches"], serve_ng["launches"]
     for line in lines:
         line["em2em_launches"] = le[line["name"]]
         line["volume_launches"] = lv[line["name"]]
+        line["serve_ng_launches"] = ln[line["name"]]
     for p in paths:
-        p["em2em_launches"] = le["conv3_" + p["name"].split(".")[1]]
-        p["volume_launches"] = lv["conv3_" + p["name"].split(".")[1]]
+        path = "conv3_" + p["name"].split(".")[1]
+        p["em2em_launches"] = le[path]
+        p["volume_launches"] = lv[path]
+        p["serve_ng_launches"] = ln[path]
     slab_keys = ("layer", "shape", "path", "kernel_ms", "ms", "graph_ms", "plain_ms",
                  "library_ms", "library_graph_ms", "bound_ms", "bound_by",
                  "max_abs_err")

@@ -213,6 +213,63 @@ def test_packed_weights_cache():
     assert torch.equal(_unpack(p2, 8, 16, torch.float32), w)
 
 
+def test_packed_weights_bf16_target_packs_once_per_version():
+    """A bf16 forward packs straight from the f32 parameter: once over
+    repeated calls (in inference_mode too, where a per-call cast would be
+    an inference tensor with no version counter), once more after an
+    in-place update, each pack bit-equal to packing the cast weight, and
+    apart from the f32 pack of the same parameter."""
+    rng = np.random.default_rng(16)
+    w = torch.nn.Parameter(torch.from_numpy(
+        rng.normal(0, 1, (3, 3, 3, 8, 16)).astype(np.float32)))
+    bf16 = torch.bfloat16
+    before = cuda_conv.packed_weights.packs
+    p1 = cuda_conv.packed_weights(w, bf16)
+    with torch.inference_mode():
+        assert cuda_conv.packed_weights(w, bf16) is p1
+    assert cuda_conv.packed_weights(w, bf16) is p1
+    assert cuda_conv.packed_weights.packs == before + 1
+    assert p1.dtype == bf16
+    assert torch.equal(p1.view(torch.int16), cuda_conv.pack_conv3_weights(
+        w.detach().to(bf16), bf16).view(torch.int16))
+    p32 = cuda_conv.packed_weights(w)
+    assert p32.dtype == torch.float32
+    assert cuda_conv.packed_weights.packs == before + 2
+    with torch.no_grad():
+        w.add_(1e-2)
+    p2 = cuda_conv.packed_weights(w, bf16)
+    assert cuda_conv.packed_weights(w, bf16) is p2 is not p1
+    assert cuda_conv.packed_weights.packs == before + 3
+    assert torch.equal(p2.view(torch.int16), cuda_conv.pack_conv3_weights(
+        w.detach().to(bf16), bf16).view(torch.int16))
+
+
+@pytest.mark.parametrize("c,o,act", [(8, 16, True), (1, 8, True),
+                                     (16, 1, False)])
+def test_bf16_forward_takes_the_f32_parameter(c, o, act):
+    """A bf16 conv3 block on its f32 parameter computes what it computed on
+    a per-call bf16 cast, forward and backward, and the gradient reaches
+    the f32 parameter (in f32)."""
+    from transfer_em_tpu_torch.models.blocks import ConvActND
+
+    torch.manual_seed(0)
+    m = (ConvActND if act else ConvND)(c, o, 3)
+    x = torch.from_numpy(np.random.default_rng(17).normal(
+        0, 1, (2, 9, 8, 7, c)).astype(np.float32)).to(torch.bfloat16)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    y = m(xs[0])
+    w16 = m.kernel.to(torch.bfloat16)  # the cast the block used to make
+    want = (cuda_conv.conv3_act if act else cuda_conv.conv3)(xs[1], w16)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, want)
+    g = torch.from_numpy(np.random.default_rng(18).normal(
+        0, 1, tuple(y.shape)).astype(np.float32)).to(torch.bfloat16)
+    (gw,) = torch.autograd.grad(want, m.kernel, g, retain_graph=True)
+    y.backward(g)
+    assert m.kernel.grad.dtype == torch.float32
+    assert torch.equal(m.kernel.grad, gw)
+    assert torch.equal(xs[0].grad, torch.autograd.grad(want, xs[1], g)[0])
+
+
 # -- (4) the dispatch rule -----------------------------------------------------
 
 @pytest.mark.parametrize("wf", [1, 2, 4, 8, 16, 32])

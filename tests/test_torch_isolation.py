@@ -68,6 +68,11 @@ def _entry_points(tmp_path):
                                              make_train_step)
     from transfer_em_tpu_torch.data import (create_dataset_from_generator,
                                             create_dataset_from_tensors)
+    from transfer_em_tpu_torch.infer.export import \
+        predict_cube_from_saved_model
+    from transfer_em_tpu_torch.infer.tiling import predict_ng_cube
+    from transfer_em_tpu_torch.serve import (NgOutputPredictor,
+                                             TransferEMPredictor)
 
     gen = UNetGenerator(wf=32)
     cfg = CycleGANConfig(dimsize=74, wf=32)
@@ -99,6 +104,18 @@ def _entry_points(tmp_path):
             create_dataset_from_generator(
                 lambda: iter([np.zeros((8, 8, 8), np.uint8)] * 2),
                 batch_size=1),
+        "predict_ng_cube": lambda: predict_ng_cube(
+            "file://" + str(tmp_path), (0, 0, 0), (36, 36, 36), gen, None,
+            None, outdimsize=40, buffer=17),
+        "predict_cube_from_saved_model": lambda:
+            predict_cube_from_saved_model("file://" + str(tmp_path),
+                                          (0, 0, 0), (36, 36, 36), None,
+                                          str(tmp_path)),
+        "TransferEMPredictor.from_path": lambda:
+            TransferEMPredictor.from_path(str(tmp_path)),
+        "NgOutputPredictor.from_path": lambda:
+            NgOutputPredictor.from_path(str(tmp_path),
+                                        dest_root=str(tmp_path)),
     }
 
 
@@ -109,7 +126,11 @@ def _entry_points(tmp_path):
                                   "predict_volume_streaming", "create_state",
                                   "make_train_step", "EM2EM",
                                   "create_dataset_from_tensors",
-                                  "create_dataset_from_generator"])
+                                  "create_dataset_from_generator",
+                                  "predict_ng_cube",
+                                  "predict_cube_from_saved_model",
+                                  "TransferEMPredictor.from_path",
+                                  "NgOutputPredictor.from_path"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """Called without ``device`` where CUDA is absent, every entry point
     raises instead of running on the CPU."""
@@ -127,3 +148,38 @@ def test_mesh_is_a_later_slice(tmp_path):
     with pytest.raises(NotImplementedError, match="parallel"):
         predict_tiled(None, None, (0, 0, 0), (36, 36, 36), 40, 17, None,
                       None, device="cpu", mesh=object())
+
+
+def test_data_plane_loads_no_torch(tmp_path):
+    """The data service forks workers: importing the data plane, and
+    opening and reading a tensorstore volume through it, loads no torch in
+    a fresh interpreter (which starts with neither torch nor jax)."""
+    import subprocess
+    import sys
+
+    pytest.importorskip("tensorstore")
+    code = f"""
+import sys
+assert "torch" not in sys.modules and "jax" not in sys.modules
+import transfer_em_tpu_torch.serve.data_service
+import transfer_em_tpu_torch.serve.client
+import transfer_em_tpu_torch.serve.backends as backends
+import tensorstore as ts
+spec = {{"driver": "neuroglancer_precomputed",
+        "kvstore": {{"driver": "file", "path": {str(tmp_path)!r}}},
+        "scale_metadata": {{"size": [8, 8, 8], "resolution": [8, 8, 8],
+                            "chunk_size": [8, 8, 8], "encoding": "raw"}},
+        "multiscale_metadata": {{"data_type": "uint8", "num_channels": 1,
+                                 "type": "image"}},
+        "create": True}}
+ts.open(spec).result()[...] = 7
+vol = backends.open_volume("file://{tmp_path}")
+assert isinstance(vol, backends.TensorstoreVolume)
+assert vol.read((4, 4, 4), (8, 8, 8)).sum() == 7 * 64
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "transfer_em_tpu"))
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr

@@ -303,3 +303,30 @@ def test_prepadded_block_must_cover_every_tile(gen):
                                (19, 19, 19), (36, 36, 36), 40, 17, MS_X,
                                MS_Y, prepadded=True, device="cpu")
     assert got.shape == (36, 36, 36)
+
+
+def test_stream_chunk_batch_rule(vol, gen, monkeypatch):
+    """Chunks of one tile under a batch of 8: on the CPU every chunk runs
+    at the whole request's batch (8 tiles -> 8) and the stream equals
+    device mode bit for bit; on CUDA a chunk's batch is fitted to the chunk
+    (tile_batch of its own tile count, the JAX package's min)."""
+    from transfer_em_tpu_torch.infer import stream
+
+    start, size = (30, 40, 20), (72, 72, 36)  # 2 x 2 x 1 tiles
+    plan = plan_chunks(start, size, 40, 17, TILE ** 3)
+    assert plan.num_chunks == 4 and plan.chunk == (OD,) * 3
+    assert stream.chunk_batch_tiles(plan, 1, torch.device("cpu")) == 4
+    assert stream.chunk_batch_tiles(plan, 1, torch.device("cuda")) == 1
+    batches = []
+    orig = stream.stitch_plan
+
+    def recording(block, g, tiles, batch, *a, **kw):
+        batches.append((tiles.num_tiles, batch))
+        return orig(block, g, tiles, batch, *a, **kw)
+
+    monkeypatch.setattr(stream, "stitch_plan", recording)
+    got = _port(vol, gen, start, size, "stream", batch_size=8,
+                max_block_bytes=TILE ** 3)
+    assert batches == [(1, 4)] * 4
+    np.testing.assert_array_equal(
+        got, _port(vol, gen, start, size, "device", batch_size=8))

@@ -396,12 +396,3 @@ def test_model_cache_eviction_keeps_lifetime_stats(tmp_path, monkeypatch):
         "batches": 2, "tiles": 14, "padded": 2, "errors": 0,
         "occupancy": 14 / 16}}
 
-
-def test_gcs_is_a_later_slice(tmp_path):
-    from transfer_em_tpu_torch.serve.model_service import (BlockWriter,
-                                                           ModelCache)
-
-    with pytest.raises(NotImplementedError, match="gs://"):
-        ModelCache("gs://bucket/models", device="cpu")
-    with pytest.raises(NotImplementedError, match="gs://"):
-        BlockWriter("gs://bucket/out")

@@ -8,16 +8,37 @@ each wrapper runs its plain PyTorch version only for tensors on the CPU.
 
 Entry points (``EM2EM``, ``create_dataset_from_tensors``,
 ``create_dataset_from_generator``, ``save_model``, ``load_generator``,
-``predict_tiled``, ``predict_volume``, ``make_tile_batcher``,
-``ModelService``) run on ``cuda``
+``predict_tiled``, ``predict_ng_cube``, ``predict_volume``,
+``make_tile_batcher``, ``ModelService``, the predictors) run on ``cuda``
 unless the caller passes ``device="cpu"``, and raise when CUDA is asked for
 but absent.
+
+The names below resolve on first use (PEP 562), as in the JAX package: a
+bare ``import transfer_em_tpu_torch`` loads no torch, so the data plane
+(``serve.backends``, ``serve.client``, ``serve.data_service``, which fork
+worker processes) stays free of it.
 """
 
-from .data import create_dataset_from_generator, create_dataset_from_tensors
-from .device import resolve_device
-from .infer import predict_volume
-from .train import EM2EM
+import importlib
 
-__all__ = ["EM2EM", "create_dataset_from_generator",
-           "create_dataset_from_tensors", "predict_volume", "resolve_device"]
+_LAZY = {
+    "EM2EM": "transfer_em_tpu_torch.train.cgan",
+    "create_dataset_from_generator": "transfer_em_tpu_torch.data.pipeline",
+    "create_dataset_from_tensors": "transfer_em_tpu_torch.data.pipeline",
+    "predict_ng_cube": "transfer_em_tpu_torch.infer.tiling",
+    "predict_volume": "transfer_em_tpu_torch.infer",
+    "resolve_device": "transfer_em_tpu_torch.device",
+    "save_model": "transfer_em_tpu_torch.infer.export",
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_LAZY[name]), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))

@@ -11,7 +11,8 @@ A reference TF SavedModel waits for the TF-interop slice.
 
 ``save_model`` (reference utils.py:133-167; transfer_em_tpu/infer/
 export.py:95-110) rebuilds ``EM2EM`` from one of its checkpoints and
-exports generator G.
+exports generator G; ``predict_cube_from_saved_model`` (export.py:113-123)
+predicts an ng-precomputed region with an export.
 """
 
 from __future__ import annotations
@@ -113,3 +114,16 @@ def save_model(name: str, ckpt_dir, meanstd_x: Tuple[float, float],
                       meanstd_y=tuple(map(float, meanstd_y)),
                       dimsize=size, is3d=is3d, wf=wf)
     export_generator(model.state.gg, meta, name)
+
+
+def predict_cube_from_saved_model(location: str, start, size, cloudrun: str,
+                                  model_dir: str, fetch_input: bool = False,
+                                  batch_size: int = 8, device="cuda"):
+    """Tiled inference of an ng-precomputed region with an exported model
+    (either export format; reference utils.py:12-38)."""
+    from .tiling import predict_ng_cube
+    gen, meta = load_generator(model_dir, device=device)
+    return predict_ng_cube(
+        location, start, size, gen, meta.meanstd_x, meta.meanstd_y, cloudrun,
+        fetch_input=fetch_input, outdimsize=meta.outdimsize,
+        buffer=meta.buffer, batch_size=batch_size, device=device)

@@ -158,6 +158,16 @@ class _Transfers:
         return host.numpy(), landed
 
 
+def chunk_batch_tiles(plan: ChunkPlan, chunk_tiles: int,
+                      dev: torch.device) -> int:
+    """The tile count a chunk's batch is fitted to (``tile_batch``): the
+    chunk's own on CUDA, the whole request's on the CPU (see
+    ``predict_streaming``'s ``batch_size``)."""
+    if dev.type == "cuda":
+        return chunk_tiles
+    return int(np.prod([-(-s // plan.outdimsize) for s in plan.size]))
+
+
 def predict_streaming(
         fetch_box: Callable[[Tuple[int, int, int], Tuple[int, int, int]],
                             np.ndarray],
@@ -178,13 +188,15 @@ def predict_streaming(
         outside the source (``gather_box`` for host arrays).
       gen: the generator module, on ``device``.
       start, size: xyz request, like predict_tiled.
-      batch_size: tiles per forward, capped at the whole request's tile
-        count (``tile_batch``).  Every chunk runs at that one batch shape,
-        not at its own tile count, so that its voxels equal the device
-        mode's bit for bit (a conv's sums may depend on the batch).  The
-        price is padding where a chunk holds fewer tiles than the batch:
-        at a small ``max_block_bytes`` a chunk of 8 tiles runs a batch of
-        up to 128.
+      batch_size: tiles per forward.  On CUDA each chunk runs at
+        ``tile_batch(tiles in the chunk, batch_size)``, as the JAX package
+        runs ``min(batch_size, tiles in the chunk)``: no chunk pads up to a
+        batch larger than itself.  On the CPU every chunk runs at the whole
+        request's ``tile_batch``, because there a conv's sums depend on the
+        batch and the voxels must equal device mode's bit for bit.  On the
+        H100 device mode gives the same bits at batches 8-128 under
+        ``cudnn.deterministic`` (chip_smoke.py's volume phase holds the
+        stream at 40-tile chunks bit-equal to device mode at 128).
       max_block_bytes: device budget for one haloed input block.  At most
         two blocks and two result chunks are on the device at once, so
         peak memory is about 2 * max_block_bytes + 2 * chunk bytes + the
@@ -214,13 +226,11 @@ def predict_streaming(
     n = plan.num_chunks
     if n == 0:  # zero-extent request: nothing to fetch or compute
         return out
-    # Every chunk runs at the whole request's batch shape, as the device
-    # and tiles modes do, so the chunking changes no voxel.  Chunk-local
-    # coordinates: the block holds the halo, so each chunk's tiles start at
-    # (b, b, b) and cover the whole chunk.
-    batch = tile_batch(int(np.prod([-(-s // plan.outdimsize)
-                                    for s in plan.size])), batch_size)
+    # Chunk-local coordinates: the block holds the halo, so each chunk's
+    # tiles start at (b, b, b) and cover the whole chunk.
     chunk_tiles = plan_tiles((b, b, b), plan.chunk, outdimsize, buffer)
+    batch = tile_batch(chunk_batch_tiles(plan, chunk_tiles.num_tiles, dev),
+                       batch_size)
     io = _Transfers(dev, plan.block[::-1], plan.chunk[::-1])
 
     def fetch(k: int):

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.sources import _parallel_fetch
+from ..data.sources import (CloudRunFetcher, _parallel_fetch,
+                            open_tensorstore, read_ts_box_zyx)
 from ..device import reject_mesh, resolve_device
 from ..native import scatter_blocks
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
@@ -148,8 +149,10 @@ def tile_batch(n_tiles: int, batch_size: int) -> int:
     """Tiles per device step for a request of ``n_tiles``: small requests
     must not pay full-batch padding, so ``batch_size`` is clamped to the
     tile count rounded up to a multiple of 8 (as in the JAX package).  The
-    tile-grid modes (tiles, device, stream) all run at this shape, so they
-    agree bit for bit: a conv's summation order may depend on the batch."""
+    tile-grid modes (tiles, device, stream) run at this shape, so they
+    agree bit for bit: a conv's summation order may depend on the batch
+    (on the CPU it does; the stream fits each chunk's batch to the chunk on
+    CUDA only, infer/stream.py)."""
     ladder = n_tiles if n_tiles <= 8 else -(-n_tiles // 8) * 8
     return max(1, min(batch_size, ladder))
 
@@ -199,7 +202,8 @@ def predict_tiled(
         device="cuda",
         mesh=None,
         sharding=None,
-) -> np.ndarray:
+        fetch_input: bool = False,
+):
     """Full tiled inference: fetch -> batched fused step -> stitch -> crop.
 
     Args:
@@ -217,8 +221,10 @@ def predict_tiled(
         the run raises ``InferenceCancelled``.
       device: "cuda" (default) or "cpu"; CUDA absent raises.
       mesh, sharding: multi-GPU fan-out is a later slice (raise).
+      fetch_input: also stitch the input voxels under each output tile.
     Returns:
-      the zyx uint8 prediction of ``size`` (``out`` if given).
+      the zyx uint8 prediction of ``size`` (``out`` if given); with
+      ``fetch_input``, the pair (input, prediction).
     """
     reject_mesh(mesh, sharding)
     dev = resolve_device(device)
@@ -233,12 +239,15 @@ def predict_tiled(
     if batcher is not None:
         _check_batcher(batcher, plan, gen, meanstd_x, meanstd_y, dev)
         return _predict_tiled_batched(batcher, fetch_tile, plan, out=out,
-                                      should_cancel=should_cancel)
+                                      should_cancel=should_cancel,
+                                      fetch_input=fetch_input)
     step = make_tile_step(gen, meanstd_x, meanstd_y, plan.tpad, dev)
 
     user_out = out is not None
     if out is None:
         out = np.zeros(plan.padded_size, np.uint8)
+    in_out = np.zeros(plan.padded_size, np.uint8) if fetch_input else None
+    lo, hi = plan.buffer, plan.buffer + plan.outdimsize
     fetched = _parallel_fetch(iter(plan.corners),
                               lambda c: fetch_tile(c, plan.insize),
                               FETCH_THREADS)
@@ -254,6 +263,9 @@ def predict_tiled(
         arr = np.zeros((batch_size,) + batch_tiles[0].shape, np.uint8)
         arr[:k] = batch_tiles
         scatter_tiles(out, step(arr)[:k], batch_idx, plan.outdimsize)
+        if fetch_input:
+            scatter_tiles(in_out, arr[:k, lo:hi, lo:hi, lo:hi], batch_idx,
+                          plan.outdimsize)
         batch_tiles.clear()
         batch_idx.clear()
 
@@ -265,26 +277,36 @@ def predict_tiled(
         if len(batch_tiles) == batch_size:
             flush()
     flush()
+    return _result(out, in_out, plan, user_out)
 
-    sx, sy, sz = size
-    return out if user_out else out[:sz, :sy, :sx]
+
+def _result(out, in_out, plan: TilePlan, user_out: bool):
+    """The request's crop of the stitched output (a caller's ``out`` is
+    already exact), and of the stitched input where it was fetched."""
+    sx, sy, sz = plan.size
+    res = out if user_out else out[:sz, :sy, :sx]
+    if in_out is not None:
+        return in_out[:sz, :sy, :sx], res
+    return res
 
 
 def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
                            out: Optional[np.ndarray] = None,
                            should_cancel: Optional[Callable[[], bool]]
-                           = None):
+                           = None, fetch_input: bool = False):
     """predict_tiled's loop when a shared TileBatcher owns the device:
     submit tiles as they are fetched, scatter as futures resolve.  In-flight
     tiles are capped at 4 batches' worth to bound host RAM."""
     user_out = out is not None
     if out is None:
         out = np.zeros(plan.padded_size, np.uint8)
+    in_out = np.zeros(plan.padded_size, np.uint8) if fetch_input else None
+    lo, hi = plan.buffer, plan.buffer + plan.outdimsize
     pending: deque = deque()
 
     def drain(n):
         for _ in range(n):
-            fut, idx = pending.popleft()
+            fut, idx, tin = pending.popleft()
             # Bounded wait (600 s >> any batch); poll should_cancel every
             # 0.2 s so a hangup or deadline unblocks this thread mid-batch.
             if should_cancel is None:
@@ -302,6 +324,8 @@ def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
                         if time.monotonic() - t0 > 600:
                             raise
             scatter_tiles(out, pred[None], [idx], plan.outdimsize)
+            if tin is not None:
+                scatter_tiles(in_out, tin[None], [idx], plan.outdimsize)
 
     fetched = _parallel_fetch(iter(plan.corners),
                               lambda c: fetch_tile(c, plan.insize),
@@ -311,6 +335,8 @@ def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
         if should_cancel is not None and should_cancel():
             raise InferenceCancelled("tiled inference cancelled")
         t = np.asarray(tile, np.uint8)
+        # a copy: a view would keep the whole insize^3 tile in `pending`
+        tin = t[lo:hi, lo:hi, lo:hi].copy() if fetch_input else None
         try:
             fut = batcher.submit(t)
         except RuntimeError:
@@ -318,10 +344,57 @@ def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
             # tile synchronously on our own thread and keep going.
             fut = cf.Future()
             fut.set_result(batcher.run_direct(t))
-        pending.append((fut, idx))
+        pending.append((fut, idx, tin))
         if len(pending) > cap:
             drain(len(pending) - cap)
     drain(len(pending))
+    return _result(out, in_out, plan, user_out)
 
-    sx, sy, sz = plan.size
-    return out if user_out else out[:sz, :sy, :sx]
+
+def predict_ng_cube(location: str, start, size, model, meanstd_x, meanstd_y,
+                    cloudrun: Optional[str] = None, fetch_input: bool = False,
+                    outdimsize: Optional[int] = None,
+                    buffer: Optional[int] = None, batch_size: int = 8,
+                    mesh=None, batcher=None,
+                    out: Optional[np.ndarray] = None, device="cuda"):
+    """Tiled inference of an xyz ``start``/``size`` region of a
+    neuroglancer-precomputed volume (reference utils.py:41; the JAX
+    package's ``predict_ng_cube``).
+
+    ``model``: an ``EM2EM`` (its generator G, ``outdimsize`` and
+    ``buffer``), or a generator module with explicit ``outdimsize`` and
+    ``buffer``.  ``location``: 'bucket/path' (GCS) or 'file://...'.
+    ``cloudrun=None`` reads through tensorstore, zero-filled outside the
+    volume's domain; otherwise through the data service at that URL
+    (``POST /volume``).  ``fetch_input``, ``batch_size``, ``batcher``,
+    ``out`` and ``device`` as in ``predict_tiled``; ``mesh`` raises (a later
+    slice)."""
+    reject_mesh(mesh)
+    dev = resolve_device(device)
+    if hasattr(model, "outdimsize"):
+        outdimsize = model.outdimsize if outdimsize is None else outdimsize
+        buffer = model.buffer if buffer is None else buffer
+        gen = model.state.gg
+    else:
+        gen = model
+        if outdimsize is None or buffer is None:
+            raise ValueError("a generator module needs explicit outdimsize "
+                             "and buffer")
+
+    if cloudrun is None:
+        ds = open_tensorstore(location)
+        dom_lo = np.asarray(ds.domain.inclusive_min[:3], np.int64)
+        dom_hi = np.asarray(ds.domain.exclusive_max[:3], np.int64)
+
+        def fetch_tile(corner, insize):
+            return read_ts_box_zyx(ds, corner, (insize,) * 3, dom_lo, dom_hi)
+    else:
+        fetcher = CloudRunFetcher(cloudrun, location)
+
+        def fetch_tile(corner, insize):
+            return fetcher.fetch(corner, insize)
+
+    return predict_tiled(fetch_tile, gen, start, size, outdimsize, buffer,
+                         meanstd_x, meanstd_y, batch_size=batch_size,
+                         batcher=batcher, out=out, device=dev,
+                         fetch_input=fetch_input)

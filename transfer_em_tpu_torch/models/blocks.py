@@ -62,9 +62,12 @@ class ConvND(nn.Module):
         return self.kernel.shape[0] == 3 and self.stride == 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel.to(x.dtype)
-        y = conv3(x, w) if self._is_conv3() else conv_nd(x, w,
-                                                         stride=self.stride)
+        # conv3 takes the float32 parameter itself under a bf16 x: its
+        # packed weights are cached per parameter, a per-call cast is not.
+        if self._is_conv3():
+            y = conv3(x, self.kernel)
+        else:
+            y = conv_nd(x, self.kernel, stride=self.stride)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -74,10 +77,9 @@ class ConvActND(ConvND):
     """Conv + LeakyReLU(0.3); same param tree as ConvND (one ``kernel``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel.to(x.dtype)
         if self._is_conv3():
-            return conv3_act(x, w)
-        return leaky_relu(conv_nd(x, w, stride=self.stride))
+            return conv3_act(x, self.kernel)
+        return leaky_relu(conv_nd(x, self.kernel, stride=self.stride))
 
 
 class ConvTransposeND(nn.Module):

@@ -147,10 +147,12 @@ def pack_conv3_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return parts.contiguous()
 
 
-def packed_weights(w: torch.Tensor) -> torch.Tensor:
-    """pack_conv3_weights(w, w.dtype), cached on w's STORAGE, keyed by the
-    view (offset, shape, strides, dtype) and stamped with w's version
-    counter: it lives as long as the weight's memory.
+def packed_weights(w: torch.Tensor,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """pack_conv3_weights(w, dtype or w.dtype), cached on w's STORAGE,
+    keyed by the view (offset, shape, strides, dtype) and the target dtype,
+    and stamped with w's version counter: it lives as long as the weight's
+    memory.
 
     * A ``.detach()`` alias of a parameter (the frozen discriminators'
       ``functional_call``) shares the parameter's storage and version
@@ -159,22 +161,26 @@ def packed_weights(w: torch.Tensor) -> torch.Tensor:
       ``no_grad``) bumps the version, so the next call repacks.  A write
       through ``p.data`` does NOT bump it and is not seen: the port's
       optimizer never writes through ``.data``.
+    * A bfloat16 forward packs straight from the float32 parameter
+      (``dtype=torch.bfloat16``), so it packs once per parameter too; a
+      cast made per call would be a fresh tensor each forward (and, under
+      ``inference_mode``, an inference tensor, which has no version
+      counter and always repacks).
 
-    The served float32 path packs once per parameter; a bf16 cast is a
-    fresh tensor each forward and repacks, as does an inference tensor (no
-    version counter).  ``packed_weights.packs`` counts the packs."""
+    ``packed_weights.packs`` counts the packs."""
+    dtype = w.dtype if dtype is None else dtype
     if w.is_inference():
         packed_weights.packs += 1
-        return pack_conv3_weights(w, w.dtype)
+        return pack_conv3_weights(w, dtype)
     storage = w.untyped_storage()
-    view = (w.storage_offset(), tuple(w.shape), w.stride(), w.dtype)
+    view = (w.storage_offset(), tuple(w.shape), w.stride(), w.dtype, dtype)
     cache = getattr(storage, "_conv3_packs", None)
     if cache is None:
         cache = storage._conv3_packs = {}
     hit = cache.get(view)
     if hit is not None and hit[0] == w._version:
         return hit[1]
-    packed = pack_conv3_weights(w.detach(), w.dtype)
+    packed = pack_conv3_weights(w.detach(), dtype)
     packed_weights.packs += 1
     cache[view] = (w._version, packed)
     return packed
@@ -187,10 +193,11 @@ packed_weights.packs = 0
 
 def conv3_plain(x: torch.Tensor, w: torch.Tensor,
                 leaky: Optional[float] = None) -> torch.Tensor:
-    """The kernels' function in plain PyTorch: float32 products and sums,
-    optional LeakyReLU, one rounding to x's dtype."""
+    """The kernels' function in plain PyTorch: w rounded to x's dtype,
+    float32 products and sums, optional LeakyReLU, one rounding to x's
+    dtype."""
     y = F.conv3d(x.to(torch.float32).permute(0, 4, 1, 2, 3),
-                 w.to(torch.float32).permute(4, 3, 0, 1, 2))
+                 w.to(x.dtype).to(torch.float32).permute(4, 3, 0, 1, 2))
     y = y.permute(0, 2, 3, 4, 1)
     if leaky is not None:
         y = torch.where(y >= 0, y, y * leaky)
@@ -216,7 +223,9 @@ def conv3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
 
 
 class _Conv3(torch.autograd.Function):
-    """conv3 with gradients: the kernel forward, conv3_backward behind it."""
+    """conv3 with gradients: the kernel forward, conv3_backward behind it.
+    The gradients are those of the conv on w cast to x's dtype, then of
+    the cast (dw rounded to x's dtype, returned in w's)."""
 
     @staticmethod
     def forward(ctx, x, w, leaky):
@@ -230,16 +239,19 @@ class _Conv3(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         if ctx.leaky is not None:  # the mask from the saved output
             g = torch.where(y >= 0, g, g * ctx.leaky)
-        dx, dw = conv3_backward(x, w, g, *ctx.needs_input_grad[:2])
-        return dx, dw, None
+        dx, dw = conv3_backward(x, w.to(x.dtype), g,
+                                *ctx.needs_input_grad[:2])
+        return dx, None if dw is None else dw.to(w.dtype), None
 
 
 def conv3(x: torch.Tensor, w: torch.Tensor,
           leaky: Optional[float] = None) -> torch.Tensor:
     """(B, D, H, W, C) * (3, 3, 3, C, O) -> (B, D-2, H-2, W-2, O) in x's
-    dtype (float32 or bfloat16; w must have the same dtype).  ``leaky``
-    fuses LeakyReLU(negative_slope=leaky) into the epilogue.  Where autograd
-    needs a gradient the call goes through :class:`_Conv3` (same forward)."""
+    dtype (float32 or bfloat16).  w is x's dtype, or a float32 parameter
+    under a bfloat16 x: the conv then runs on w rounded to bfloat16, packed
+    once per parameter (:func:`packed_weights`).  ``leaky`` fuses
+    LeakyReLU(negative_slope=leaky) into the epilogue.  Where autograd needs
+    a gradient the call goes through :class:`_Conv3` (same forward)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Conv3.apply(x, w, leaky)
     return _conv3(x, w, leaky)
@@ -250,7 +262,7 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return conv3_plain(x, w, leaky)
     kernels.check_cuda_tensor(x, "conv3 x", tuple(kernels.DTYPE_CODES), 5)
-    kernels.check_cuda_tensor(w, "conv3 w", (x.dtype,), 5)
+    kernels.check_cuda_tensor(w, "conv3 w", (x.dtype, torch.float32), 5)
     bsz, d, h, wd, c = x.shape
     o = w.shape[-1]
     if tuple(w.shape[:4]) != (3, 3, 3, c):
@@ -265,13 +277,14 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
     code = kernels.DTYPE_CODES[x.dtype]
     if conv3_path(c, o) == "tc":
         plan = conv3_plan(c, o, x.dtype)
-        wp = packed_weights(w)
+        wp = packed_weights(w, x.dtype)
         kernels.launch("tem_conv3_tc", x.data_ptr(), wp.data_ptr(),
                        y.data_ptr(), code, bsz, d, h, wd, c, o, plan.cb,
                        plan.nc, int(plan.resident), act, slope,
                        device=x.device)
         conv3.launches_tc += 1
     else:
+        w = w.to(x.dtype)  # C < 4 or O < 8: a few hundred weights
         kernels.launch("tem_conv3_direct", x.data_ptr(), w.data_ptr(),
                        y.data_ptr(), code, bsz, d, h, wd, c, o, act, slope,
                        device=x.device)

@@ -1,9 +1,10 @@
 """Volume read backends for the serving layer.
 
-Own copy of ``transfer_em_tpu/serve/backends.py`` minus tensorstore (a later
-slice).  ``read(start_xyz, size_xyz)`` returns uint8 C-order zyx bytes ==
-F-order xyz, the reference data service's contract (cloudrun_functions/
-transferem.py:146-180); out-of-bounds reads zero-fill.
+Own copy of ``transfer_em_tpu/serve/backends.py``.  ``read(start_xyz,
+size_xyz)`` returns uint8 C-order zyx bytes == F-order xyz, the reference
+data service's contract (cloudrun_functions/transferem.py:146-180);
+out-of-bounds reads zero-fill.  Loads no torch: the data service forks
+worker processes from a process that imports this module.
 """
 
 from __future__ import annotations
@@ -42,6 +43,30 @@ class NumpyVolume(VolumeBackend):
         return gather_box(self.vol, start, size)
 
 
+class TensorstoreVolume(VolumeBackend):
+    """neuroglancer-precomputed backend (reference cloudrun_functions/
+    transferem.py:131-180): ``location`` is 'bucket/path' (GCS) or
+    'file://...'.  Out-of-domain reads zero-fill through
+    ``data.sources.read_ts_box_zyx`` (tensorstore itself raises OutOfRange;
+    tiled requests read halos past the volume's faces)."""
+
+    def __init__(self, location: str, scale_index: int = 0):
+        from ..data.sources import open_tensorstore
+        self.ds = open_tensorstore(location, scale_index)
+        # uint8 only, as NumpyVolume: another dtype assigned into the
+        # zero-filled uint8 buffer would truncate mod 256.
+        if np.dtype(self.ds.dtype.numpy_dtype) != np.uint8:
+            raise ValueError(
+                f"volume at {location!r} has dtype {self.ds.dtype}, but the "
+                "serving byte contract is uint8-only")
+        self._lo = np.asarray(self.ds.domain.inclusive_min[:3], np.int64)
+        self._hi = np.asarray(self.ds.domain.exclusive_max[:3], np.int64)
+
+    def read(self, start, size) -> np.ndarray:
+        from ..data.sources import read_ts_box_zyx
+        return read_ts_box_zyx(self.ds, start, size, self._lo, self._hi)
+
+
 _REGISTRY: Dict[str, VolumeBackend] = {}
 
 
@@ -51,18 +76,17 @@ def register_volume(location: str, backend: VolumeBackend) -> None:
 
 
 @functools.lru_cache(maxsize=16)
-def _open_npy(location: str) -> VolumeBackend:
-    return NumpyVolume(location)
+def _open_uncached(location: str, scale_index: int) -> VolumeBackend:
+    if location.endswith(".npy"):
+        return NumpyVolume(location)
+    return TensorstoreVolume(location, scale_index)
 
 
-def open_volume(location: str) -> VolumeBackend:
-    """Resolve a location: a registered backend, else a ``.npy`` path
-    (cached).  Other locations (ng-precomputed via tensorstore) belong to a
-    later slice of the port."""
+def open_volume(location: str, scale_index: int = 0) -> VolumeBackend:
+    """Resolve a location: a registered backend first, else a backend
+    cached by (location, scale_index), so a fleet of chunk requests against
+    one volume opens it (tensorstore's metadata read) once: ``.npy`` ->
+    NumpyVolume, anything else -> TensorstoreVolume."""
     if location in _REGISTRY:
         return _REGISTRY[location]
-    if location.endswith(".npy"):
-        return _open_npy(location)
-    raise NotImplementedError(
-        f"location {location!r}: this slice serves registered volumes and "
-        ".npy files; tensorstore volumes come with a later slice")
+    return _open_uncached(location, scale_index)

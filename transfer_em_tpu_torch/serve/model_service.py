@@ -7,10 +7,10 @@ model_name, dest} -> validate 64-alignment (:66-73), load/cache the model
 GPU, write the result as 64^3 gzip neuroglancer blocks named
 "x0-x1_y0-y1_z0-z1" under dest (:158-189).
 
-This slice serves local model roots and local destinations (``gs://``
-raises NotImplementedError).  Device work comes from one thread at a time:
-the shared TileBatcher's worker (cross_batch, the default), or the tile
-step's device lock on the unbatched path.
+Model roots and destinations are local directories or ``gs://bucket/
+prefix`` (google-cloud-storage, imported only there).  Device work comes
+from one thread at a time: the shared TileBatcher's worker (cross_batch, the
+default), or the tile step's device lock on the unbatched path.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ import json
 import os
 import re
 import selectors
+import shutil
 import socket
+import tempfile
 import threading
 import time
 import traceback
@@ -89,19 +91,38 @@ class _Limiter:
 
 
 class BlockWriter:
-    """Write 64^3 gzip blocks to a local destination directory."""
+    """Write named blobs to a destination: a local directory or a
+    ``gs://bucket/prefix`` (blobs ``<prefix>/<name>``)."""
 
     def __init__(self, dest: str):
-        if dest.startswith("gs://"):
-            raise NotImplementedError(
-                "gs:// destinations come with a later slice of the port")
         self.dest = dest
-        os.makedirs(dest, exist_ok=True)
+        self.is_gcs = dest.startswith("gs://")
+        if self.is_gcs:
+            from google.cloud import storage
+            bucket, *prefix = dest[len("gs://"):].split("/")
+            self.bucket = storage.Client().bucket(bucket)
+            self.prefix = "/".join(prefix)
+        else:
+            os.makedirs(dest, exist_ok=True)
 
-    def write(self, name: str, raw: bytes):
-        """gzip with mtime=0, so identical payloads give identical blocks."""
-        with open(os.path.join(self.dest, name), "wb") as f:
-            f.write(gzip.compress(raw, mtime=0))
+    def write(self, name: str, raw: bytes, compress: bool = True):
+        """``compress``: gzip with mtime=0 (identical payloads give
+        identical blocks) and, on GCS, Content-Encoding gzip, as the
+        reference uploads a block (model_cloudrun/transferem.py:182-184).
+        ``compress=False`` writes ``raw`` as it is: the reference stores the
+        ``info`` manifest plain (custom_online/predictor.py:126-127)."""
+        payload = gzip.compress(raw, mtime=0) if compress else raw
+        if not self.is_gcs:
+            with open(os.path.join(self.dest, name), "wb") as f:
+                f.write(payload)
+            return
+        blob = self.bucket.blob(f"{self.prefix}/{name}")
+        if compress:
+            blob.content_encoding = "gzip"
+            blob.upload_from_string(payload,
+                                    content_type="application/octet-stream")
+        else:
+            blob.upload_from_string(payload)
 
 
 def write_ng_blocks(data_zyx: np.ndarray, dest: str, offset_xyz,
@@ -144,6 +165,11 @@ class ModelCache:
     <root>/name/version/).  ``capacity`` 1 keeps the reference's single
     cached model (model_cloudrun/transferem.py:85-116).
 
+    ``model_root`` is a local directory or ``gs://bucket/prefix``; a gs://
+    model is staged blob by blob into a fresh local directory, which is
+    removed when the load fails, when the model is evicted and on
+    ``close()``.
+
     ``batcher_factory``: optional (gen, meta) -> TileBatcher; every cached
     model then carries one shared cross-request batcher, closed when the
     model is evicted or the cache is closed.  Entries are (gen, meta,
@@ -153,9 +179,6 @@ class ModelCache:
                  capacity: int = 1, device="cuda", compute_dtype=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1 (got {capacity})")
-        if model_root.startswith("gs://"):
-            raise NotImplementedError(
-                "gs:// model roots come with a later slice of the port")
         self.model_root = model_root
         self.batcher_factory = batcher_factory
         self.capacity = int(capacity)
@@ -164,15 +187,54 @@ class ModelCache:
         self._lock = threading.Lock()
         self._entries: OrderedDict = OrderedDict()
         self._loading = {}  # name -> Future of a load in flight
+        self._gcs_dir = None  # local root of the gs:// staging dirs
+        self._staging = {}  # name -> its entry's staging dir (gs:// roots)
         self._closed = False
         # Counters of evicted models' batchers, so /stats keeps the
         # service's history under eviction churn.
         self._retired = {"batches": 0, "tiles": 0, "padded": 0, "errors": 0}
 
+    def _download_gcs_model(self, parts) -> str:
+        """Stage ``<root-prefix>/<name>/<version>/`` from GCS into a fresh
+        local directory, blob by blob (the reference downloads the model
+        from MODEL_BUCKET on every miss, model_cloudrun/transferem.py:
+        85-116); a fresh directory per fetch, so a republished version
+        never mixes with an earlier fetch's files."""
+        from google.cloud import storage
+        bucket_name, *root_prefix = self.model_root[len("gs://"):].split("/")
+        prefix = "/".join([p for p in root_prefix if p] + list(parts))
+        with self._lock:
+            if self._closed:  # close() already removed the staging root
+                raise RuntimeError("ModelCache is closed")
+            if self._gcs_dir is None:
+                self._gcs_dir = tempfile.mkdtemp(prefix="tem_models_")
+            root = self._gcs_dir
+        local = tempfile.mkdtemp(prefix="_".join(parts) + "_", dir=root)
+        try:
+            client = storage.Client()
+            n = 0
+            for blob in client.list_blobs(client.bucket(bucket_name),
+                                          prefix=prefix + "/"):
+                rel = blob.name[len(prefix) + 1:]
+                if not rel or rel.endswith("/"):
+                    continue
+                dst = os.path.join(local, rel)
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                blob.download_to_filename(dst)
+                n += 1
+            if n == 0:
+                raise FileNotFoundError(
+                    f"no model blobs under gs://{bucket_name}/{prefix}/")
+        except BaseException:
+            shutil.rmtree(local, ignore_errors=True)
+            raise
+        return local
+
     def get(self, model_name: str):
         """Return the cached ``(gen, meta, batcher)``, loading on a miss.
-        The load runs outside the cache lock; concurrent misses for the
-        same name share one load through an in-flight Future."""
+        The load (a gs:// download included) runs outside the cache lock,
+        so hits never wait behind a miss; concurrent misses for the same
+        name share one load through an in-flight Future."""
         parts = _validate_model_name(model_name)
         with self._lock:
             if self._closed:
@@ -188,10 +250,13 @@ class ModelCache:
         if not loader:
             return fut.result()
 
-        evicted = None
+        evicted = evicted_dir = staged = None
         try:
-            gen, meta = load_generator(os.path.join(self.model_root, *parts),
-                                       device=self.device,
+            if self.model_root.startswith("gs://"):
+                path = staged = self._download_gcs_model(parts)
+            else:
+                path = os.path.join(self.model_root, *parts)
+            gen, meta = load_generator(path, device=self.device,
                                        compute_dtype=self.compute_dtype)
             batcher = (self.batcher_factory(gen, meta)
                        if self.batcher_factory else None)
@@ -199,6 +264,8 @@ class ModelCache:
         except BaseException as e:  # noqa: BLE001 — waiters must not hang
             with self._lock:
                 self._loading.pop(model_name, None)
+            if staged is not None:
+                shutil.rmtree(staged, ignore_errors=True)
             fut.set_exception(e)
             raise
         with self._lock:
@@ -206,13 +273,19 @@ class ModelCache:
             closed = self._closed
             if not closed:
                 self._entries[model_name] = entry
+                if staged is not None:
+                    self._staging[model_name] = staged
                 if len(self._entries) > self.capacity:
-                    _, (_, _, evicted) = self._entries.popitem(last=False)
+                    ev_name, (_, _, evicted) = self._entries.popitem(
+                        last=False)
+                    evicted_dir = self._staging.pop(ev_name, None)
         if closed:
             # close() raced this load: caching the entry would leave a live
-            # batcher worker nobody closes.
+            # batcher worker and a staging dir nobody removes.
             if batcher is not None:
                 batcher.close(wait=False)
+            if staged is not None:
+                shutil.rmtree(staged, ignore_errors=True)
             err = RuntimeError(f"ModelCache closed while loading "
                                f"{model_name!r}")
             fut.set_exception(err)
@@ -227,15 +300,22 @@ class ModelCache:
                 for k in self._retired:
                     self._retired[k] += ev_stats.get(k, 0)
             evicted.close(wait=False)
+        if evicted_dir is not None:
+            # The weights live on the device; the staged files are dead.
+            shutil.rmtree(evicted_dir, ignore_errors=True)
         return entry
 
     def close(self):
         with self._lock:
-            self._closed = True
+            self._closed = True  # a load in flight sees this and cleans up
             old = [e[2] for e in self._entries.values() if e[2] is not None]
             self._entries.clear()
+            self._staging.clear()  # the dirs live under gcs_dir
+            gcs_dir, self._gcs_dir = self._gcs_dir, None
         for b in old:
             b.close()  # wait: shutdown leaves no worker behind
+        if gcs_dir is not None:
+            shutil.rmtree(gcs_dir, ignore_errors=True)
 
     def stats(self):
         with self._lock:
@@ -452,21 +532,16 @@ class ModelService:
 def main():  # pragma: no cover
     """Serve on $PORT (default 8080) until SIGTERM/SIGINT.  TF32 is off so
     the float32 convolutions on cuDNN stay float32."""
-    import signal
-
     import torch
+
+    from .data_service import serve_until_signal
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     svc = ModelService(host="0.0.0.0", port=int(os.environ.get("PORT", 8080)),
                        compute_dtype=os.environ.get("COMPUTE_DTYPE") or None)
     print(f"model service on {svc.url}")
-    done = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: done.set())
-    svc.start()
-    done.wait()
-    svc.stop()
+    serve_until_signal(svc)
 
 
 if __name__ == "__main__":  # pragma: no cover
