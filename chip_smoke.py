@@ -109,13 +109,34 @@ each printing one JSON line:
             from epoch 3 -> load_generator -> predict_tiled on a 128^3
             chunk within one grey level on at most 1e-3 of the voxels of
             the plain versions.  All four kernels must launch in the phase.
-10. the card's nvidia-smi line, then the ``kernels`` line (``launches``
+10. twod    the 2D CycleGAN (wf=8, 74^2 -> 40^2, f32), whose convs all run
+            on cuDNN as JAX keeps them on XLA: preprocess (B=128, 74^2),
+            postprocess on a rank-4 (128, 40, 40, 1) batch at tpad 2 and 0
+            and on the scalar path, LeakyReLU at the 2D generator's 11
+            activations (B=128, summed), each against its plain version
+            and timed beside the bound and the library call; the 2D
+            generator and discriminator against gen_2d.npz / disc_2d.npz
+            (PSNR >= 40 dB, LeakyReLU launching, conv3 not); one 2D train
+            step through the kernels against one through the plain
+            versions (rtol 1e-4, GRAD_TOL); then, counted, the README
+            quick start in 2D: EM2EM(74, is3d=False, wf=8) on 256 seeded
+            74^2 patches of a smoothed 1024^2 image (source through
+            make_warp_map) trains 2 epochs at B=64 (per-epoch seconds,
+            tiles/s, peak memory, launch counts per step), an auto-restored
+            model trains a third epoch bit-equal to the uninterrupted one
+            under cudnn.deterministic, and save_model(is3d=False) ->
+            load_generator -> make_tile_step over 128 tiles with tpad 2
+            comes within one grey level on at most 1e-3 of the pixels of
+            the plain versions.  preprocess, postprocess and LeakyReLU must
+            launch, conv3 must not.
+11. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
    from the em2em phase, ``serve_ng_launches`` from the serve_ng phase,
-   ``slab_shapes`` from the volume phase's kernel checks), then the ``ok``
-   line.  Any
-   failed check exits non-zero before the last line.
+   ``twod_launches`` from the twod phase's quick start, ``twod`` the 2D
+   shapes' kernel times, ``slab_shapes`` from the volume phase's kernel
+   checks), then the ``ok`` line.  Any failed check exits non-zero before
+   the last line.
 """
 
 import concurrent.futures as cf
@@ -414,7 +435,8 @@ def check_train_shapes(dev, gen):
 
 def _tie_voxels(y, meanstd, tpad):
     t = slice(tpad, -tpad) if tpad else slice(None)
-    z = y[:, t, t, t, 0].double() * meanstd[1] + meanstd[0]
+    z = y[(slice(None),) + (t,) * (y.dim() - 2) + (0,)].double()
+    z = z * meanstd[1] + meanstd[0]
     z = (z + 1.0) * 127.5
     return (z - z.floor() - 0.5).abs() < 1e-6
 
@@ -595,13 +617,13 @@ def check_disc_golden(dev):
 
 # -- phase 5: serving --------------------------------------------------------
 
-def seeded_generator(seed, dev):
-    """wf=8 generator with numpy-seeded weights of std 1/sqrt(fan-in), so the
-    outputs vary over the whole uint8 range."""
+def seeded_generator(seed, dev, is3d=True):
+    """wf=8 generator (3D, or 2D) with numpy-seeded weights of std
+    1/sqrt(fan-in), so the outputs vary over the whole uint8 range."""
     from transfer_em_tpu_torch.models import UNetGenerator
 
     rng = np.random.default_rng(seed)
-    gen = UNetGenerator(wf=8)
+    gen = UNetGenerator(wf=8, is3d=is3d)
     sd = {k: torch.from_numpy(rng.normal(
         0, float(np.prod(v.shape[:-1])) ** -0.5, tuple(v.shape)).astype(
             np.float32)) for k, v in gen.state_dict().items()}
@@ -609,13 +631,15 @@ def seeded_generator(seed, dev):
     return gen.to(dev).eval()
 
 
-def smooth_volume(side, seed, dev):
-    """Seeded uint8 zyx volume of side^3: uniform noise smoothed on the card
-    (two 3^3 box filters), standardized to mean 128, std 40 grey levels."""
+def smooth_volume(side, seed, dev, ndim=3):
+    """Seeded uint8 zyx volume of side^3 (or, ndim=2, a yx image of side^2):
+    uniform noise smoothed on the card (two 3^n box filters), standardized
+    to mean 128, std 40 grey levels."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    v = torch.rand((1, 1, side, side, side), generator=g, device=dev)
+    v = torch.rand((1, 1) + (side,) * ndim, generator=g, device=dev)
+    pool = F.avg_pool3d if ndim == 3 else F.avg_pool2d
     for _ in range(2):
-        v = F.avg_pool3d(v, 3, stride=1, padding=1, count_include_pad=False)
+        v = pool(v, 3, stride=1, padding=1, count_include_pad=False)
     v = (v - v.mean()) / v.std() * 40.0 + 128.0
     return v[0, 0].round().clamp(0, 255).to(torch.uint8).cpu().numpy()
 
@@ -1463,15 +1487,16 @@ def check_volume(dev, smi):
 TREES = ("gg", "gf", "dx", "dy")
 
 
-def smooth_batches(n, std, seed, dev):
-    """Two seeded (n, 74, 74, 74, 1) float32 batches on the card: uniform
-    noise smoothed by two 3^3 box filters (like the serve volume),
-    standardized to mean 0 and ``std``."""
+def smooth_batches(n, std, seed, dev, ndim=3):
+    """Two seeded (n, 74, 74, 74, 1) float32 batches on the card (ndim=2:
+    (n, 74, 74, 1)): uniform noise smoothed by two 3^n box filters (like
+    the serve volume), standardized to mean 0 and ``std``."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    v = torch.rand((2 * n, 1, 74, 74, 74), generator=g, device=dev)
+    v = torch.rand((2 * n, 1) + (74,) * ndim, generator=g, device=dev)
+    pool = F.avg_pool3d if ndim == 3 else F.avg_pool2d
     for _ in range(2):
-        v = F.avg_pool3d(v, 3, stride=1, padding=1, count_include_pad=False)
-    v = ((v - v.mean()) / v.std() * std).permute(0, 2, 3, 4, 1).contiguous()
+        v = pool(v, 3, stride=1, padding=1, count_include_pad=False)
+    v = ((v - v.mean()) / v.std() * std).movedim(1, -1).contiguous()
     return v[:n], v[n:]
 
 
@@ -2013,6 +2038,324 @@ def check_em2em(dev, smi):
     return rec
 
 
+# -- phase 10: 2D, the README quick start ------------------------------------
+
+TWOD_B, TWOD_TRAIN_B, TWOD_WF = 128, 64, 8
+TWOD_SIDE, TWOD_PATCHES = 1024, 256
+SUMMARY = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+           "max_abs_err", "graph_ms", "library_graph_ms")
+
+
+def _twod_leaky_shapes(dev):
+    """The shapes of the 2D generator's LeakyReLU calls (every one of its
+    activations: in 2D no conv epilogue absorbs one) at TWOD_B tiles, as
+    one forward makes them, and that forward's launch count."""
+    from transfer_em_tpu_torch.models import UNetGenerator
+
+    gen = UNetGenerator(wf=TWOD_WF, is3d=False).to(dev).eval()
+    reset_counts()
+    with recorded_calls() as calls, torch.inference_mode():
+        gen(torch.zeros((TWOD_B, 74, 74, 1), device=dev))
+    launches = read_counts()["leaky_relu"]
+    return [c[1] for c in calls if c[0] == "leaky_relu"], launches
+
+
+def _twod_kernels(dev, gen):
+    """preprocess on (B, 74, 74) uint8, postprocess on a rank-4 (B, 40, 40,
+    1) batch at tpad 2 (the tile step's) and 0 plus the scalar path's odd
+    shapes, LeakyReLU at the 2D generator's activations (B = TWOD_B,
+    summed): each against its plain version, timed beside the bound and
+    one library call (events and graph replay)."""
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    out = {}
+    x = torch.randint(0, 256, (TWOD_B, 74, 74), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    rec = _pre_case(x)
+    emit({"phase": "twod_kernel", "kernel": "preprocess_u8",
+          "shape": list(x.shape), **rec})
+    out["preprocess_u8"] = dict(rec, shape=list(x.shape))
+    del x
+
+    y = torch.randn((TWOD_B, 40, 40, 1), generator=gen, device=dev)
+    post = {}
+    for tpad in (2, 0):
+        rec = post_check(y, tpad)
+        side = 40 - 2 * tpad
+        n_out = TWOD_B * side * side
+        b_ms, b_by = bound(n_out * 5, 5.0 * n_out, torch.float32)
+        win = (slice(None), slice(tpad, 40 - tpad), slice(tpad, 40 - tpad), 0)
+
+        def lib():
+            return (y[win] * MS_Y[1] + MS_Y[0] + 1.0).mul(127.5).round() \
+                .clamp(0, 255).to(torch.uint8)
+
+        def kern():
+            return ck.postprocess_u8(y, MS_Y, tpad)
+
+        rec.update({
+            "ms": cuda_ms(kern, 20),
+            "plain_ms": cuda_ms(lambda: ck.postprocess_u8_plain(y, MS_Y, tpad),
+                                20),
+            "library_ms": cuda_ms(lib, 20), "graph_ms": graph_ms(kern),
+            "library_graph_ms": graph_ms(lib), "bound_ms": b_ms,
+            "bound_by": b_by, "shape": list(y.shape), "tpad": tpad})
+        emit({"phase": "twod_kernel", "kernel": "postprocess_u8",
+              "path": "vector", **rec})
+        post[tpad] = rec
+    rec = dict(post[2], tpad0={k: post[0][k] for k in SUMMARY})
+    rec["ok"] = post[2]["ok"] and post[0]["ok"]
+    for side, tpad, path in ((42, 1, "scalar: odd tpad"),
+                             (42, 2, "scalar: OW % 4 != 0")):
+        case = post_check(torch.randn((8, side, side, 1), generator=gen,
+                                      device=dev), tpad)
+        emit({"phase": "twod_kernel", "kernel": "postprocess_u8",
+              "path": path, "shape": [8, side, side, 1], "tpad": tpad,
+              **case})
+        rec["ok"] = rec["ok"] and case["ok"]
+    out["postprocess_u8"] = rec
+    del y
+
+    shapes, launches = _twod_leaky_shapes(dev)
+    tot = {"max_abs_err": 0.0, "ok": len(shapes) == launches > 0,
+           "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes", "graph_ms": 0.0, "library_graph_ms": 0.0,
+           "shapes": [list(s) for s in shapes]}
+    for shape in shapes:
+        v = torch.randn(shape, generator=gen, device=dev)
+        case = _leaky_case(v)
+        emit({"phase": "twod_kernel", "kernel": "leaky_relu", "net": "gen2d",
+              "shape": list(shape), **case})
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms",
+                  "library_graph_ms"):
+            tot[k] += case[k]
+        tot["max_abs_err"] = max(tot["max_abs_err"], case["max_abs_err"])
+        tot["ok"] = tot["ok"] and case["ok"]
+        del v
+    out["leaky_relu"] = tot
+    return out
+
+
+def _twod_golden(dev):
+    """The 2D generator and discriminator (wf=8, kernels on) against the
+    frozen TF outputs gen_2d.npz (74^2 -> 40^2) and disc_2d.npz (40^2 ->
+    6^2): PSNR >= 40 dB; LeakyReLU must launch and conv3 must not (JAX
+    keeps its Pallas conv to 3D)."""
+    from transfer_em_tpu_torch.models import Discriminator, UNetGenerator
+    from transfer_em_tpu_torch.models.convert import (DISC_ORDER_2D,
+                                                      params_from_tf_order)
+
+    res = {}
+    for name, net, order in (
+            ("gen_2d", UNetGenerator(wf=8, is3d=False), None),
+            ("disc_2d", Discriminator(wf=8, is3d=False), DISC_ORDER_2D)):
+        data = np.load(os.path.join(ROOT, "tests", "goldens", name + ".npz"))
+        net.load_state_dict(params_from_tf_order(data, order) if order
+                            else params_from_tf_order(data))
+        reset_counts()
+        with torch.inference_mode():
+            got = net.to(dev).eval()(torch.from_numpy(data["x"]).to(dev))
+        launches = read_counts()
+        got = got.cpu().numpy()
+        res[name] = {"psnr_db": psnr(got, data["y"]),
+                     "max_abs_err": float(np.abs(got - data["y"]).max()),
+                     "leaky_relu_launches": launches["leaky_relu"],
+                     "conv3_launches": launches["conv3"]}
+    ok = all(r["psnr_db"] >= 40 and r["leaky_relu_launches"] > 0
+             and r["conv3_launches"] == 0 for r in res.values())
+    return res, ok
+
+
+def _twod_train_check(dev):
+    """One 2D train step (wf=8, B=4, dropout off) through the kernels and
+    one through the plain versions, from the same state and batches: the
+    7-loss vectors within rtol 1e-4, every parameter's gradient within
+    GRAD_TOL of its own largest |g|."""
+    import copy
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    cfg = CycleGANConfig(is3d=False, wf=TWOD_WF)
+    state = create_state(cfg, seed=1, device=dev)
+    redraw(state, 2)
+    ref_state = copy.deepcopy(state)
+    x, y = smooth_batches(4, 0.3, 11, dev, ndim=2)
+    step = build_step_fn(cfg, deterministic=True)
+    reset_counts()
+    got = step(state, x, y, 0).cpu().numpy()
+    launches = read_counts()
+    with plain_versions():
+        want = step(ref_state, x, y, 0).cpu().numpy()
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    grad = _worst(_grad_errors(state, ref_state))
+    rec = {"batch": 4, "losses": got.tolist(), "plain_losses": want.tolist(),
+           "loss_max_rel_err": loss_rel, "loss_rtol": 1e-4,
+           "grad_max_err_over_own_max": grad, "grad_tol": GRAD_TOL,
+           "launches": launches}
+    rec["ok"] = (loss_rel <= 1e-4 and all(v <= GRAD_TOL for v in grad.values())
+                 and launches["leaky_relu"] > 0 and launches["conv3"] == 0)
+    return rec
+
+
+def _tile_grid(img, n, out=36, side=74):
+    """n tiles of side^2 from a yx image on a grid of stride ``out``."""
+    per_row = (img.shape[1] - side) // out + 1
+    return np.stack([img[(i // per_row) * out:(i // per_row) * out + side,
+                         (i % per_row) * out:(i % per_row) * out + side]
+                     for i in range(n)])
+
+
+def check_twod(dev, smi):
+    """The 2D CycleGAN at wf=8, 74^2 -> 40^2, f32: the kernels at the 2D
+    shapes, the 2D goldens, a 2D train check, then the README quick start
+    on the card (the main path, counted): EM2EM(74, is3d=False, wf=8) on
+    TWOD_PATCHES seeded 74^2 patches of a smoothed 1024^2 image (target;
+    source through make_warp_map) trains 2 epochs at B=64; a second model
+    of the experiment auto-restores bit-equal and trains a third epoch on
+    fixed batches, as the first does uninterrupted (bit-equal under
+    cudnn.deterministic); save_model(is3d=False) -> load_generator ->
+    make_tile_step over 128 tiles of the image with tpad 2, within one
+    grey level on at most 1e-3 of the pixels of the same step through the
+    plain versions; the same for a seeded 2D generator's export (weights
+    of std 1/sqrt(fan-in), whose output spreads over the grey levels
+    where three epochs from the N(0, 0.02) init barely leave one).
+    preprocess, postprocess and LeakyReLU must launch, conv3 must not."""
+    from transfer_em_tpu_torch import EM2EM, create_dataset_from_tensors
+    from transfer_em_tpu_torch.config import ExportMeta
+    from transfer_em_tpu_torch.infer import (export_generator, load_generator,
+                                             make_tile_step, save_model)
+    from transfer_em_tpu_torch.ops.warp import make_warp_map
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(40)
+    rec = {"phase": "twod", "config": f"EM2EM(74, is3d=False, wf={TWOD_WF}) "
+           "f32", "card": smi}
+    rec["kernels"] = _twod_kernels(dev, gen)
+    rec["golden"], golden_ok = _twod_golden(dev)
+    rec["train_check"] = _twod_train_check(dev)
+
+    img = smooth_volume(TWOD_SIDE, seed=41, dev=dev, ndim=2)
+    corners = np.random.default_rng(42).integers(0, TWOD_SIDE - 74 + 1,
+                                                 (TWOD_PATCHES, 2))
+    patches = [img[y:y + 74, x:x + 74] for y, x in corners]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ckpt")
+        log = os.path.join(tmp, "metrics.jsonl")
+        reset_counts()  # the main path's counts run from here
+        target, ms_y = create_dataset_from_tensors(
+            patches, batch_size=TWOD_TRAIN_B, device=dev)
+        source, ms_x = create_dataset_from_tensors(
+            patches, batch_size=TWOD_TRAIN_B, custom_map=make_warp_map(5),
+            device=dev)
+        model = EM2EM(74, "smoke2d", is3d=False, wf=TWOD_WF,
+                      checkpoint_root=root, device=dev)
+        expected = expected_step_counts(model.state)
+        before = {t: [p.detach().clone() for p in
+                      getattr(model.state, t).parameters()] for t in TREES}
+        per_step, step = [], model.train_step
+
+        def counted_step(x, y):
+            c0 = read_counts()
+            loss = step(x, y)
+            per_step.append({k: v - c0[k] for k, v in read_counts().items()})
+            return loss
+
+        model.train_step = counted_step
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.train(source, target, epochs=2, check_freq=1, metrics_log=log)
+        train_s = time.perf_counter() - t0
+        model.train_step = step
+        epochs = [json.loads(line) for line in open(log)]
+        steps = TWOD_PATCHES // TWOD_TRAIN_B
+        changed = {t: any(not torch.equal(a, b) for a, b in zip(
+            before[t], getattr(model.state, t).parameters())) for t in TREES}
+        rec["train"] = {
+            "batch": TWOD_TRAIN_B, "patches": TWOD_PATCHES, "wall_s": train_s,
+            "epochs": epochs,
+            "tiles_per_s": [e["steps"] * TWOD_TRAIN_B / e["seconds"]
+                            for e in epochs],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "per_step_counts": per_step, "expected_per_step": expected,
+            "counts_ok": len(per_step) == 2 * steps and all(
+                c[k] == v for c in per_step for k, v in expected.items()),
+            "losses_finite": all(np.isfinite(list(e["loss"].values())).all()
+                                 for e in epochs),
+            "trees_changed": changed}
+
+        resumed = EM2EM(74, "smoke2d", is3d=False, wf=TWOD_WF,
+                        checkpoint_root=root, device=dev)
+        restored_equal = _states_equal(resumed.state, model.state)
+        bx, by = source.take_batches(steps), target.take_batches(steps)
+        with cudnn_deterministic():
+            resumed.train(bx, by, epochs=1, start=2, check_freq=1,
+                          metrics_log=log)
+            for x, y in zip(bx, by):
+                model.train_step(x, y)
+        rec["resume"] = {"step": resumed.state.step,
+                         "restored_bit_equal": restored_equal,
+                         "continued_bit_equal": _states_equal(
+                             resumed.state, model.state)}
+
+        exports = {"trained": os.path.join(tmp, "trained"),
+                   "seeded": os.path.join(tmp, "seeded")}
+        save_model(exports["trained"], os.path.join(resumed.checkpoint_path,
+                                                    "3"),
+                   ms_x, ms_y, 74, False, TWOD_WF, device=dev)
+        meta = ExportMeta(buffer=17, outdimsize=40, meanstd_x=MS_X,
+                          meanstd_y=MS_Y, dimsize=74, is3d=False, wf=TWOD_WF)
+        export_generator(seeded_generator(43, dev, is3d=False), meta,
+                         exports["seeded"])
+        tiles = _tile_grid(img, TWOD_B)
+        rec["tile_step"], outs, steps_2d = {}, {}, {}
+        for name, path in exports.items():
+            g2d, meta = load_generator(path, device=dev)
+            steps_2d[name] = make_tile_step(g2d, meta.meanstd_x,
+                                            meta.meanstd_y, 2, device=dev)
+            outs[name] = steps_2d[name](tiles)
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps_2d[name](tiles)
+                times.append(time.perf_counter() - t0)
+            med = sorted(times)[len(times) // 2]
+            rec["tile_step"][name] = {
+                "batch": TWOD_B, "tpad": 2,
+                "out_shape": list(outs[name].shape), "median_s": med,
+                "tiles_per_s": TWOD_B / med,
+                "output_std": float(outs[name].std())}
+        launches = read_counts()  # ... to here
+        for name, step_2d in steps_2d.items():
+            with plain_versions():
+                ref = step_2d(tiles)
+            diff = np.abs(outs[name].astype(int) - ref.astype(int))
+            rec["tile_step"][name].update(
+                u8_max_diff=int(diff.max()),
+                u8_frac_differing=float((diff > 0).mean()))
+        del model, resumed, g2d, steps_2d
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    tr = rec["train"]
+    rec["ok"] = bool(
+        all(v["ok"] for v in rec["kernels"].values()) and golden_ok
+        and rec["train_check"]["ok"] and tr["counts_ok"]
+        and tr["losses_finite"] and all(changed.values())
+        and restored_equal and rec["resume"]["continued_bit_equal"]
+        and rec["resume"]["step"] == 3 * steps
+        and all(ts["out_shape"] == [TWOD_B, 36, 36] and ts["u8_max_diff"] <= 1
+                and ts["u8_frac_differing"] <= 1e-3
+                for ts in rec["tile_step"].values())
+        and rec["tile_step"]["seeded"]["output_std"] > 1
+        and all(launches[k] > 0 for k in ("preprocess_u8", "postprocess_u8",
+                                          "leaky_relu"))
+        and launches["conv3"] == 0)
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -2094,6 +2437,10 @@ def main():
     if not em2em["ok"]:
         fail("em2em", "the EM2EM phase failed a check")
 
+    twod = check_twod(dev, smi)
+    if not twod["ok"]:
+        fail("twod", "the 2D phase failed a check")
+
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -2165,15 +2512,23 @@ def main():
                                      "at B=128, float32"}}),
     ]
     le, lv, ln = em2em["launches"], volume["launches"], serve_ng["launches"]
+    l2 = twod["launches"]
     for line in lines:
         line["em2em_launches"] = le[line["name"]]
         line["volume_launches"] = lv[line["name"]]
         line["serve_ng_launches"] = ln[line["name"]]
+        line["twod_launches"] = l2[line["name"]]
+        if line["name"] in twod["kernels"]:
+            k2 = twod["kernels"][line["name"]]
+            line["twod"] = {**{k: k2[k] for k in SUMMARY},
+                            "shape": k2.get("shape"), "shapes": k2.get(
+                                "shapes"), "tpad0": k2.get("tpad0")}
     for p in paths:
         path = "conv3_" + p["name"].split(".")[1]
         p["em2em_launches"] = le[path]
         p["volume_launches"] = lv[path]
         p["serve_ng_launches"] = ln[path]
+        p["twod_launches"] = l2[path]
     slab_keys = ("layer", "shape", "path", "kernel_ms", "ms", "graph_ms", "plain_ms",
                  "library_ms", "library_graph_ms", "bound_ms", "bound_by",
                  "max_abs_err")

@@ -183,3 +183,33 @@ assert not bad, bad
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
+
+
+def test_top_level_names_load_no_torch():
+    """The JAX package's top-level names (transfer_em_tpu/__init__.py:
+    14-26) are the port's too: ``shapes``, ``CycleGANConfig``,
+    ``ExportMeta`` and ``__version__`` load with a bare import, in a fresh
+    interpreter, without torch; EM2EM and the rest stay lazy."""
+    import subprocess
+    import sys
+
+    import transfer_em_tpu
+    import transfer_em_tpu_torch
+
+    assert set(transfer_em_tpu.__all__) <= set(transfer_em_tpu_torch.__all__)
+    assert transfer_em_tpu_torch.__version__ == transfer_em_tpu.__version__
+    code = """
+import sys
+import transfer_em_tpu_torch as t
+assert t.shapes.discriminator_shapes(40, is3d=False).out == 6
+assert t.CycleGANConfig(is3d=False).dimsize == 74
+assert t.ExportMeta(17, 40, (0, 1), (0, 1)).is3d
+assert isinstance(t.__version__, str)
+assert "EM2EM" in dir(t) and "EM2EM" not in vars(t)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax"))
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+

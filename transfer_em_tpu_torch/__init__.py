@@ -13,13 +13,19 @@ Entry points (``EM2EM``, ``create_dataset_from_tensors``,
 unless the caller passes ``device="cpu"``, and raise when CUDA is asked for
 but absent.
 
-The names below resolve on first use (PEP 562), as in the JAX package: a
-bare ``import transfer_em_tpu_torch`` loads no torch, so the data plane
+``shapes``, ``CycleGANConfig``, ``ExportMeta`` and ``__version__`` load
+with the package, as in the JAX package (none of them imports torch); the
+names in ``_LAZY`` resolve on first use (PEP 562): a bare ``import
+transfer_em_tpu_torch`` loads no torch, so the data plane
 (``serve.backends``, ``serve.client``, ``serve.data_service``, which fork
 worker processes) stays free of it.
 """
 
 import importlib
+
+from . import shapes
+from .config import CycleGANConfig, ExportMeta
+from .version import __version__
 
 _LAZY = {
     "EM2EM": "transfer_em_tpu_torch.train.cgan",
@@ -31,7 +37,8 @@ _LAZY = {
     "save_model": "transfer_em_tpu_torch.infer.export",
 }
 
-__all__ = list(_LAZY)
+__all__ = ["shapes", "CycleGANConfig", "ExportMeta", "__version__",
+           *_LAZY]
 
 
 def __getattr__(name):

@@ -18,7 +18,7 @@ from typing import Tuple
 class CycleGANConfig:
     """Model and training hyperparameters (reference EM2EM.__init__,
     cgan.py:40), the JAX package's fields but two.  The train step
-    (train/cgan.py) takes 3D, float32, without ``remat`` or
+    (train/cgan.py) takes 3D or 2D, float32, without ``remat`` or
     ``ensemble_apps``, and raises NotImplementedError on the rest.
     ``batch_size``, ``epoch_size`` and ``buffer_size`` are the dataset's
     (reference datasets.py:10-12), for a caller that builds the pipelines.

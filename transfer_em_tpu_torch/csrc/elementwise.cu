@@ -9,7 +9,8 @@
 //    * 127.5, round half to even, clip [0, 255].  The Pallas kernel's folded
 //    a*y + b can move a voxel by one level at a tie.  It reads the tpad-trimmed
 //    window straight out of the untrimmed (B, D, H, W, 1) model output
-//    (strided read, no copy of the trimmed view).
+//    (strided read, no copy of the trimmed view); a 2D (B, H, W, 1) output
+//    comes as D = 1 with no trim on that axis (dtpad = 0).
 //  * tem_leaky_relu     replaces leaky_relu_kernel_call (pallas_kernels.py:
 //    127-151): where(v >= 0, v, v * slope), f32 and bf16.
 //
@@ -74,7 +75,9 @@ __device__ __forceinline__ uint8_t post_u8(float v, int has_ms, float mean,
 
 constexpr int kPostMaxWarps = 4;
 
-// Output rows of the trimmed window, one block per output (b, od) plane.
+// Output rows of the trimmed window, one block per output (b, od) plane;
+// the window starts dtpad planes into D and tpad rows / columns into H / W
+// (dtpad = tpad for a 3D batch, 0 for a 2D one seen as D = 1).
 // A row is Q = OW / V units of V outputs.  Where Q <= 32 a warp covers
 // R = 32 / Q rows at once (lane -> (row, unit), worked out once, before the
 // loop), else one row in steps of 32 units; the warps of the block step
@@ -86,12 +89,13 @@ constexpr int kPostMaxWarps = 4;
 template <int V>
 __global__ void __launch_bounds__(kPostMaxWarps * 32)
     postprocess_u8_rows(const float* __restrict__ y, uint8_t* __restrict__ out,
-                        int D, int H, int W, int OD, int OH, int OW, int tpad,
-                        int has_ms, float mean, float std) {
+                        int D, int H, int W, int OD, int OH, int OW,
+                        int dtpad, int tpad, int has_ms, float mean,
+                        float std) {
   const int plane = blockIdx.x;
   const int b = plane / OD, od = plane - b * OD;
   const float* src =
-      y + ((static_cast<size_t>(b) * D + od + tpad) * H + tpad) * W + tpad;
+      y + ((static_cast<size_t>(b) * D + od + dtpad) * H + tpad) * W + tpad;
   uint8_t* dst = out + static_cast<size_t>(plane) * OH * OW;
   const int Q = OW / V;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -122,16 +126,16 @@ __global__ void __launch_bounds__(kPostMaxWarps * 32)
 
 template <int V>
 void launch_postprocess(const float* y, uint8_t* out, int B, int D, int H,
-                        int W, int tpad, int has_ms, float mean, float std,
-                        cudaStream_t s) {
-  const int OD = D - 2 * tpad, OH = H - 2 * tpad, OW = W - 2 * tpad;
+                        int W, int dtpad, int tpad, int has_ms, float mean,
+                        float std, cudaStream_t s) {
+  const int OD = D - 2 * dtpad, OH = H - 2 * tpad, OW = W - 2 * tpad;
   const int Q = OW / V;
   const int R = Q <= 32 ? 32 / Q : 1;
   int warps = (OH + R - 1) / R;
   warps = warps > kPostMaxWarps ? kPostMaxWarps : warps;
   postprocess_u8_rows<V><<<static_cast<unsigned int>(B * OD), warps * 32, 0,
-                           s>>>(y, out, D, H, W, OD, OH, OW, tpad, has_ms,
-                                mean, std);
+                           s>>>(y, out, D, H, W, OD, OH, OW, dtpad, tpad,
+                                has_ms, mean, std);
 }
 
 constexpr int kLeakyThreads = 256;
@@ -244,12 +248,15 @@ int tem_preprocess_u8(const void* x, void* y, long long n, float a, float b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// dtpad: the trim of the D axis, tpad of H and W (a 2D batch: D = 1,
+// dtpad = 0).  The vector path's alignment depends on W and tpad alone: the
+// window's base offset is (..) * W + tpad floats.
 int tem_postprocess_u8(const void* y, void* out, int B, int D, int H, int W,
-                       int tpad, int has_ms, float mean, float std,
+                       int dtpad, int tpad, int has_ms, float mean, float std,
                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int OW = W - 2 * tpad;
-  if (B <= 0 || D <= 2 * tpad || H <= 2 * tpad || OW <= 0)
+  if (B <= 0 || D <= 2 * dtpad || H <= 2 * tpad || OW <= 0)
     return static_cast<int>(cudaGetLastError());
   const float* yf = static_cast<const float*>(y);
   uint8_t* o = static_cast<uint8_t*>(out);
@@ -257,9 +264,11 @@ int tem_postprocess_u8(const void* y, void* out, int B, int D, int H, int W,
                    reinterpret_cast<uintptr_t>(y) % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 4 == 0;
   if (vec) {
-    tem::launch_postprocess<4>(yf, o, B, D, H, W, tpad, has_ms, mean, std, s);
+    tem::launch_postprocess<4>(yf, o, B, D, H, W, dtpad, tpad, has_ms, mean,
+                               std, s);
   } else {
-    tem::launch_postprocess<1>(yf, o, B, D, H, W, tpad, has_ms, mean, std, s);
+    tem::launch_postprocess<1>(yf, o, B, D, H, W, dtpad, tpad, has_ms, mean,
+                               std, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

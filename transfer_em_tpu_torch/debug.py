@@ -5,9 +5,11 @@ reference transfer_em/debug.py).
   domain (blur + holes) from the target domain (debug.py:7-63).
 * ``accuracy``: RMSE between the unwarped ground truth and a prediction
   (debug.py:65-71).
-* ``generate_images``: the first z-slice of the first batch element of an
-  input and its output side by side (debug.py:73-102); matplotlib is
+* ``generate_images``: the first batch element of an input and its output
+  side by side, its first z-slice in 3D (debug.py:73-102); matplotlib is
   imported when it is called.
+
+Each takes 3D (B, D, H, W, 1) and 2D (B, H, W, 1) batches.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def _host(x) -> np.ndarray:
 def generate_images(orig, pred, show: bool = True,
                     save_path: Optional[str] = None):
     """Display and/or save an input/output pair (reference debug.py:73-102).
-    3D (rank-5) input: the first z-slice of the first batch element."""
+    The first batch element: its first z-slice for a 3D (rank-5) input, the
+    image itself for a 2D (rank-4) one."""
     import matplotlib.pyplot as plt
 
     orig, pred = _host(orig), _host(pred)

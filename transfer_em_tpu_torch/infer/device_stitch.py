@@ -33,8 +33,8 @@ from torch import nn
 
 from ..device import reject_mesh, resolve_device
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
-from .tiling import (_DEVICE_LOCK, TilePlan, check_generator, meanstd_tuple,
-                     plan_tiles, tile_batch)
+from .tiling import (_DEVICE_LOCK, TilePlan, check_3d_generator,
+                     check_generator, meanstd_tuple, plan_tiles, tile_batch)
 
 
 def volume_on(vol_zyx, dev: torch.device) -> torch.Tensor:
@@ -75,6 +75,7 @@ def device_predict_tiled(
     """
     reject_mesh(mesh)
     dev = resolve_device(device)
+    check_3d_generator(gen)
     check_generator(gen, dev)
     plan = plan_tiles(start, size, outdimsize, buffer)
     out = stitch_plan(vol_zyx, gen, plan,

@@ -2,12 +2,15 @@
 
 Counterpart of ``transfer_em_tpu/infer/export.py`` (reference utils.py:
 133-167 exports generator G plus a meta.json with buffer / outdimsize /
-meanstd_x / meanstd_y).  The port writes ``generator.npz``: flat keys in the
-flax path (``stem/kernel``, ``down1/conv/kernel`` ...), kernels in the JAX
-layout, so a machine with numpy alone can read it.  It also reads the JAX
-package's ``generator.msgpack`` when ``msgpack`` is importable (flax stores
-each ndarray as msgpack ext type 1 holding ``(shape, dtype name, bytes)``).
-A reference TF SavedModel waits for the TF-interop slice.
+meanstd_x / meanstd_y).  The port writes ``generator.npz`` by default: flat
+keys in the flax path (``stem/kernel``, ``down1/conv/kernel`` ...), kernels
+in the JAX layout, so a machine with numpy alone can read it; or, with
+``fmt="msgpack"``, the JAX package's ``generator.msgpack``, which that
+package loads.  It reads either (msgpack when ``msgpack`` is importable:
+flax stores each ndarray as msgpack ext type 1 holding ``(shape, dtype
+name, bytes)``).  A 2D generator exports and loads as a 3D one does;
+``meta.json``'s ``is3d`` says which to build.  A reference TF SavedModel
+waits for the TF-interop slice.
 
 ``save_model`` (reference utils.py:133-167; transfer_em_tpu/infer/
 export.py:95-110) rebuilds ``EM2EM`` from one of its checkpoints and
@@ -25,7 +28,7 @@ import torch
 
 from ..config import ExportMeta
 from ..device import resolve_device
-from ..models.convert import params_from_jax
+from ..models.convert import params_from_jax, params_to_jax
 from ..models.generator import DTypeLike, UNetGenerator
 
 PARAMS_FILE = "generator.npz"
@@ -33,16 +36,39 @@ MSGPACK_FILE = "generator.msgpack"
 META_FILE = "meta.json"
 
 
-def export_generator(gen: torch.nn.Module, meta: ExportMeta,
-                     out_dir: str) -> None:
-    """Write the generator's weights (generator.npz) and meta.json."""
+def export_generator(gen: torch.nn.Module, meta: ExportMeta, out_dir: str,
+                     fmt: str = "npz") -> None:
+    """Write the generator's weights and meta.json: ``fmt="npz"``
+    (generator.npz) or ``"msgpack"`` (generator.msgpack, the JAX package's
+    export, written as flax's ``serialization.to_bytes`` writes it)."""
+    if fmt not in ("npz", "msgpack"):
+        raise ValueError(f"fmt must be 'npz' or 'msgpack', got {fmt!r}")
     os.makedirs(out_dir, exist_ok=True)
-    arrays = {name.replace(".", "/"):
-              t.detach().to("cpu", torch.float32).numpy()
-              for name, t in gen.state_dict().items()}
-    np.savez(os.path.join(out_dir, PARAMS_FILE), **arrays)
+    if fmt == "npz":
+        arrays = {name.replace(".", "/"):
+                  t.detach().to("cpu", torch.float32).numpy()
+                  for name, t in gen.state_dict().items()}
+        np.savez(os.path.join(out_dir, PARAMS_FILE), **arrays)
+    else:
+        with open(os.path.join(out_dir, MSGPACK_FILE), "wb") as f:
+            f.write(write_flax_msgpack(params_to_jax(gen.state_dict())))
     with open(os.path.join(out_dir, META_FILE), "w") as f:
         f.write(meta.to_json())
+
+
+def _ndarray_to_ext(x):
+    import msgpack
+    if not isinstance(x, np.ndarray):
+        raise TypeError(f"cannot serialize {type(x)}")
+    return msgpack.ExtType(1, msgpack.packb(
+        (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
+
+
+def write_flax_msgpack(tree: Dict) -> bytes:
+    """A param tree of numpy leaves in flax's msgpack layout (ndarrays as
+    ext type 1 of ``(shape, dtype name, bytes)``)."""
+    import msgpack
+    return msgpack.packb(tree, default=_ndarray_to_ext, strict_types=True)
 
 
 def _ndarray_from_ext(code: int, data: bytes):
@@ -86,26 +112,28 @@ def load_generator(model_dir: str, device="cuda",
                    compute_dtype: DTypeLike = None
                    ) -> Tuple[UNetGenerator, ExportMeta]:
     """Load an exported generator onto ``device``: returns (gen, meta), gen
-    in eval mode.  Reads this package's npz or the JAX package's msgpack."""
+    in eval mode, 3D or 2D as ``meta.is3d`` says.  Reads this package's npz
+    or the JAX package's msgpack."""
     dev = resolve_device(device)
     with open(os.path.join(model_dir, META_FILE)) as f:
         meta = ExportMeta.from_json(f.read())
-    if not meta.is3d:
-        raise NotImplementedError("2D generators come with a later slice of "
-                                  "the port; this slice serves 3D")
-    gen = UNetGenerator(wf=meta.wf, compute_dtype=compute_dtype)
+    gen = UNetGenerator(wf=meta.wf, compute_dtype=compute_dtype,
+                        is3d=meta.is3d)
     gen.load_state_dict(_read_params(model_dir), strict=True)
     return gen.to(dev).eval(), meta
 
 
 def save_model(name: str, ckpt_dir, meanstd_x: Tuple[float, float],
                meanstd_y: Tuple[float, float], size: int = 74,
-               is3d: bool = True, wf: int = 8, device="cuda") -> None:
-    """Rebuild ``EM2EM`` from the checkpoint ``ckpt_dir`` (a step directory
-    ``.../train_<exp>/<step>``) on ``device`` and export its generator G to
-    the directory ``name`` (generator.npz + meta.json).  As in the JAX
-    package, ``size`` defaults to 74 (the reference's 132 is a stale recipe
-    its own VALID_DIMS rejects)."""
+               is3d: bool = True, wf: int = 8, device="cuda",
+               fmt: str = "npz") -> None:
+    """Rebuild ``EM2EM`` (3D, or 2D with ``is3d=False``) from the checkpoint
+    ``ckpt_dir`` (a step directory ``.../train_<exp>/<step>``) on
+    ``device`` and export its generator G to the directory ``name``
+    (meta.json and generator.npz, or with ``fmt="msgpack"`` the JAX
+    package's generator.msgpack).  As in the JAX package, ``size`` defaults
+    to 74 (the reference's 132 is a stale recipe its own VALID_DIMS
+    rejects)."""
     from ..train.cgan import EM2EM
     model = EM2EM(size, name, is3d=is3d, wf=wf, ckpt_restore=ckpt_dir,
                   device=device)
@@ -113,7 +141,7 @@ def save_model(name: str, ckpt_dir, meanstd_x: Tuple[float, float],
                       meanstd_x=tuple(map(float, meanstd_x)),
                       meanstd_y=tuple(map(float, meanstd_y)),
                       dimsize=size, is3d=is3d, wf=wf)
-    export_generator(model.state.gg, meta, name)
+    export_generator(model.state.gg, meta, name, fmt)
 
 
 def predict_cube_from_saved_model(location: str, start, size, cloudrun: str,

@@ -27,7 +27,8 @@ from ..device import resolve_device
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
 from ..shapes import generator_shapes, is_valid_dimsize
 from .device_stitch import to_result, volume_on
-from .tiling import _DEVICE_LOCK, check_generator, meanstd_tuple
+from .tiling import (_DEVICE_LOCK, check_3d_generator, check_generator,
+                     meanstd_tuple)
 
 
 def _next_valid(n: int) -> int:
@@ -52,6 +53,7 @@ def slab_predict(vol_zyx, gen: nn.Module,
     if not is_valid_dimsize(z_in):
         raise ValueError(f"z_in={z_in} is not a valid dimsize")
     dev = resolve_device(device)
+    check_3d_generator(gen)
     check_generator(gen, dev)
     shp = generator_shapes(z_in)
     z_out, buffer = shp.out, shp.buffer

@@ -40,7 +40,8 @@ from ..device import reject_mesh, resolve_device
 from ..native import gather_box
 from ..shapes import tile_plan_outdimsize
 from .device_stitch import stitch_plan
-from .tiling import check_generator, plan_tiles, tile_batch
+from .tiling import (check_3d_generator, check_generator, plan_tiles,
+                     tile_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +211,7 @@ def predict_streaming(
     """
     reject_mesh(mesh)
     dev = resolve_device(device)
+    check_3d_generator(gen)
     check_generator(gen, dev)
     plan = plan_chunks(start, size, outdimsize, buffer, max_block_bytes)
     b = plan.buffer

@@ -95,6 +95,17 @@ def check_generator(gen: nn.Module, dev: torch.device) -> None:
                          f"asked for {dev}")
 
 
+def check_3d_generator(gen: Optional[nn.Module]) -> None:
+    """Raise ValueError for a 2D generator: the tile-grid entry points
+    (predict_tiled, device_predict_tiled, slab_predict, predict_streaming,
+    ModelService) plan zyx cubes, as the JAX package's ``plan_tiles`` does,
+    and refuse one here rather than deep inside a conv."""
+    if gen is not None and not getattr(gen, "is3d", True):
+        raise ValueError("tiled volume inference is 3D (zyx cubes); this is "
+                         "a 2D generator: run 2D images through "
+                         "make_tile_step or EM2EM.predict")
+
+
 def meanstd_tuple(meanstd):
     """A (mean, std) pair of Python floats, or None; accepts any 2-sequence
     (an ndarray included)."""
@@ -104,7 +115,9 @@ def meanstd_tuple(meanstd):
 def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
                    device="cuda") -> Callable[[np.ndarray], np.ndarray]:
     """Fused step: (B, s, s, s) uint8 numpy -> (B, o, o, o) uint8 numpy on
-    ``device`` (where ``gen`` must already live)."""
+    ``device`` (where ``gen`` must already live); for a 2D generator
+    (B, s, s) -> (B, o, o), as the JAX package's step takes either rank.
+    ``o`` is the generator's output side less ``2 * tpad``."""
     dev = resolve_device(device)
     check_generator(gen, dev)
     ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
@@ -228,6 +241,7 @@ def predict_tiled(
     """
     reject_mesh(mesh, sharding)
     dev = resolve_device(device)
+    check_3d_generator(gen)
     plan = plan_tiles(start, size, outdimsize, buffer)
     batch_size = tile_batch(plan.num_tiles, batch_size)
     if out is not None:

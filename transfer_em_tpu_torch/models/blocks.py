@@ -3,15 +3,19 @@ InstanceNorm and dropout.
 
 Counterpart of ``transfer_em_tpu/models/blocks.py`` (reference
 transfer_em/models/utils.py), as ``nn.Module``s.  Kernels are stored in the
-JAX layout, (k, k, k, Cin, Cout) under the name ``kernel``, so the state_dict
-maps one to one onto the flax param tree (models/convert.py).
+JAX layout, ((k,) * ndim, Cin, Cout) under the name ``kernel``, so the
+state_dict maps one to one onto the flax param tree (models/convert.py).
+``ndim`` is the spatial rank, 3 (default) or 2; the JAX modules infer it
+from the input, the port builds its kernels up front.
 
 * 3x3x3 stride-1 convs run on the hand-written conv3 kernel
   (ops/cuda_conv.py), with LeakyReLU fused into its epilogue where the
   block has one.
-* k4 stride-2 down convs, the TF-SAME transposed convs and 1x1 convs run on
-  ``torch.nn.functional`` (ops/convs.py); the LeakyReLU after each runs on
-  the hand-written leaky_relu kernel (ops/cuda_kernels.py).
+* k4 stride-2 down convs, the TF-SAME transposed convs, 1x1 convs and
+  every 2D conv run on ``torch.nn.functional`` (ops/convs.py), as the JAX
+  package gates its Pallas conv on ``ndim == 3`` (models/blocks.py:69,
+  :113); the LeakyReLU after each runs on the hand-written leaky_relu
+  kernel (ops/cuda_kernels.py).
 * Both kernels carry autograd Functions (forward on the kernel, backward in
   plain torch), so the same modules train.
 
@@ -45,21 +49,25 @@ def _init_normal(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
 
 
 class ConvND(nn.Module):
-    """VALID conv, channels last; kernel (k, k, k, Cin, Cout); a ``bias``
-    (zeros at init) only with ``use_bias`` (the discriminator's ``out``)."""
+    """VALID conv, channels last; kernel ((k,) * ndim, Cin, Cout); a
+    ``bias`` (zeros at init) only with ``use_bias`` (the discriminator's
+    ``out``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, *, use_bias: bool = False,
+                 stride: int = 1, *, use_bias: bool = False, ndim: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride = stride
-        self.kernel = _init_normal((kernel_size,) * 3
+        self.kernel = _init_normal((kernel_size,) * ndim
                                    + (in_features, features), generator)
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
 
     def _is_conv3(self) -> bool:
-        return self.kernel.shape[0] == 3 and self.stride == 1
+        """A 3x3x3 stride-1 conv: the conv3 kernel's (a 2D 3x3 goes to
+        cuDNN, as JAX keeps it on XLA)."""
+        return (self.kernel.dim() == 5 and self.kernel.shape[0] == 3
+                and self.stride == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # conv3 takes the float32 parameter itself under a bf16 x: its
@@ -83,14 +91,14 @@ class ConvActND(ConvND):
 
 
 class ConvTransposeND(nn.Module):
-    """TF-exact stride-2 SAME transposed conv; kernel (4, 4, 4, Cin, Cout)
-    in the transpose direction (TF stores (.., Cout, Cin): swap the last two
-    axes to import it)."""
+    """TF-exact stride-2 SAME transposed conv; kernel ((4,) * ndim, Cin,
+    Cout) in the transpose direction (TF stores (.., Cout, Cin): swap the
+    last two axes to import it)."""
 
-    def __init__(self, in_features: int, features: int, *,
+    def __init__(self, in_features: int, features: int, *, ndim: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.kernel = _init_normal((4, 4, 4, in_features, features),
+        self.kernel = _init_normal((4,) * ndim + (in_features, features),
                                    generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,15 +143,16 @@ class DownBlock(nn.Module):
     before each LeakyReLU."""
 
     def __init__(self, in_features: int, features: int, *,
-                 use_norm: bool = False,
+                 use_norm: bool = False, ndim: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.use_norm = use_norm
         conv = ConvND if use_norm else ConvActND
-        self.conv = conv(in_features, features, 3, generator=g)
+        self.conv = conv(in_features, features, 3, ndim=ndim, generator=g)
         self.norm1 = InstanceNorm(features, generator=g) if use_norm else None
-        self.down = ConvND(features, features, 4, stride=2, generator=g)
+        self.down = ConvND(features, features, 4, stride=2, ndim=ndim,
+                           generator=g)
         self.norm2 = InstanceNorm(features, generator=g) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,20 +166,24 @@ class DownBlock(nn.Module):
 class UpBlock(nn.Module):
     """3x3 VALID conv (2x filters) -> LeakyReLU -> 4x4 s2 SAME convT ->
     Dropout(0.5) -> LeakyReLU (reference utils.py:89-137).  Dropout runs
-    only with ``deterministic=False``, from ``dropout_generator``;
-    ``use_norm`` puts InstanceNorm ``norm1`` before the first LeakyReLU."""
+    only with ``deterministic=False``, from ``dropout_generator``, and not
+    at all with ``apply_dropout=False``; ``use_norm`` puts InstanceNorm
+    ``norm1`` before the first LeakyReLU."""
 
     def __init__(self, in_features: int, features: int, *,
-                 use_norm: bool = False,
+                 use_norm: bool = False, apply_dropout: bool = True,
+                 ndim: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.use_norm = use_norm
+        self.apply_dropout = apply_dropout
         conv = ConvND if use_norm else ConvActND
-        self.conv = conv(in_features, features * 2, 3, generator=g)
+        self.conv = conv(in_features, features * 2, 3, ndim=ndim, generator=g)
         self.norm1 = (InstanceNorm(features * 2, generator=g) if use_norm
                       else None)
-        self.up = ConvTransposeND(features * 2, features, generator=g)
+        self.up = ConvTransposeND(features * 2, features, ndim=ndim,
+                                  generator=g)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 dropout_generator: Optional[torch.Generator] = None
@@ -179,7 +192,7 @@ class UpBlock(nn.Module):
         if self.use_norm:
             y = leaky_relu(self.norm1(y))
         y = self.up(y)
-        if not deterministic:
+        if self.apply_dropout and not deterministic:
             if dropout_generator is None:
                 raise ValueError("UpBlock: deterministic=False needs a "
                                  "dropout_generator")

@@ -8,9 +8,10 @@ nesting: ``params["down1"]["conv"]["kernel"]`` <-> ``"down1.conv.kernel"``.
   ``jax.tree.map(np.asarray, params)`` gives it -> state_dict.
 * ``params_to_jax``: state_dict -> that tree (numpy leaves); exact inverse.
 * ``params_from_tf_order``: the frozen TF goldens (tests/goldens/gen_*.npz,
-  disc_3d.npz; keys ``w_<layer>_<index>_<type>`` in TF build order) ->
-  state_dict.  ``Conv3DTranspose`` stores (k, k, k, Cout, Cin): the last two
+  disc_*.npz; keys ``w_<layer>_<index>_<type>`` in TF build order) ->
+  state_dict.  ``Conv{2,3}DTranspose`` stores (k.., Cout, Cin): the last two
   axes swap; a 1-D array is the layer's bias.
+* ``params_geometry``: ``(wf, is3d)`` of a generator's state_dict.
 * ``load_jax_state`` / ``state_to_jax``: a whole train state (the four param
   trees and the four Adam states ``count``, ``mu``, ``nu``) from the JAX
   ``CycleGANState`` with numpy leaves (``jax.tree.map(np.asarray, state)``)
@@ -34,6 +35,11 @@ GEN_ORDER = [("stem", None), ("down1", "conv"), ("down1", "down"),
 # ... and of the 3D discriminator's (tests/golden_utils.py:23-26).
 DISC_ORDER_3D = [("down1", "conv"), ("down1", "down"), ("hack", None),
                  ("down2", "conv"), ("down2", "down"),
+                 ("down3", "conv"), ("down3", "down"),
+                 ("head", None), ("out", None)]
+# ... and of the 2D one, which has no down1 (tests/golden_utils.py:28-30;
+# the JAX package's compat.py:64)
+DISC_ORDER_2D = [("hack", None), ("down2", "conv"), ("down2", "down"),
                  ("down3", "conv"), ("down3", "down"),
                  ("head", None), ("out", None)]
 # the four networks of a train state, in the JAX CycleGANState's order
@@ -75,7 +81,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 def params_from_tf_order(weights: Mapping[str, np.ndarray],
                          order=GEN_ORDER) -> "OrderedDict[str, torch.Tensor]":
     """Golden ``.npz`` contents (any mapping of its keys), whose layers come
-    in ``order`` (GEN_ORDER or DISC_ORDER_3D) -> state_dict."""
+    in ``order`` (GEN_ORDER, DISC_ORDER_3D or DISC_ORDER_2D) ->
+    state_dict."""
     layers: Dict[int, list] = {}
     for key in weights.keys():
         m = _GOLDEN_KEY.fullmatch(key)
@@ -94,6 +101,14 @@ def params_from_tf_order(weights: Mapping[str, np.ndarray],
             out[f"{name}.{leaf}"] = torch.from_numpy(
                 np.ascontiguousarray(arr, np.float32))
     return out
+
+
+def params_geometry(state_dict: Mapping[str, torch.Tensor]):
+    """``(wf, is3d)`` of a generator's state_dict, as the JAX package reads
+    them (compat.py:171-176): the stem's width is 64 // wf (reference
+    generator.py:53), a rank-5 kernel is 3D."""
+    k = state_dict["stem.kernel"]
+    return 64 // int(k.shape[-1]), k.dim() == 5
 
 
 def _copy_tree(params: Mapping[str, torch.Tensor], tree: Mapping) -> None:

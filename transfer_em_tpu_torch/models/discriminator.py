@@ -1,6 +1,6 @@
-"""3D PatchGAN discriminator (counterpart of
+"""PatchGAN discriminator, 3D or 2D (counterpart of
 transfer_em_tpu/models/discriminator.py:35-77, reference
-transfer_em/models/discriminator.py:14-106), 3D path, with its quirks:
+transfer_em/models/discriminator.py:14-106), with its quirks.  3D:
 
     down1: DownBlock(64/wf), k3 1 -> 64/wf (direct conv3)   40 -> 38 -> 18
     hack:  3x3 conv 16 -> LeakyReLU (on down1's output)      18 -> 16
@@ -11,10 +11,16 @@ transfer_em/models/discriminator.py:14-106), 3D path, with its quirks:
     head:  1x1 conv (256/wf) -> LeakyReLU
     out:   1x1 conv (1) with the net's ONLY bias
 
-Input (B, 40, 40, 40, 1) float32 -> patch logits (B, 1, 1, 1, 1).  The k3
-convs run on the conv3 kernels (hack, down2.conv and down3.conv on the
-tensor cores at wf=8), the LeakyReLUs after the k4 convs, the double one and
-the head's on the leaky_relu kernel; the k4 and 1x1 convs on cuDNN.
+2D, the reference's "HACK" path (discriminator.py:44-55): ``hack`` takes
+the RAW input and there is no ``down1`` (the reference computes it and
+discards it; the JAX package's 2D tree has none, and neither has this
+state_dict): 40^2 -> hack 38 -> down2 17 -> down3 6 -> 6^2 logits.
+
+Input (B, 40, 40, 40, 1) float32 -> patch logits (B, 1, 1, 1, 1).  In 3D
+the k3 convs run on the conv3 kernels (hack, down2.conv and down3.conv on
+the tensor cores at wf=8); every 2D conv, the k4 and 1x1 convs on cuDNN.
+The LeakyReLUs after the k4 convs, the double one, the head's and, in 2D,
+the k3 convs' run on the leaky_relu kernel.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ Prior = Callable[[torch.Tensor], torch.Tensor]
 
 
 class Discriminator(nn.Module):
-    """Patch discriminator; (B, D, H, W, 1) -> (B, d, h, w, 1) logits.
+    """Patch discriminator; (B, *S, 1) -> (B, *s, 1) logits.
 
     Args:
       wf: width factor (reference ``wf``).
+      is3d: three spatial axes, or two (the HACK path, no ``down1``).
       use_norm: InstanceNorm in down2 (off by default, as upstream).
       disc_prior: optional frozen feature extractor (train/cgan.py
         ``_tap_prior``) whose output on the input, on down2's grid, is
@@ -45,29 +52,55 @@ class Discriminator(nn.Module):
       generator: torch.Generator for the N(0, 0.02) weight init.
     """
 
-    def __init__(self, wf: int = 8, *, use_norm: bool = False,
-                 disc_prior: Optional[Prior] = None, prior_channels: int = 0,
+    def __init__(self, wf: int = 8, *, is3d: bool = True,
+                 use_norm: bool = False, disc_prior: Optional[Prior] = None,
+                 prior_channels: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if (disc_prior is None) != (prior_channels == 0):
             raise ValueError("disc_prior and prior_channels > 0 go together")
-        g = generator
         c1, c4 = 64 // wf, 256 // wf
+        k = {"ndim": 3 if is3d else 2, "generator": generator}
+        self.is3d = is3d
         self.disc_prior = disc_prior
-        self.down1 = DownBlock(1, c1, generator=g)
-        self.hack = ConvActND(c1, 16, 3, generator=g)
-        self.down2 = DownBlock(16, c4, use_norm=use_norm, generator=g)
-        self.down3 = DownBlock(c4 + prior_channels, 32, generator=g)
-        self.head = ConvActND(32, c4, 1, generator=g)
-        self.out = ConvND(c4, 1, 1, use_bias=True, generator=g)
+        if is3d:
+            self.down1 = DownBlock(1, c1, **k)
+        self.hack = ConvActND(c1 if is3d else 1, 16, 3, **k)
+        self.down2 = DownBlock(16, c4, use_norm=use_norm, **k)
+        self.down3 = DownBlock(c4 + prior_channels, 32, **k)
+        self.head = ConvActND(32, c4, 1, **k)
+        self.out = ConvND(c4, 1, 1, use_bias=True, **k)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
-        down1, _ = self.down1(x)
-        h = self.hack(down1)
+        h = self.hack(self.down1(x)[0] if self.is3d else x)
         down2, _ = self.down2(h)
         if self.disc_prior is not None:
             down2 = torch.cat([down2, self.disc_prior(x)], dim=-1)
         down3, _ = self.down3(down2)
         h = leaky_relu(down3)  # the reference applies LeakyReLU twice here
         return self.out(self.head(h))
+
+
+def build_discriminator(is3d: bool = True, wf: int = 8,
+                        use_norm: bool = False,
+                        disc_prior: Optional[Prior] = None,
+                        prior_channels: int = 0,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Discriminator:
+    """Constructor with the JAX package's argument order
+    (transfer_em_tpu/models/discriminator.py:80-84); ``prior_channels`` is
+    the port's (its kernels are built before any input is seen)."""
+    return Discriminator(wf=wf, is3d=is3d, use_norm=use_norm,
+                         disc_prior=disc_prior, prior_channels=prior_channels,
+                         generator=generator)
+
+
+def discriminator(is3d=True, norm_type="instancenorm", wf=8, disc_prior=None,
+                  prior_channels=0):
+    """Reference-named constructor (models/discriminator.py:14), at the
+    reference's import path.  ``norm_type`` is inert, as in the reference
+    (its norm calls are commented out, models/utils.py:75-82)."""
+    del norm_type
+    return build_discriminator(is3d=is3d, wf=wf, disc_prior=disc_prior,
+                               prior_channels=prior_channels)

@@ -1,4 +1,4 @@
-"""Fully-VALID-conv 3D U-Net generator (counterpart of
+"""Fully-VALID-conv U-Net generator, 3D or 2D (counterpart of
 transfer_em_tpu/models/generator.py, reference transfer_em/models/
 generator.py:22-119), layer for layer:
 
@@ -14,8 +14,9 @@ generator.py:22-119), layer for layer:
     out  3x3 conv (1, no bias)                               42 -> 40
 
 No bias, no output nonlinearity; norm layers only with ``use_norm`` (off
-by default, as in the reference).  Inputs and outputs are channels-last
-(B, D, H, W, 1) like the JAX module.
+by default, as in the reference).  Inputs and outputs are channels-last,
+(B, D, H, W, 1) in 3D and (B, H, W, 1) in 2D, like the JAX module; the
+sizes above hold per spatial axis in both.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.convs import crop_to_match
+from ..shapes import generator_shapes, is_valid_dimsize
 from .blocks import ConvActND, ConvND, DownBlock, UpBlock
 
 DTypeLike = Union[None, str, torch.dtype]
@@ -47,10 +49,11 @@ def compute_dtype_of(dtype: DTypeLike) -> Optional[torch.dtype]:
 
 
 class UNetGenerator(nn.Module):
-    """U-Net generator; (B, D, H, W, 1) -> (B, D-2*buffer, ..., 1) float32.
+    """U-Net generator; (B, *S, 1) -> (B, *(S - 2*buffer), 1) float32.
 
     Args:
       wf: width factor dividing the base widths (reference ``wf``; 1..32).
+      is3d: three spatial axes (kernels k^3), or two (k^2) for 2D images.
       compute_dtype: None/float32, or bfloat16: the input is cast at entry
         and activations stay bf16 end to end (convs sum in f32), like
         generator.py:54-56; the output is cast back to float32.
@@ -64,21 +67,23 @@ class UNetGenerator(nn.Module):
     """
 
     def __init__(self, wf: int = 8, compute_dtype: DTypeLike = None, *,
-                 use_norm: bool = False,
+                 is3d: bool = True, use_norm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.wf = wf
+        self.is3d = is3d
         self.compute_dtype = compute_dtype_of(compute_dtype)
         c1, c2, c4 = 64 // wf, 128 // wf, 256 // wf
         g, n = generator, use_norm
-        self.stem = ConvActND(1, c1, 3, generator=g)
-        self.down1 = DownBlock(c1, c1, generator=g)
-        self.down2 = DownBlock(c1, c2, use_norm=n, generator=g)
-        self.up1 = UpBlock(c2, c2, use_norm=n, generator=g)
-        self.mid = ConvActND(c2 + c2, c4, 3, generator=g)
-        self.up0 = UpBlock(c4, c1, use_norm=n, generator=g)
-        self.head = ConvActND(c1 + c1, c2, 3, generator=g)
-        self.out = ConvND(c2, 1, 3, generator=g)
+        k = {"ndim": 3 if is3d else 2, "generator": g}
+        self.stem = ConvActND(1, c1, 3, **k)
+        self.down1 = DownBlock(c1, c1, **k)
+        self.down2 = DownBlock(c1, c2, use_norm=n, **k)
+        self.up1 = UpBlock(c2, c2, use_norm=n, **k)
+        self.mid = ConvActND(c2 + c2, c4, 3, **k)
+        self.up0 = UpBlock(c4, c1, use_norm=n, **k)
+        self.head = ConvActND(c1 + c1, c2, 3, **k)
+        self.out = ConvND(c2, 1, 3, **k)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 dropout_generator: Optional[torch.Generator] = None
@@ -98,3 +103,31 @@ class UNetGenerator(nn.Module):
         x = self.head(x)
         return self.out(x).to(torch.float32)
 
+
+def build_generator(dimsize: int, is3d: bool = True, wf: int = 8,
+                    use_norm: bool = False, compute_dtype: DTypeLike = None,
+                    strict: bool = True,
+                    generator: Optional[torch.Generator] = None):
+    """``(UNetGenerator, output size)`` for ``dimsize``, like the
+    reference's ``unet_generator`` (transfer_em_tpu/models/generator.py:
+    92-109).  ``strict`` raises ValueError unless ``dimsize`` passes
+    ``shapes.is_valid_dimsize``; ``is3d`` chooses the module's rank."""
+    if strict and not is_valid_dimsize(dimsize):
+        raise ValueError(
+            f"{dimsize} does not allow for valid convolutions "
+            f"(see transfer_em_tpu_torch.shapes.valid_dimsizes())")
+    model = UNetGenerator(wf=wf, compute_dtype=compute_dtype, is3d=is3d,
+                          use_norm=use_norm, generator=generator)
+    return model, generator_shapes(dimsize).out
+
+
+def unet_generator(dimsize, is3d=True, norm_type="instancenorm", wf=8):
+    """Reference-named constructor (models/generator.py:22) -> ``(module,
+    out_dimsize)``.  ``norm_type`` is inert, as in the reference; an invalid
+    ``dimsize`` raises ``RuntimeError``, the reference's type (the native
+    ``build_generator`` raises ValueError)."""
+    del norm_type
+    try:
+        return build_generator(dimsize, is3d=is3d, wf=wf)
+    except ValueError as e:
+        raise RuntimeError(str(e)) from e

@@ -1,23 +1,25 @@
-"""k4 stride-2 convolutions and crop helpers, channels last.
+"""k4 stride-2 convolutions and crop helpers, channels last, 2D or 3D.
 
 Counterpart of ``transfer_em_tpu/ops/convs.py``.  The JAX package computes
 these convs with XLA outside any Pallas kernel, so the port leaves them to
 ``torch.nn.functional`` (cuDNN on the card).  Activations stay channels-last
-(NDHWC) and kernels in the JAX layout (DHWIO), so both packages take the
-same tensors at their public functions:
+(NHWC / NDHWC) and kernels in the JAX layout (HWIO / DHWIO), so both
+packages take the same tensors at their public functions:
 
-* ``conv_nd``: VALID (or SAME) strided conv; DHWIO -> OIDHW is
-  ``permute(4, 3, 0, 1, 2)``.
+* ``conv_nd``: VALID (or SAME) strided conv; the kernel's (k.., Cin, Cout)
+  -> (Cout, Cin, k..) is ``permute(n + 1, n, 0, .., n - 1)`` for n spatial
+  axes.
 * ``conv_transpose_nd``: TF-SAME k4 stride-2 transposed conv (reference
-  Keras ``Conv3DTranspose``, convs.py:84-132) ==
-  ``F.conv_transpose3d(stride=2, padding=1)`` with the (k,k,k,Cin,Cout)
-  kernel as ``permute(3, 4, 0, 1, 2)`` and NO spatial flip (the JAX version
-  flips because it writes the transposed conv as a forward conv on the
-  dilated input; ``conv_transpose3d`` is the adjoint itself).  Pinned against
-  the JAX function in tests/test_torch_ops.py.
+  Keras ``Conv2DTranspose`` / ``Conv3DTranspose``, convs.py:84-132) ==
+  ``F.conv_transpose{2,3}d(stride=2, padding=1)`` with the (k.., Cin, Cout)
+  kernel as (Cin, Cout, k..) and NO spatial flip (the JAX version flips
+  because it writes the transposed conv as a forward conv on the dilated
+  input; ``conv_transpose{2,3}d`` is the adjoint itself).  Pinned against
+  the JAX function in tests/test_torch_ops.py (3D) and
+  tests/test_torch_2d_models.py (2D).
 
-An NDHWC tensor permuted to NCDHW is a channels_last_3d view, which cuDNN
-takes without a copy.
+An NDHWC (NHWC) tensor permuted to NCDHW (NCHW) is a channels_last view,
+which cuDNN takes without a copy.
 """
 
 from __future__ import annotations
@@ -27,47 +29,61 @@ from typing import Sequence, Union
 import torch
 import torch.nn.functional as F
 
-_TO_NCDHW = (0, 4, 1, 2, 3)
-_TO_NDHWC = (0, 2, 3, 4, 1)
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
-def _check_3d(x: torch.Tensor, kernel: torch.Tensor) -> None:
-    if x.dim() != 5 or kernel.dim() != 5:
+def _spatial_rank(x: torch.Tensor, kernel: torch.Tensor) -> int:
+    """n for an (B, *n spatial, C) input and a (*n spatial, Cin, Cout)
+    kernel, n in {2, 3}; raises on anything else."""
+    n = x.dim() - 2
+    if n not in _CONV or kernel.dim() != x.dim():
         raise ValueError(
-            f"this slice of the port is 3D (NDHWC x DHWIO); got x "
+            f"expected NHWC x HWIO (2D) or NDHWC x DHWIO (3D); got x "
             f"{tuple(x.shape)}, kernel {tuple(kernel.shape)}")
+    return n
+
+
+def _to_channels_first(x: torch.Tensor) -> torch.Tensor:
+    n = x.dim() - 2
+    return x.permute(0, n + 1, *range(1, n + 1))
+
+
+def _to_channels_last(y: torch.Tensor) -> torch.Tensor:
+    n = y.dim() - 2
+    return y.permute(0, *range(2, n + 2), 1).contiguous()
 
 
 def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
             padding: str = "VALID") -> torch.Tensor:
-    """(B, D, H, W, Cin) * (k, k, k, Cin, Cout) -> (B, D', H', W', Cout),
-    in x's dtype (the kernel is cast to it)."""
-    _check_3d(x, kernel)
+    """(B, *S, Cin) * (*k, Cin, Cout) -> (B, *S', Cout), 2D or 3D, in x's
+    dtype (the kernel is cast to it)."""
+    n = _spatial_rank(x, kernel)
     pad = {"VALID": "valid", "SAME": "same"}[padding]
     if pad == "same" and stride != 1:
         raise ValueError("SAME padding is supported at stride 1 only")
-    w = kernel.to(x.dtype).permute(4, 3, 0, 1, 2)
-    y = F.conv3d(x.permute(_TO_NCDHW), w, stride=stride, padding=pad)
-    return y.permute(_TO_NDHWC).contiguous()
+    w = kernel.to(x.dtype).permute(n + 1, n, *range(n))
+    y = _CONV[n](_to_channels_first(x), w, stride=stride, padding=pad)
+    return _to_channels_last(y)
 
 
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
                       stride: int = 2) -> torch.Tensor:
-    """TF-exact stride-2 SAME transposed conv: (B, n, n, n, Cin) *
-    (4, 4, 4, Cin, Cout) -> (B, 2n, 2n, 2n, Cout)."""
-    _check_3d(x, kernel)
+    """TF-exact stride-2 SAME transposed conv, 2D or 3D: (B, *n, Cin) *
+    (4.., Cin, Cout) -> (B, *2n, Cout)."""
+    n = _spatial_rank(x, kernel)
     if stride != 2 or kernel.shape[0] != 4:
         raise ValueError("conv_transpose_nd supports k=4, stride=2 (the "
                          "generator's up convs)")
-    w = kernel.to(x.dtype).permute(3, 4, 0, 1, 2)
-    y = F.conv_transpose3d(x.permute(_TO_NCDHW), w, stride=2, padding=1)
-    return y.permute(_TO_NDHWC).contiguous()
+    w = kernel.to(x.dtype).permute(n, n + 1, *range(n))
+    y = _CONV_T[n](_to_channels_first(x), w, stride=2, padding=1)
+    return _to_channels_last(y)
 
 
 def center_crop(x: torch.Tensor,
                 crop: Union[int, Sequence[Sequence[int]]]) -> torch.Tensor:
     """Crop every spatial axis by ``crop`` per face, or by (lo, hi) pairs
-    per axis (Keras Cropping3D)."""
+    per axis (Keras Cropping2D / Cropping3D)."""
     ndim = x.dim() - 2
     if isinstance(crop, int):
         crop = [(crop, crop)] * ndim
@@ -80,7 +96,7 @@ def center_crop(x: torch.Tensor,
 
 def zero_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Zero-pad every spatial axis by ``pad`` per face (Keras
-    ZeroPadding3D), channels last."""
+    ZeroPadding2D / ZeroPadding3D), channels last."""
     return F.pad(x, (0, 0) + (pad, pad) * (x.dim() - 2))
 
 

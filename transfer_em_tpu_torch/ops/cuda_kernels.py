@@ -67,15 +67,16 @@ preprocess_u8.launches = 0
 # -- kernel 3: postprocess ---------------------------------------------------
 
 def _trim(y: torch.Tensor, tpad: int) -> torch.Tensor:
+    """``tpad`` off both faces of every spatial axis of (B, *S, C)."""
     if tpad == 0:
         return y
     t = slice(tpad, -tpad)
-    return y[:, t, t, t]
+    return y[(slice(None),) + (t,) * (y.dim() - 2)]
 
 
 def postprocess_u8_plain(y: torch.Tensor, meanstd: MeanStd,
                          tpad: int = 0) -> torch.Tensor:
-    """(B, D, H, W, 1) float32 -> (B, D-2t, H-2t, W-2t) uint8, in the order
+    """(B, *S, 1) float32, 2D or 3D -> (B, *(S - 2t)) uint8, in the order
     of transfer_em_tpu/ops/normalize.py:94-102: y*std + mean, + 1, * 127.5,
     round half to even, clip to [0, 255]."""
     y = _trim(y, tpad)[..., 0].to(torch.float32)
@@ -87,21 +88,26 @@ def postprocess_u8_plain(y: torch.Tensor, meanstd: MeanStd,
 
 def postprocess_u8(y: torch.Tensor, meanstd: MeanStd,
                    tpad: int = 0) -> torch.Tensor:
-    """Model output -> uint8 tiles, trimming ``tpad`` voxels per face.  The
-    kernel reads the trimmed window in place (strided; no copy)."""
+    """Model output, (B, D, H, W, 1) or (B, H, W, 1) -> uint8 tiles,
+    trimming ``tpad`` voxels per face of every spatial axis.  The kernel
+    reads the trimmed window in place (strided; no copy); a 2D batch runs
+    as D = 1 with no trim on that axis."""
     if y.device.type == "cpu":
         return postprocess_u8_plain(y, meanstd, tpad)
-    kernels.check_cuda_tensor(y, "postprocess_u8", (torch.float32,), ndim=5)
-    bsz, d, h, w, c = y.shape
-    if c != 1 or min(d, h, w) <= 2 * tpad or tpad < 0:
+    kernels.check_cuda_tensor(y, "postprocess_u8", (torch.float32,))
+    spatial = tuple(y.shape[1:-1])
+    if (y.dim() not in (4, 5) or y.shape[-1] != 1 or tpad < 0
+            or min(spatial) <= 2 * tpad):
         raise ValueError(f"postprocess_u8: bad shape {tuple(y.shape)} for "
                          f"tpad={tpad}")
-    out = torch.empty((bsz, d - 2 * tpad, h - 2 * tpad, w - 2 * tpad),
+    d, h, w = spatial if len(spatial) == 3 else (1,) + spatial
+    dtpad = tpad if len(spatial) == 3 else 0
+    out = torch.empty((y.shape[0],) + tuple(n - 2 * tpad for n in spatial),
                       dtype=torch.uint8, device=y.device)
     mean, std = meanstd if meanstd is not None else (0.0, 1.0)
     kernels.launch("tem_postprocess_u8", y.data_ptr(), out.data_ptr(),
-                   bsz, d, h, w, tpad, int(meanstd is not None), mean, std,
-                   device=y.device)
+                   y.shape[0], d, h, w, dtpad, tpad,
+                   int(meanstd is not None), mean, std, device=y.device)
     postprocess_u8.launches += 1
     return out
 

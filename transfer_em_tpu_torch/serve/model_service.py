@@ -35,7 +35,8 @@ import numpy as np
 
 from ..device import reject_mesh, resolve_device
 from ..infer.export import load_generator
-from ..infer.tiling import InferenceCancelled, predict_tiled
+from ..infer.tiling import (InferenceCancelled, check_3d_generator,
+                            predict_tiled)
 from .backends import open_volume
 
 BLOCK = 64
@@ -258,6 +259,7 @@ class ModelCache:
                 path = os.path.join(self.model_root, *parts)
             gen, meta = load_generator(path, device=self.device,
                                        compute_dtype=self.compute_dtype)
+            check_3d_generator(gen)
             batcher = (self.batcher_factory(gen, meta)
                        if self.batcher_factory else None)
             entry = (gen, meta, batcher)

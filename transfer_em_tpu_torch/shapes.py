@@ -1,8 +1,8 @@
 """VALID-convolution shape calculus for the transfer_em U-Net family.
 
-Own copy of the parts of ``transfer_em_tpu/shapes.py`` the serving path
-needs (generator_shapes, is_valid_dimsize, tile_plan_outdimsize): the port
-imports nothing of the JAX package.  The reference hardcodes
+Own copy of the parts of ``transfer_em_tpu/shapes.py`` the port needs
+(generator_shapes, is_valid_dimsize, valid_dimsizes, discriminator_shapes,
+tile_plan_outdimsize): the port imports nothing of the JAX package.  The reference hardcodes
 ``VALID_DIMS=[74]`` / ``VALID_OUT=[40]`` (transfer_em/models/generator.py:
 18-20); 74 -> 40 (buffer 17) remains the verified default.
 """
@@ -99,6 +99,38 @@ def is_valid_dimsize(dimsize: int) -> bool:
 def valid_dimsizes(lo: int = 20, hi: int = 512) -> List[int]:
     """Enumerate valid input sizes in [lo, hi]."""
     return [d for d in range(lo, hi + 1) if is_valid_dimsize(d)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorShapes:
+    """Spatial sizes in the PatchGAN discriminator (reference
+    discriminator.py)."""
+
+    dimsize: int
+    down1: int     # after downsample 1 (no module of the 2D net uses it)
+    hack: int      # after the "HACK" 3x3 conv (3D: on down1; 2D: on the input)
+    down2: int
+    down3: int
+    out: int       # patch-logit grid size
+
+    @property
+    def patches(self) -> int:
+        return self.out
+
+
+def discriminator_shapes(dimsize: int,
+                         is3d: bool = True) -> DiscriminatorShapes:
+    """Trace the discriminator, with the reference's "HACK" asymmetry
+    (discriminator.py:44-55): in 3D the extra 3x3 conv takes the first
+    downsample's output, in 2D the raw input (40 -> 3D 1, 2D 6)."""
+    down1 = conv_out(conv_out(dimsize), DOWN_K, DOWN_STRIDE)
+    hack = conv_out(down1 if is3d else dimsize)
+    down2 = conv_out(conv_out(hack), DOWN_K, DOWN_STRIDE)
+    down3 = conv_out(conv_out(down2), DOWN_K, DOWN_STRIDE)
+    if down3 <= 0:  # the two 1x1 convs keep the size
+        raise ValueError(f"dimsize {dimsize} collapses in discriminator")
+    return DiscriminatorShapes(dimsize=dimsize, down1=down1, hack=hack,
+                               down2=down2, down3=down3, out=down3)
 
 
 def tile_plan_outdimsize(outdimsize: int, buffer: int) -> tuple:

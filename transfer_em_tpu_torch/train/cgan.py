@@ -1,5 +1,6 @@
-"""The 3D CycleGAN train step (counterpart of transfer_em_tpu/train/cgan.py:
-79-403, reference transfer_em/cgan.py:144-228).
+"""The CycleGAN train step, 3D or 2D (counterpart of
+transfer_em_tpu/train/cgan.py:79-403, reference transfer_em/cgan.py:
+144-228).
 
 One step runs the two generators four times (``batched_apps``: round 1 runs
 each generator once on 2B tiles, round 2 the two cycles) and the two
@@ -14,10 +15,12 @@ Keras-exact Adam updates in place:
   gradient reaches the fakes and not the discriminators;
 * the cycle loss appears once and reaches both generators.
 
-Every k3 conv runs on the conv3 kernels and every standalone LeakyReLU on
-the leaky_relu kernel, through their autograd Functions (backward in plain
-torch: cuDNN's f32 conv gradients, as ``lax.conv``'s VJP in the JAX
-package).  Dropout draws from a torch.Generator on the batch's device,
+In 3D every k3 conv runs on the conv3 kernels and every standalone
+LeakyReLU on the leaky_relu kernel, through their autograd Functions
+(backward in plain torch: cuDNN's f32 conv gradients, as ``lax.conv``'s VJP
+in the JAX package).  In 2D (``CycleGANConfig(is3d=False)``) every conv
+runs on cuDNN, as the JAX package leaves its 2D convs to XLA, and every
+LeakyReLU on the leaky_relu kernel.  Dropout draws from a torch.Generator on the batch's device,
 seeded from (seed, step): the same seed and step give the same masks, but
 not the JAX package's bits.
 
@@ -27,9 +30,9 @@ the data pipelines, with checkpoints (``train/checkpoints.py``) and metrics
 for ``disc_prior``.
 
 Waiting for later slices (each raises NotImplementedError where a caller
-reaches it): 2D (ROADMAP A1.7), bf16 training (A1.6), ``ensemble_apps``,
-``remat`` and the scan window (A1.5), ``to_mesh`` (A4),
-``from_reference_checkpoint`` and Keras priors (A3).
+reaches it): bf16 training (ROADMAP A1.6), ``ensemble_apps``, ``remat``
+and the scan window (A1.5), ``to_mesh`` (A4), ``from_reference_checkpoint``
+and Keras priors (A3).
 """
 
 from __future__ import annotations
@@ -99,10 +102,6 @@ def _tap_prior(gen: UNetGenerator, last_layer: str) -> Callable:
 
 
 def _check_config(config: CycleGANConfig) -> None:
-    if not config.is3d:
-        raise NotImplementedError("2D CycleGAN training comes with a later "
-                                  "slice of the port (ROADMAP A1.7); this "
-                                  "slice is 3D")
     if config.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {config.compute_dtype!r}: bf16 training comes "
@@ -114,16 +113,18 @@ def build_models(config: CycleGANConfig, disc_prior: Optional[Callable] = None,
                  *, generator: Optional[torch.Generator] = None
                  ) -> Tuple[UNetGenerator, UNetGenerator, Discriminator,
                             Discriminator]:
-    """G, F and the two discriminators (disc_y optionally with a prior,
-    reference cgan.py:58-62), initialised on the CPU from ``generator``."""
+    """G, F and the two discriminators, of ``config.is3d``'s rank (disc_y
+    optionally with a prior, reference cgan.py:58-62), initialised on the
+    CPU from ``generator``."""
     _check_config(config)
-    g, wf, n = generator, config.wf, config.use_norm
-    gg = UNetGenerator(wf=wf, use_norm=n, generator=g)
-    gf = UNetGenerator(wf=wf, use_norm=n, generator=g)
-    dx = Discriminator(wf=wf, use_norm=n, generator=g)
-    dy = Discriminator(wf=wf, use_norm=n, disc_prior=disc_prior,
+    k = {"wf": config.wf, "is3d": config.is3d, "use_norm": config.use_norm,
+         "generator": generator}
+    gg = UNetGenerator(**k)
+    gf = UNetGenerator(**k)
+    dx = Discriminator(**k)
+    dy = Discriminator(**k, disc_prior=disc_prior,
                        prior_channels=(disc_prior.channels if disc_prior
-                                       else 0), generator=g)
+                                       else 0))
     return gg, gf, dx, dy
 
 
@@ -239,8 +240,8 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
     """The train step: ``step(state, real_x, real_y, seed) -> loss7``,
     updating ``state`` in place (parameters, Adam states, ``step``).
 
-    real_x / real_y: standardized float32 batches (B, D, H, W, 1) of
-    ``config.dimsize``, on the state's device.  ``config.accum_steps > 1``
+    real_x / real_y: standardized float32 batches (B, D, H, W, 1), or
+    (B, H, W, 1) in 2D, of ``config.dimsize``, on the state's device.  ``config.accum_steps > 1``
     splits the batch into that many microbatches, runs one backward each
     (the gradients add up in ``p.grad``), averages, and applies ONE update:
     full-batch math, since every loss is a per-sample mean.  ``seed`` with
@@ -323,7 +324,8 @@ def create_prior_helper(model_dir: str, last_layer: str, device="cuda"
     (generator.npz + meta.json) or the JAX package's (generator.msgpack +
     meta.json); it is loaded onto ``device`` (default ``cuda``).  Priors
     from reference Keras assets (.h5, SavedModel) come with the TF-interop
-    slice (ROADMAP A3)."""
+    slice (ROADMAP A3).  A 2D export gives a 2D prior, for a 2D
+    discriminator."""
     if (model_dir.endswith((".h5", ".keras"))
             or os.path.exists(os.path.join(model_dir, "saved_model.pb"))):
         raise NotImplementedError(
@@ -355,17 +357,17 @@ class BoundModel:
 
 
 class EM2EM:
-    """CycleGAN model for 1-channel 3D data: train and predict (counterpart
-    of transfer_em_tpu/train/cgan.py:476-872, reference cgan.py:32-293).
+    """CycleGAN model for 1-channel 3D (or, ``is3d=False``, 2D) data: train
+    and predict (counterpart of transfer_em_tpu/train/cgan.py:476-872,
+    reference cgan.py:32-293).
 
     The constructor keeps the JAX package's arguments and adds ``device``
     (default ``cuda``; raises where it is absent).  ``norm_type`` is
     deprecated upstream and ``dropout_impl`` selects nothing here (dropout
     masks come from a torch.Generator seeded from (seed, step)).  Later
-    slices (each raises NotImplementedError): 2D (``is3d=False``, ROADMAP
-    A1.7), bf16 (A1.6), ``remat`` / ``ensemble_apps`` and ``train``'s
-    ``scan_window`` (A1.5), ``to_mesh`` (A4), ``from_reference_checkpoint``
-    (A3).
+    slices (each raises NotImplementedError): bf16 (ROADMAP A1.6),
+    ``remat`` / ``ensemble_apps`` and ``train``'s ``scan_window`` (A1.5),
+    ``to_mesh`` (A4), ``from_reference_checkpoint`` (A3).
 
     Checkpoints (``train/checkpoints.py``): ``torch.save`` files under
     ``<checkpoint_root>/train_<exp_name>/<epoch>/``, written on a background
