@@ -129,14 +129,43 @@ each printing one JSON line:
             comes within one grey level on at most 1e-3 of the pixels of
             the plain versions.  preprocess, postprocess and LeakyReLU must
             launch, conv3 must not.
-11. the card's nvidia-smi line, then the ``kernels`` line (``launches``
+11. train_bf16  bf16 training and the training opt-ins: conv3's backward
+            on bf16 operands at the train step's 12 k3 shapes (B=128) by
+            the port's engine (cuDNN's f32 engines on the bf16 values, TF32
+            allowed, rounded), cuDNN's bf16 engines and its FP32 engines,
+            timed and held against the float64 gradients (the port's must
+            stay within BWD_MAX_STEPS and be the fastest); conv3 and
+            LeakyReLU in bf16 at those shapes against their plain versions,
+            timed by events and graph replay beside the bound and the
+            library call; conv3's output and gradients at those shapes
+            against the exact function rounded once (BF16_MISS_TOL), beside
+            the plain version and three planted faults of rounding size; a
+            bf16 step (wf=8, B=4, dropout off, cudnn.deterministic) through
+            the kernels against the plain versions, each network's L2
+            gradient gap within BF16_GRAD_TOL, beside the noise floor and
+            planted faults; 5 bf16 steps at B=64 as in phase 8 (every conv3
+            and LeakyReLU launch on bf16); remat on and off in f32 and bf16
+            at B=64 (seconds, peak memory, bit-equal under
+            cudnn.deterministic with dropout on); make_scan_train_step
+            (window 2) bit-equal to two sequential steps; ensemble_apps
+            against batched_apps in f32 (GRAD_TOL) and bf16
+            (BF16_GRAD_TOL); then, counted, the bf16 quick start:
+            EM2EM(74, wf=8, compute_dtype="bfloat16") in 3D at B=16 and in
+            2D at B=64, 2 epochs of 4 steps each, an auto-restored third
+            epoch bit-equal to the uninterrupted one, save_model ->
+            load_generator -> make_tile_step within one grey level on at
+            most 1e-3 of the voxels of the plain versions.  Every kernel,
+            conv3 and LeakyReLU on bf16 among them, must launch.
+12. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
    from the em2em phase, ``serve_ng_launches`` from the serve_ng phase,
-   ``twod_launches`` from the twod phase's quick start, ``twod`` the 2D
-   shapes' kernel times, ``slab_shapes`` from the volume phase's kernel
-   checks), then the ``ok`` line.  Any failed check exits non-zero before
-   the last line.
+   ``twod_launches`` from the twod phase's quick start,
+   ``train_bf16_launches`` from the bf16 quick start, ``twod`` the 2D
+   shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
+   at the train step's shapes, ``slab_shapes`` from the volume phase's
+   kernel checks), then the ``ok`` line.  Any failed check exits non-zero
+   before the last line.
 """
 
 import concurrent.futures as cf
@@ -290,8 +319,10 @@ def psnr(got, want):
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act):
-    """One conv3 check and its times; returns the record."""
+def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act,
+                graph=False):
+    """One conv3 check and its times (with ``graph``, also the kernel's and
+    the library call's by CUDA graph replay); returns the record."""
     from transfer_em_tpu_torch.ops import cuda_conv
 
     x = torch.randn(shape + (c,), generator=gen, device=dev)
@@ -330,6 +361,9 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act):
            "t_ops": flops / conv3_peak(dtype) * 1e3}
     if dtype == torch.float32:
         rec["bound_ms_cuda_core"] = bound(nbytes, flops, dtype)[0]
+    if graph:
+        rec["graph_ms"] = graph_ms(lambda: cuda_conv.conv3(x, w, leaky))
+        rec["library_graph_ms"] = graph_ms(lib)
     emit(rec)
     return rec
 
@@ -648,27 +682,28 @@ def smooth_volume(side, seed, dev, ndim=3):
 def plain_versions(noise=0.0, seed=5):
     """Route the models and the tile step through the plain PyTorch versions
     (on CUDA tensors too, differentiable by autograd): the reference path of
-    the serving and train checks.  ``noise`` > 0 multiplies every conv3
-    output by (1 + noise * N(0, 1)), drawn from ``seed``: a perturbation of
-    the plain path's forward of a chosen relative size."""
+    the serving and train checks.  ``noise`` > 0 multiplies every conv3's
+    f32 sums by (1 + noise * N(0, 1)), drawn from ``seed``, before they
+    round to the input's dtype: a perturbation of the plain path's forward
+    of a chosen relative size."""
     from transfer_em_tpu_torch.infer import device_stitch, slab, tiling
-    from transfer_em_tpu_torch.models import blocks, discriminator
+    from transfer_em_tpu_torch.models import blocks
     from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def conv3(x, w, leaky=None):
-        y = cuda_conv.conv3_plain(x, w, leaky)
-        if noise:
-            y = y * (1.0 + noise * torch.randn(y.shape, generator=gen,
-                                                device=y.device))
-        return y
+        if not noise:
+            return cuda_conv.conv3_plain(x, w, leaky)
+        # the noise on the f32 sums, before they round to x's dtype
+        y = cuda_conv.conv3_plain(x.float(), w.to(x.dtype).float())
+        y = (y * (1.0 + noise * torch.randn(y.shape, generator=gen,
+                                             device=y.device))).to(x.dtype)
+        return y if leaky is None else torch.where(y >= 0, y, y * leaky)
 
     swaps = [(blocks, "conv3", conv3),
-             (blocks, "conv3_act", lambda x, w: conv3(x, w, ck.LEAKY_SLOPE)),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
-             (discriminator, "leaky_relu", ck.leaky_relu_plain),
              *[(m, n, f) for m in (tiling, device_stitch, slab)
                for n, f in (("preprocess_u8", ck.preprocess_u8_plain),
                             ("postprocess_to_u8", ck.postprocess_u8_plain))]]
@@ -704,11 +739,9 @@ def recorded_calls():
         return wrapped
 
     swaps = [
-        (blocks, "conv3", lambda x, w: ("conv3", tuple(x.shape),
-                                        w.shape[-1], False)),
-        (blocks, "conv3_act", lambda x, w: ("conv3", tuple(x.shape),
-                                            w.shape[-1], True)),
-        (blocks, "leaky_relu", lambda v: ("leaky_relu", tuple(v.shape))),
+        (blocks, "conv3", lambda x, w, leaky=None: (
+            "conv3", tuple(x.shape), w.shape[-1], leaky is not None)),
+        (blocks, "leaky_relu", lambda v, *_: ("leaky_relu", tuple(v.shape))),
         (slab, "preprocess_u8", lambda x, ms: ("preprocess_u8",
                                                tuple(x.shape))),
         (slab, "postprocess_to_u8", lambda y, ms, tpad=0: (
@@ -774,18 +807,20 @@ def reset_counts():
         c.launches = 0
     cuda_conv.conv3.launches_tc = cuda_conv.conv3.launches_direct = 0
     cuda_conv.conv3.launches_bf16 = 0
+    counters()["leaky_relu"].launches_bf16 = 0
     cuda_conv.packed_weights.packs = 0
 
 
 def read_counts():
-    """Launches per kernel, conv3 also per path (tc, direct) and those on
-    bfloat16 operands, and the weight packs (plain torch, not a kernel
-    launch)."""
+    """Launches per kernel, conv3 also per path (tc, direct), conv3's and
+    LeakyReLU's on bfloat16 operands, and the weight packs (plain torch,
+    not a kernel launch)."""
     from transfer_em_tpu_torch.ops import cuda_conv
     out = {k: c.launches for k, c in counters().items()}
     out["conv3_tc"] = cuda_conv.conv3.launches_tc
     out["conv3_direct"] = cuda_conv.conv3.launches_direct
     out["conv3_bf16"] = cuda_conv.conv3.launches_bf16
+    out["leaky_relu_bf16"] = counters()["leaky_relu"].launches_bf16
     out["conv3_weight_packs"] = cuda_conv.packed_weights.packs
     return out
 
@@ -1565,6 +1600,22 @@ def _grad_errors(state, ref_state):
     return out
 
 
+def _grad_l2(state, ref_state):
+    """{network: ||g - g_ref|| / ||g_ref||} over all its parameters (a
+    parameter that got no gradient counts as a zero one): the L2 gap, which
+    weighs every element where the max-based gap reads the worst one."""
+    out = {}
+    for t in TREES:
+        num = den = 0.0
+        for p, q in zip(getattr(state, t).parameters(),
+                        getattr(ref_state, t).parameters()):
+            g = p.grad if p.grad is not None else torch.zeros_like(q.grad)
+            num += float(((g - q.grad).double() ** 2).sum())
+            den += float((q.grad.double() ** 2).sum())
+        out[t] = (num / max(den, 1e-300)) ** 0.5
+    return out
+
+
 def _worst(errs):
     """Per network, the largest of its parameters' errors."""
     return {t: max(e.values()) for t, e in errs.items()}
@@ -1589,8 +1640,10 @@ def planted_fault(kind):
             else:
                 g = torch.where(y >= 0, g, g * (
                     0.2 if kind == "slope_0.2" else ctx.leaky))
-        dx, dw = cuda_conv.conv3_backward(x, w, g, *ctx.needs_input_grad[:2])
-        return (None if kind == "dx_dropped" else dx), dw, None
+        dx, dw = cuda_conv.conv3_backward(x, w.to(x.dtype), g,
+                                          *ctx.needs_input_grad[:2])
+        return ((None if kind == "dx_dropped" else dx),
+                None if dw is None else dw.to(w.dtype), None)
 
     cuda_conv._Conv3.backward = staticmethod(wrong)
     try:
@@ -1766,16 +1819,16 @@ def profile_train_step(run):
             "top": [{"name": n, "ms": ms, "calls": c} for n, ms, c in top]}
 
 
-def check_train(dev, smi):
+def check_train(dev, smi, cfg=None, phase="train"):
     """The default CycleGANConfig (3D, wf=8, 74^3, float32, B=64, dropout
-    on): create_state and 5 steps of make_train_step on seeded smoothed
-    batches (std 1), then one step under the profiler."""
+    on), or ``cfg``: create_state and 5 steps of make_train_step on seeded
+    smoothed batches (std 1), then one step under the profiler."""
     import statistics
 
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.train import create_state, make_train_step
 
-    cfg = CycleGANConfig()
+    cfg = cfg or CycleGANConfig()
     bsz = cfg.batch_size
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1802,9 +1855,14 @@ def check_train(dev, smi):
     trace = profile_train_step(lambda: step(state, x, y, 0))
     totals = {k: sum(c[k] for c in counts) for k in counts[0]}
     counts_ok = all(c[k] == v for c in counts for k, v in expected.items())
+    if cfg.compute_dtype == "bfloat16":  # every launch on bf16 operands
+        counts_ok = counts_ok and all(
+            c["conv3_bf16"] == c["conv3"] and c["leaky_relu_bf16"]
+            == c["leaky_relu"] for c in counts)
     finite = bool(np.all(np.isfinite(losses)))
-    rec = {"phase": "train", "config": "CycleGANConfig() 3D wf=8 74^3 f32",
-           "batch": bsz, "steps": len(times), "step_s": times,
+    rec = {"phase": phase, "config": f"CycleGANConfig(compute_dtype="
+           f"{cfg.compute_dtype!r}) 3D wf=8 74^3", "batch": bsz,
+           "steps": len(times), "step_s": times,
            "median_step_s_2_to_5": median, "tiles_per_s": bsz / median,
            "peak_memory_gb": peak / 1e9, "losses": losses,
            "losses_finite": finite, "trees_changed": changed,
@@ -2356,6 +2414,668 @@ def check_twod(dev, smi):
     return rec
 
 
+# -- phase 11: bf16 training and the training opt-ins -------------------------
+
+# the train step's k3 convs in its first round (2 x TRAIN_B = B tiles), both
+# networks: (layer, input side, Cin, O, LeakyReLU epilogue)
+TRAIN_CONV3 = CONV_LAYERS + [(n, s, c, o, True)
+                             for n, s, c, o in DISC_CONV_LAYERS]
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on):
+    """cuDNN's float32 convolutions allowed on the TF32 tensor cores, or
+    not, for the block."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _bwd_engines():
+    """conv3's backward on bf16 operands by each candidate engine, each a
+    function (x, w, g, need_x, need_w) -> (dx, dw) in bf16: ``port``, the
+    port's own cuda_conv.conv3_backward (cuDNN's float32 engines on the
+    bf16 values with the TF32 tensor cores allowed, rounded to bf16);
+    ``bf16``, cuDNN's bf16 engines on the bf16 tensors; ``f32_math``,
+    cuDNN's FP32 engines on the bf16 values, rounded to bf16."""
+    from transfer_em_tpu_torch.ops.cuda_conv import (conv3_backward,
+                                                     conv_backward_in_dtype)
+
+    def port(x, w, g, nx=True, nw=True):
+        return conv3_backward(x, w, g, nx, nw)
+
+    def bf16(x, w, g, nx=True, nw=True):
+        return conv_backward_in_dtype(x, w, g, nx, nw)
+
+    def f32_math(x, w, g, nx=True, nw=True):
+        f = torch.float32
+        with cudnn_tf32(False):
+            got = conv3_backward(x.to(f), w.to(f), g.to(f), nx, nw)
+        return tuple(None if t is None else t.to(x.dtype) for t in got)
+
+    return {"port": port, "bf16": bf16, "f32_math": f32_math}
+
+
+def _bwd_errors(got, ref):
+    """(dx, dw) against the float64 reference: the largest |error| in bf16
+    steps at the largest |ref| (a result rounded once from the exact one
+    reads at most 0.5), the L2 gap, and the share of elements that are not
+    the reference rounded to nearest bf16."""
+    out = {}
+    for k, a, r in zip(("dx", "dw"), got, ref):
+        e = a.double() - r
+        top = r.abs().max().item()
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        out[k] = {"steps_at_max": e.abs().max().item() / ulp,
+                  "l2": (e.norm() / r.norm()).item(),
+                  "not_nearest": (a.double() != r.to(torch.bfloat16).double()
+                                  ).double().mean().item()}
+        del e
+    return out
+
+
+# An engine serves conv3's bf16 backward only if its dx and dw stay within
+# bf16 rounding of the exact (float64) gradients at every shape: the
+# largest error at most one bf16 step at the largest |g| (the rounding's
+# half step and as much again for the f32 sums' own error).
+BWD_MAX_STEPS = 1.0
+
+
+def check_bwd_engines(dev, gen):
+    """conv3's backward on bf16 operands at the train step's first-round
+    shapes (B tiles) by the candidate engines (:func:`_bwd_engines`), each
+    held against the float64 gradients of the same bf16 values
+    (:func:`_bwd_errors`; cuDNN's float64 engines) and timed by CUDA events
+    for dx alone and dw alone, beside the bf16 bound; ``f32_unrounded`` is
+    the FP32 engines' result before it rounds, the f32 sums' own error.
+    ``ok`` needs the port's engine within BWD_MAX_STEPS at every shape and
+    no slower than the bf16 and FP32 engines in all."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    engines = _bwd_engines()
+    rows = []
+    tot = {e: {"dx_ms": 0.0, "dw_ms": 0.0} for e in engines}
+    tot["bound_ms"] = 0.0
+    bf, f64 = torch.bfloat16, torch.float64
+    for name, s, c, o, _ in TRAIN_CONV3:
+        x = torch.randn((B, s, s, s, c), generator=gen, device=dev).to(bf)
+        w = (torch.randn((3, 3, 3, c, o), generator=gen, device=dev)
+             / (27 * c) ** 0.5).to(bf)
+        g = torch.randn((B, s - 2, s - 2, s - 2, o), generator=gen,
+                        device=dev).to(bf)
+        ref = cuda_conv.conv3_backward(x.to(f64), w.to(f64), g.to(f64))
+        with cudnn_tf32(False):
+            unrounded = cuda_conv.conv3_backward(
+                x.float(), w.float(), g.float())
+        row = {"layer": name, "shape": [B, s, s, s, c], "out_channels": o,
+               "errors": {"f32_unrounded": _bwd_errors(unrounded, ref)}}
+        del unrounded
+        for e, run in engines.items():
+            got = run(x, w, g)
+            row["errors"][e] = _bwd_errors(got, ref)
+            del got
+            t = {"dx_ms": cuda_ms(lambda: run(x, w, g, True, False), 3),
+                 "dw_ms": cuda_ms(lambda: run(x, w, g, False, True), 3)}
+            row[e] = t
+            for k, v in t.items():
+                tot[e][k] += v
+        del ref
+        n_out = g.numel()
+        nbytes = 2 * (2 * x.numel() + 2 * w.numel() + g.numel())
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 2 * 2.0 * n_out * 27 * c, bf)
+        tot["bound_ms"] += row["bound_ms"]
+        emit({"phase": "bwd_engine", **row})
+        rows.append(row)
+        del x, w, g
+    worst = {e: {k: max(r["errors"][e][k]["steps_at_max"] for r in rows)
+                 for k in ("dx", "dw")}
+             for e in list(engines) + ["f32_unrounded"]}
+    within = {e: all(v <= BWD_MAX_STEPS for v in worst[e].values())
+              for e in engines}
+    ms = {e: tot[e]["dx_ms"] + tot[e]["dw_ms"] for e in engines}
+    rec = {"total": tot, "ms": ms, "worst_steps_at_max": worst,
+           "within_bf16_rounding": within, "max_steps": BWD_MAX_STEPS,
+           "layers": rows}
+    rec["ok"] = within["port"] and ms["port"] <= min(ms.values())
+    return rec
+
+
+# The bf16 step check's bound, set as GRAD_TOL is (see there) from what the
+# same run reads, under cudnn.deterministic so that every run reads the
+# same: the kernels' bf16 step against the plain one; the plain step's own
+# spread with every conv3's f32 sums times (1 + BF16_NOISE N(0, 1)) before
+# they round to bf16 (the noise floor); and the f32 check's planted faults.
+# In bf16 a rounding-level change anywhere in the forward moves a B=4
+# step's gradients by several percent, so the bound is on each network's
+# L2 gap (_grad_l2), above the noise floor: on an H100 80GB HBM3 at 700 W
+# the kernels' step read 1.0e-2 to 1.6e-2 by network, the noise floor
+# 1.9e-2 to 0.15, dx_dropped and mask_inverted 0.63 to 0.86 (both gated)
+# and slope_0.2 7.8e-2 to 0.15, within the floor (read, not gated).  A
+# fault of rounding size moves a step no more than the floor does; the
+# per-layer check (check_bf16_layers) gates those.
+BF16_GRAD_TOL = 0.3
+BF16_LOSS_RTOL = 1e-3
+BF16_NOISE = 1e-5
+BF16_FAULTS = ("dx_dropped", "mask_inverted")
+
+# The per-layer check's bounds, for conv3's output y and gradients dx and dw
+# on bf16 operands against the same function evaluated exactly (float64
+# sums of the bf16 values, each result rounded once to bf16; y with its
+# LeakyReLU in bf16 on the rounded sum): the share of elements that are not
+# that rounded value ("miss") must stay within BF16_MISS_TOL, and the
+# largest error of y and dw within BWD_MAX_STEPS bf16 steps at the largest
+# |value|.  y and dx sum at most 864 products, so f32 sums land on the
+# rounded value but for about 1e-4 of the elements; dw sums up to 48
+# million, and the TF32 engines' sums miss at up to 0.24 of them (FP32:
+# 0.03; cuDNN's bf16 engines: 0.93).  dx's largest error is read, not
+# gated: where a sum lies within the f32 sums' error of 0, the LeakyReLU's
+# mask flips and that element's cotangent changes by 0.7 g, which reads up
+# to 10 steps at the largest |dx| in the plain version as in the kernels.
+# The plain version (conv3_plain and its autograd) is read beside the
+# kernels; the planted faults of rounding size (BF16_LAYER_FAULTS) must
+# each miss above the bound somewhere.  On an H100 80GB HBM3 at 700 W the
+# kernels missed at most 4.4e-4 (y), 6.5e-4 (dx) and 0.24 (dw), and the
+# faults read dw_unrounded 1.0 (dw), conv_f32 1.0 (y), slope_unrounded
+# 0.24 (y).
+BF16_MISS_TOL = {"y": 0.01, "dx": 0.01, "dw": 0.5}
+BF16_LAYER_FAULTS = ("dw_unrounded", "conv_f32", "slope_unrounded")
+
+
+def _bf16_exact(x, w, g, slope):
+    """conv3's bf16 function on (x, w) with output cotangent g, evaluated
+    exactly: ``exact`` the float64 y, dx and dw; ``rounded`` each rounded
+    once to bf16, y with the LeakyReLU in bf16 on the rounded sum and the
+    mask taken from that y, as the port computes it."""
+    from transfer_em_tpu_torch.ops.cuda_conv import conv3_backward
+
+    f64, bf = torch.float64, torch.bfloat16
+    xd, wd = x.to(f64), w.to(bf).to(f64)
+    pre = F.conv3d(xd.permute(0, 4, 1, 2, 3), wd.permute(4, 3, 0, 1, 2))
+    pre = pre.permute(0, 2, 3, 4, 1)
+    y, exact_y = pre.to(bf), pre
+    if slope is not None:
+        y = torch.where(y >= 0, y, y * slope)
+        g = torch.where(y >= 0, g, g * slope)
+        exact_y = torch.where(pre >= 0, pre, pre * slope)
+    dx, dw = conv3_backward(xd, wd, g.to(f64))
+    return {"exact": (exact_y, dx, dw),
+            "rounded": (y, dx.to(bf), dw.to(bf))}
+
+
+def _miss(got, ref):
+    """Per tensor: the share of elements that are not ref's rounded value
+    and the largest error in bf16 steps at the largest |exact|."""
+    out = {}
+    for k, a, r, e in zip(("y", "dx", "dw"), got, ref["rounded"],
+                          ref["exact"]):
+        a = a.detach().double()
+        ulp = 2.0 ** (math.floor(math.log2(e.abs().max().item())) - 7)
+        out[k] = {"miss": (a != r.double()).double().mean().item(),
+                  "steps_at_max": (a - e).abs().max().item() / ulp}
+    return out
+
+
+@contextlib.contextmanager
+def dw_unrounded():
+    """conv3's weight gradient on bf16 taken in f32 math on the bf16 values
+    and not rounded to bf16 (a planted fault)."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    right = cuda_conv._Conv3.__dict__["backward"]
+
+    def wrong(ctx, g):
+        x, w, y = ctx.saved_tensors
+        if ctx.leaky is not None:
+            g = torch.where(y >= 0, g, g * ctx.leaky)
+        f = torch.float32
+        dx, _ = cuda_conv.conv3_backward(x, w.to(x.dtype), g, True, False)
+        _, dw = cuda_conv.conv3_backward(x.to(f), w.to(x.dtype).to(f),
+                                         g.to(f), False, True)
+        return dx, dw, None
+
+    cuda_conv._Conv3.backward = staticmethod(wrong)
+    try:
+        yield
+    finally:
+        cuda_conv._Conv3.backward = right
+
+
+def check_bf16_layers(dev, gen):
+    """conv3 on bf16 at the train step's 12 first-round shapes (B tiles),
+    each with the train step's epilogue (bf16(0.3)) and its f32 parameter,
+    forward and backward through the port (cuda_conv.conv3 under autograd)
+    at a fixed cotangent, against the exact function (:func:`_bf16_exact`,
+    :func:`_miss`); beside it the plain version and three planted faults of
+    rounding size: ``dw_unrounded`` (:func:`dw_unrounded`), ``conv_f32``
+    (the conv run in float32, its output and dw not rounded to bf16) and
+    ``slope_unrounded`` (the epilogue's slope 0.3 for bf16(0.3)).  ``ok``
+    needs every layer's y, dx and dw within BF16_MISS_TOL, y and dw within
+    BWD_MAX_STEPS, and every fault above BF16_MISS_TOL at some layer."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops.cuda_kernels import slope_in
+
+    bf = torch.bfloat16
+    s16 = slope_in(bf)
+
+    def run(conv, x, w, g, slope):
+        xr = x.detach().requires_grad_(True)
+        wr = w.detach().requires_grad_(True)
+        y = conv(xr, wr, slope)
+        y.backward(g.to(y.dtype))
+        return y, xr.grad, wr.grad
+
+    faults = {
+        "dw_unrounded": (dw_unrounded, cuda_conv.conv3),
+        "conv_f32": (contextlib.nullcontext, lambda x, w, s: cuda_conv.conv3(
+            x.float(), w, None if s is None else 0.3)),
+        "slope_unrounded": (contextlib.nullcontext,
+                            lambda x, w, s: cuda_conv.conv3(
+                                x, w, None if s is None else 0.3))}
+    rows, caught = [], dict.fromkeys(BF16_LAYER_FAULTS, False)
+    for name, s, c, o, act in TRAIN_CONV3:
+        slope = s16 if act else None
+        x = torch.randn((B, s, s, s, c), generator=gen, device=dev).to(bf)
+        w = torch.randn((3, 3, 3, c, o), generator=gen,
+                        device=dev) / (27 * c) ** 0.5
+        g = torch.randn((B, s - 2, s - 2, s - 2, o), generator=gen,
+                        device=dev).to(bf)
+        ref = _bf16_exact(x, w, g, slope)
+        row = {"layer": name, "shape": [B, s, s, s, c], "out_channels": o,
+               "kernels": _miss(run(cuda_conv.conv3, x, w, g, slope), ref),
+               "plain": _miss(run(cuda_conv.conv3_plain, x, w, g, slope),
+                              ref), "faults": {}}
+        for kind in BF16_LAYER_FAULTS:
+            planted, conv = faults[kind]
+            with planted():
+                got = _miss(run(conv, x, w, g, slope), ref)
+            row["faults"][kind] = {k: v["miss"] for k, v in got.items()}
+            caught[kind] = caught[kind] or any(
+                v > BF16_MISS_TOL[k] for k, v in row["faults"][kind].items())
+        row["ok"] = all(v["miss"] <= BF16_MISS_TOL[k]
+                        and (k == "dx" or v["steps_at_max"] <= BWD_MAX_STEPS)
+                        for k, v in row["kernels"].items())
+        emit({"phase": "bf16_layer", **row})
+        rows.append(row)
+        del x, w, g, ref
+    worst = {src: {k: {m: max(r[src][k][m] for r in rows)
+                       for m in ("miss", "steps_at_max")}
+                   for k in ("y", "dx", "dw")}
+             for src in ("kernels", "plain")}
+    fault_max = {f: {k: max(r["faults"][f][k] for r in rows)
+                     for k in ("y", "dx", "dw")} for f in BF16_LAYER_FAULTS}
+    return {"worst": worst, "faults": fault_max, "faults_caught": caught,
+            "miss_tol": BF16_MISS_TOL, "max_steps": BWD_MAX_STEPS,
+            "ok": all(r["ok"] for r in rows) and all(caught.values())}
+
+
+def check_train_bf16_plain(dev):
+    """One bf16 step through the kernels and one through the plain
+    versions from the same state and batches (wf=8, B=4, dropout off,
+    weights redrawn, batches of std 0.3, as check_train_plain), under
+    cudnn.deterministic: the 7 losses within BF16_LOSS_RTOL, each network's
+    L2 gradient gap within BF16_GRAD_TOL, the noise floor and the planted
+    faults read beside it; fails unless the BF16_FAULTS read above
+    BF16_GRAD_TOL in every network."""
+    import copy
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    cfg = CycleGANConfig(compute_dtype="bfloat16")
+    with cudnn_deterministic():
+        state = create_state(cfg, seed=1, device=dev)
+        redraw(state, 2)
+        fresh = copy.deepcopy(state)
+        ref_state = copy.deepcopy(fresh)
+        x, y = smooth_batches(4, 0.3, 11, dev)
+        step = build_step_fn(cfg, deterministic=True)
+        reset_counts()
+        got = step(state, x, y, 0).cpu().numpy()
+        launches = read_counts()
+        with plain_versions():
+            want = step(ref_state, x, y, 0).cpu().numpy()
+        grad = _grad_l2(state, ref_state)
+        del state
+        floor = dict.fromkeys(TREES, 0.0)
+        for seed in NOISE_SEEDS:
+            noisy = copy.deepcopy(fresh)
+            with plain_versions(noise=BF16_NOISE, seed=seed):
+                step(noisy, x, y, 0)
+            for t, v in _grad_l2(noisy, ref_state).items():
+                floor[t] = max(floor[t], v)
+            del noisy
+        faults = {}
+        for kind in FAULTS:
+            broken = copy.deepcopy(fresh)
+            with planted_fault(kind):
+                step(broken, x, y, 0)
+            faults[kind] = _grad_l2(broken, ref_state)
+            del broken
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    caught = {k: min(faults[k].values()) > BF16_GRAD_TOL
+              for k in BF16_FAULTS}
+    rec = {"phase": "train_bf16_check", "batch": 4, "losses": got.tolist(),
+           "plain_losses": want.tolist(), "loss_max_rel_err": loss_rel,
+           "loss_rtol": BF16_LOSS_RTOL, "grad_l2": grad,
+           "grad_tol": BF16_GRAD_TOL, "noise": BF16_NOISE,
+           "noise_seeds": list(NOISE_SEEDS), "noise_floor_l2": floor,
+           "faults": faults, "faults_caught": caught, "launches": launches}
+    rec["ok"] = (loss_rel <= BF16_LOSS_RTOL
+                 and all(v <= BF16_GRAD_TOL for v in grad.values())
+                 and all(caught.values())
+                 and launches["conv3_bf16"] == launches["conv3"] > 0
+                 and launches["leaky_relu_bf16"] > 0)
+    emit(rec)
+    return rec
+
+
+def _bf16_train_kernels(dev, gen):
+    """conv3 (each layer with its own epilogue) and LeakyReLU in bf16 at the
+    train step's first-round shapes (B tiles), the generator's and the
+    discriminator's, each against its plain version, timed by CUDA events
+    and by graph replay beside the bound and the library call (F.conv3d +
+    F.leaky_relu; F.leaky_relu), summed by network."""
+    keys = ("ms", "plain_ms", "library_ms", "graph_ms", "library_graph_ms",
+            "bound_ms")
+    bf = torch.bfloat16
+    out = {}
+    for net, layers in (("gen", CONV_LAYERS),
+                        ("disc", [(n, s_, c, o, True)
+                                  for n, s_, c, o in DISC_CONV_LAYERS])):
+        tot = {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0, "ok": True,
+               "t_bytes": 0.0, "t_ops": 0.0, "layers": []}
+        for name, side, c, o, act in layers:
+            rec = _conv3_case(dev, gen, bf, 1e-2, name, (B, side, side, side),
+                              c, o, act, graph=True)
+            rec["ms"] = rec["kernel_ms"]
+            for k in keys + ("t_bytes", "t_ops"):
+                tot[k] += rec[k]
+            tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+            tot["ok"] = tot["ok"] and rec["ok"]
+            tot["layers"].append(name)
+        t_ops, t_bytes = tot.pop("t_ops"), tot.pop("t_bytes")
+        tot["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        out["conv3_" + net] = tot
+    for net, shapes in (("gen", LEAKY_SHAPES), ("disc", DISC_LEAKY_SHAPES)):
+        tot = {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0, "ok": True,
+               "bound_by": "bytes"}
+        for shape in shapes:
+            v = torch.randn(shape, generator=gen, device=dev).to(bf)
+            rec = _leaky_case(v)
+            emit({"phase": "kernel", "kernel": "leaky_relu", "net": net,
+                  "dtype": "bfloat16", "shape": list(shape), **rec})
+            for k in keys:
+                tot[k] += rec[k]
+            tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+            tot["ok"] = tot["ok"] and rec["ok"]
+            del v
+        out["leaky_relu_" + net] = tot
+    return out
+
+
+def _grads_equal(a, b):
+    return all(
+        (p.grad is None and q.grad is None)
+        or (p.grad is not None and q.grad is not None
+            and torch.equal(p.grad, q.grad))
+        for t in TREES for p, q in zip(getattr(a, t).parameters(),
+                                       getattr(b, t).parameters()))
+
+
+def check_remat(dev):
+    """remat on and off at the default config, float32 and bfloat16, B=64,
+    dropout on: two steps of each from one state under cudnn.deterministic,
+    in the order off, on, on, off, their seconds and peak memory; losses,
+    gradients and the updated states must be bit-equal."""
+    import copy
+    import dataclasses
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    x, y = smooth_batches(TRAIN_B, 1.0, 12, dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = CycleGANConfig(compute_dtype=dtype)
+        base = create_state(cfg, seed=0, device=dev)
+        first, times, peaks = {}, {False: [], True: []}, {}
+        for remat in (False, True, True, False):
+            st = copy.deepcopy(base)
+            step = build_step_fn(dataclasses.replace(cfg, remat=remat))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            with cudnn_deterministic():
+                t0 = time.perf_counter()
+                loss = step(st, x, y, 0)
+                torch.cuda.synchronize()
+                times[remat].append(time.perf_counter() - t0)
+            peaks[remat] = max(peaks.get(remat, 0.0),
+                               torch.cuda.max_memory_allocated() / 1e9)
+            first.setdefault(remat, (st, loss))
+            del st
+        (a, la), (b, lb) = first[False], first[True]
+        out[dtype] = {m: {"step_s": times[k], "peak_memory_gb": peaks[k]}
+                      for m, k in (("off", False), ("on", True))}
+        out[dtype].update(losses_bit_equal=bool(torch.equal(la, lb)),
+                          grads_bit_equal=_grads_equal(a, b),
+                          states_bit_equal=_states_equal(a, b))
+        del first, a, b, base
+    out["ok"] = all(v["losses_bit_equal"] and v["grads_bit_equal"]
+                    and v["states_bit_equal"] for v in out.values())
+    return out
+
+
+def check_scan_window(dev):
+    """make_scan_train_step(window=2) against two sequential
+    make_train_step calls from one state (bf16, wf=8, B=4, dropout on),
+    under cudnn.deterministic: losses and states bit-equal."""
+    import copy
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import (create_state,
+                                             make_scan_train_step,
+                                             make_train_step)
+
+    cfg = CycleGANConfig(compute_dtype="bfloat16")
+    base = create_state(cfg, seed=3, device=dev)
+    xs, ys = (b.reshape((2, 4) + b.shape[1:])
+              for b in smooth_batches(8, 1.0, 13, dev))
+    seq, scanned = copy.deepcopy(base), copy.deepcopy(base)
+    step = make_train_step(cfg, device=dev)
+    scan = make_scan_train_step(cfg, 2, device=dev)
+    with cudnn_deterministic():
+        want = torch.stack([step(seq, xs[i], ys[i], 5) for i in range(2)])
+        got = scan(scanned, xs, ys, 5)
+    rec = {"window": 2, "batch": 4, "losses": got.tolist(),
+           "losses_bit_equal": bool(torch.equal(got, want)),
+           "states_bit_equal": _states_equal(seq, scanned),
+           "step": scanned.step}
+    rec["ok"] = (rec["losses_bit_equal"] and rec["states_bit_equal"]
+                 and scanned.step == 2)
+    return rec
+
+
+def check_ensemble(dev):
+    """One step with ensemble_apps against one with batched_apps from one
+    state (wf=8, B=4, dropout on, weights redrawn, cudnn.deterministic),
+    float32 and bfloat16:
+    the 7 losses within the train checks' loss tolerance, the gradients
+    within their bounds (f32: every parameter's within GRAD_TOL of its own
+    largest |g|; bf16: each network's L2 gap within BF16_GRAD_TOL); conv3
+    launches once per stacked network, LeakyReLU once per stack."""
+    import copy
+    import dataclasses
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    x, y = smooth_batches(4, 0.3, 11, dev)
+    out = {}
+    for dtype, tol, rtol in (("float32", GRAD_TOL, 1e-4),
+                             ("bfloat16", BF16_GRAD_TOL, BF16_LOSS_RTOL)):
+        cfg = CycleGANConfig(compute_dtype=dtype)
+        state = create_state(cfg, seed=1, device=dev)
+        redraw(state, 2)
+        ens = copy.deepcopy(state)
+        with cudnn_deterministic():
+            reset_counts()
+            want = build_step_fn(cfg)(state, x, y, 7).cpu().numpy()
+            batched = read_counts()
+            reset_counts()
+            got = build_step_fn(dataclasses.replace(cfg, ensemble_apps=True))(
+                ens, x, y, 7).cpu().numpy()
+            launches = read_counts()
+        l2 = _grad_l2(ens, state)
+        grad = l2 if dtype == "bfloat16" else _worst(_grad_errors(ens, state))
+        loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        out[dtype] = {"losses": got.tolist(), "batched_losses": want.tolist(),
+                      "loss_max_rel_err": loss_rel, "loss_rtol": rtol,
+                      "grad_gap": grad, "grad_tol": tol, "grad_l2": l2,
+                      "grad_max_err_over_own_max": _worst(
+                          _grad_errors(ens, state)),
+                      "launches": launches, "batched_launches": batched}
+        out[dtype]["ok"] = (loss_rel <= rtol
+                            and all(v <= tol for v in grad.values())
+                            and launches["conv3"] == batched["conv3"]
+                            and 0 < launches["leaky_relu"]
+                            < batched["leaky_relu"])
+        del state, ens
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def _bf16_quick_start(dev, is3d):
+    """The README quick start in bf16: 3D at B=16 on EM_CUBES seeded 74^3
+    cubes of a smoothed 256^3 volume, or 2D at B=64 on TWOD_PATCHES 74^2
+    patches of a smoothed 1024^2 image (source through make_warp_map);
+    EM2EM(74, wf=8, compute_dtype="bfloat16") trains 2 epochs of 4 steps;
+    a second model of the experiment auto-restores bit-equal and trains a
+    third epoch on fixed batches, as the first does uninterrupted
+    (bit-equal under cudnn.deterministic); save_model -> load_generator ->
+    make_tile_step (tpad 2) on 16 cubes (3D) or 128 patches (2D) within one
+    grey level on at most 1e-3 of the voxels of the plain versions."""
+    from transfer_em_tpu_torch import EM2EM, create_dataset_from_tensors
+    from transfer_em_tpu_torch.infer import (load_generator, make_tile_step,
+                                             save_model)
+    from transfer_em_tpu_torch.ops.warp import make_warp_map
+
+    ndim = 3 if is3d else 2
+    bsz, n, side = ((EM_BATCH, EM_CUBES, EM_SIDE) if is3d
+                    else (TWOD_TRAIN_B, TWOD_PATCHES, TWOD_SIDE))
+    vol = smooth_volume(side, seed=30 + ndim, dev=dev, ndim=ndim)
+    corners = np.random.default_rng(32).integers(0, side - 74 + 1, (n, ndim))
+    items = [vol[tuple(slice(c, c + 74) for c in cc)] for cc in corners]
+    target, ms_y = create_dataset_from_tensors(items, batch_size=bsz,
+                                               device=dev)
+    source, ms_x = create_dataset_from_tensors(
+        items, batch_size=bsz, custom_map=make_warp_map(5), device=dev)
+    kw = {"is3d": is3d, "wf": 8, "compute_dtype": "bfloat16", "device": dev}
+    rec = {"config": f"EM2EM(74, is3d={is3d}, wf=8, compute_dtype="
+                     "'bfloat16')", "batch": bsz, "items": n}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ckpt")
+        log = os.path.join(tmp, "metrics.jsonl")
+        name = f"bf16_{ndim}d"
+        model = EM2EM(74, name, checkpoint_root=root, **kw)
+        before = [p.detach().clone() for p in model.state.gg.parameters()]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model.train(source, target, epochs=2, check_freq=1, metrics_log=log)
+        rec["wall_s"] = time.perf_counter() - t0
+        epochs = [json.loads(line) for line in open(log)]
+        rec["epochs"] = epochs
+        rec["tiles_per_s"] = [e["steps"] * bsz / e["seconds"] for e in epochs]
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["losses_finite"] = all(
+            np.isfinite(list(e["loss"].values())).all() for e in epochs)
+        rec["generator_changed"] = any(not torch.equal(a, b) for a, b in zip(
+            before, model.state.gg.parameters()))
+        resumed = EM2EM(74, name, checkpoint_root=root, **kw)
+        rec["restored_bit_equal"] = _states_equal(resumed.state, model.state)
+        steps = n // bsz
+        bx, by = source.take_batches(steps), target.take_batches(steps)
+        with cudnn_deterministic():
+            resumed.train(bx, by, epochs=1, start=2, check_freq=1,
+                          metrics_log=log)
+            for x, y in zip(bx, by):
+                model.train_step(x, y)
+        rec["continued_bit_equal"] = _states_equal(resumed.state, model.state)
+        rec["step"] = resumed.state.step
+        export = os.path.join(tmp, "export")
+        save_model(export, os.path.join(resumed.checkpoint_path, "3"), ms_x,
+                   ms_y, 74, is3d, 8, device=dev)
+        gen, meta = load_generator(export, device=dev)
+        tiles = np.stack(items[:16]) if is3d else _tile_grid(vol, TWOD_B)
+        tile_step = make_tile_step(gen, meta.meanstd_x, meta.meanstd_y, 2,
+                                   device=dev)
+        got = tile_step(tiles)
+        with plain_versions():
+            ref = tile_step(tiles)
+        diff = np.abs(got.astype(int) - ref.astype(int))
+        rec["tile_step"] = {"tiles": len(tiles), "out_shape": list(got.shape),
+                            "u8_max_diff": int(diff.max()),
+                            "u8_frac_differing": float((diff > 0).mean())}
+        del model, resumed, gen
+    rec["ok"] = bool(
+        rec["losses_finite"] and rec["generator_changed"]
+        and rec["restored_bit_equal"] and rec["continued_bit_equal"]
+        and rec["step"] == 3 * steps and rec["tile_step"]["u8_max_diff"] <= 1
+        and rec["tile_step"]["u8_frac_differing"] <= 1e-3)
+    return rec
+
+
+def check_train_bf16(dev, smi):
+    """bf16 training and the opt-ins (phase 11): conv3's backward engines,
+    conv3 and LeakyReLU in bf16 at the train step's shapes, conv3's output
+    and gradients per layer against the exact function (BF16_MISS_TOL), a
+    bf16 step through the kernels against the plain versions
+    (BF16_GRAD_TOL), 5 timed
+    bf16 steps at B=64 (one profiled), remat, the scan window,
+    ensemble_apps, then the bf16 quick start in 3D and 2D: the main path,
+    counted."""
+    from transfer_em_tpu_torch.config import CycleGANConfig
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(50)
+    cfg = CycleGANConfig(compute_dtype="bfloat16")
+    rec = {"phase": "train_bf16", "card": smi}
+    rec["bwd_engines"] = check_bwd_engines(dev, gen)
+    rec["kernels"] = _bf16_train_kernels(dev, gen)
+    rec["layers"] = check_bf16_layers(dev, gen)
+    emit({"phase": "bf16_layers", **rec["layers"]})
+    rec["train_check"] = check_train_bf16_plain(dev)
+    rec["step"] = check_train(dev, smi, cfg=cfg, phase="train_bf16_step")
+    rec["remat"] = check_remat(dev)
+    emit({"phase": "remat", **rec["remat"]})
+    rec["scan_window"] = check_scan_window(dev)
+    emit({"phase": "scan_window", **rec["scan_window"]})
+    rec["ensemble_apps"] = check_ensemble(dev)
+    emit({"phase": "ensemble_apps", **rec["ensemble_apps"]})
+    reset_counts()  # the main path's counts run from here
+    rec["quick_start"] = {"3d": _bf16_quick_start(dev, True),
+                          "2d": _bf16_quick_start(dev, False)}
+    launches = read_counts()  # ... to here
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(
+        all(v["ok"] for v in rec["kernels"].values())
+        and rec["bwd_engines"]["ok"] and rec["layers"]["ok"]
+        and rec["train_check"]["ok"] and rec["step"]["ok"]
+        and rec["remat"]["ok"] and rec["scan_window"]["ok"]
+        and rec["ensemble_apps"]["ok"]
+        and all(q["ok"] for q in rec["quick_start"].values())
+        and all(launches[k] > 0 for k in counters())
+        and launches["conv3_bf16"] > 0 and launches["leaky_relu_bf16"] > 0)
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -2441,6 +3161,10 @@ def main():
     if not twod["ok"]:
         fail("twod", "the 2D phase failed a check")
 
+    bf16 = check_train_bf16(dev, smi)
+    if not bf16["ok"]:
+        fail("train_bf16", "the bf16 training phase failed a check")
+
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -2512,12 +3236,22 @@ def main():
                                      "at B=128, float32"}}),
     ]
     le, lv, ln = em2em["launches"], volume["launches"], serve_ng["launches"]
-    l2 = twod["launches"]
+    l2, lb = twod["launches"], bf16["launches"]
     for line in lines:
         line["em2em_launches"] = le[line["name"]]
         line["volume_launches"] = lv[line["name"]]
         line["serve_ng_launches"] = ln[line["name"]]
         line["twod_launches"] = l2[line["name"]]
+        line["train_bf16_launches"] = lb[line["name"]]
+        bk = bf16["kernels"]
+        if line["name"] + "_gen" in bk:
+            line["train_bf16"] = {
+                net: {k: bk[line["name"] + "_" + net][k]
+                      for k in SUMMARY}
+                for net in ("gen", "disc")}
+            line["train_bf16"]["per"] = (
+                "the train step's first round (B=128 tiles, bfloat16), "
+                "summed over the network's calls")
         if line["name"] in twod["kernels"]:
             k2 = twod["kernels"][line["name"]]
             line["twod"] = {**{k: k2[k] for k in SUMMARY},
@@ -2529,6 +3263,7 @@ def main():
         p["volume_launches"] = lv[path]
         p["serve_ng_launches"] = ln[path]
         p["twod_launches"] = l2[path]
+        p["train_bf16_launches"] = lb[path]
     slab_keys = ("layer", "shape", "path", "kernel_ms", "ms", "graph_ms", "plain_ms",
                  "library_ms", "library_graph_ms", "bound_ms", "bound_by",
                  "max_abs_err")

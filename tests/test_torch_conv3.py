@@ -18,6 +18,7 @@ from transfer_em_tpu.ops import convs as jconvs
 from transfer_em_tpu_torch.models import UNetGenerator
 from transfer_em_tpu_torch.models.blocks import ConvND
 from transfer_em_tpu_torch.ops import cuda_conv
+from transfer_em_tpu_torch.ops.cuda_kernels import slope_in
 
 torch.set_num_threads(1)
 
@@ -259,7 +260,9 @@ def test_bf16_forward_takes_the_f32_parameter(c, o, act):
     xs = [x.clone().requires_grad_(True) for _ in range(2)]
     y = m(xs[0])
     w16 = m.kernel.to(torch.bfloat16)  # the cast the block used to make
-    want = (cuda_conv.conv3_act if act else cuda_conv.conv3)(xs[1], w16)
+    # the block's activation takes the slope in bf16, as JAX's bf16 one does
+    want = cuda_conv.conv3(xs[1], w16,
+                           slope_in(torch.bfloat16) if act else None)
     assert y.dtype == torch.bfloat16 and torch.equal(y, want)
     g = torch.from_numpy(np.random.default_rng(18).normal(
         0, 1, tuple(y.shape)).astype(np.float32)).to(torch.bfloat16)

@@ -311,26 +311,57 @@ def test_metrics_records_match_jax(tmp_path):
 
 
 LATER = {
-    # 2D trains (tests/test_torch_2d_train.py); 2D in bf16 waits for bf16
-    # training, as 3D does
-    "2D": (dict(is3d=False, compute_dtype="bfloat16"), "A1.6"),
-    "bf16": (dict(compute_dtype="bfloat16"), "A1.6"),
-    "remat": (dict(remat=True), "A1.5"),
-    "ensemble_apps": (dict(ensemble_apps=True), "A1.5"),
+    # the refusals still owed to later slices, one raising test each
+    "to_mesh": (lambda m: m.to_mesh(), "A4"),
+    "from_reference_checkpoint": (
+        lambda m: EM2EM.from_reference_checkpoint("ckpt", "x"), "A3"),
+    "keras_prior": (lambda m: create_prior_helper("prior.h5", "down1"),
+                    "A3"),
 }
 
 
 @pytest.mark.parametrize("case", list(LATER))
 def test_later_slices_raise(tmp_path, case):
-    kw, item = LATER[case]
+    call, item = LATER[case]
+    m = _model(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
-        _model(tmp_path, **kw)
+        call(m)
+
+
+PORTED = {
+    # A1.6 and A1.5, which raised in earlier slices of the port
+    "2D": dict(is3d=False, compute_dtype="bfloat16"),
+    "bf16": dict(compute_dtype="bfloat16"),
+    "remat": dict(remat=True),
+    "ensemble_apps": dict(ensemble_apps=True),
+}
+
+
+@pytest.mark.parametrize("case", list(PORTED))
+def test_ported_options_train(tmp_path, case):
+    """bf16 (3D and 2D), remat and ensemble_apps: EM2EM builds, a step
+    updates all four networks with finite losses, and predict gives float32
+    at the generator's output size."""
+    kw = PORTED[case]
+    m = _model(tmp_path, **kw)
+    is3d = kw.get("is3d", True)
+    shape = (1,) + (74,) * (3 if is3d else 2) + (1,)
+    x = torch.from_numpy((0.3 * np.random.default_rng(9).normal(
+        size=shape)).astype(np.float32))
+    before = [p.detach().clone() for p in m.state.dx.parameters()]
+    loss = m.train_step(x, x)
+    assert torch.isfinite(loss).all() and m.state.step == 1
+    assert any(not torch.equal(a, b)
+               for a, b in zip(before, m.state.dx.parameters()))
+    out = m.predict(x)
+    assert out.dtype == torch.float32
+    assert out.shape[1:-1] == (40,) * (3 if is3d else 2)
 
 
 def test_later_methods_raise_plots_and_sample(tmp_path, monkeypatch,
                                               capsys):
-    """to_mesh, scan_window and from_reference_checkpoint name their later
-    slices; plot_* write a table of the parameters; the bound networks run
+    """to_mesh and from_reference_checkpoint name their later slices;
+    plot_* write a table of the parameters; the bound networks run
     the live parameters without gradients; with debug and a sample, an
     epoch ends with the sample's accuracy and <exp_name>_sample.png."""
     monkeypatch.chdir(tmp_path)
@@ -342,8 +373,6 @@ def test_later_methods_raise_plots_and_sample(tmp_path, monkeypatch,
     assert (tmp_path / "exp_sample.png").exists()
     with pytest.raises(NotImplementedError, match="A4"):
         m.to_mesh()
-    with pytest.raises(NotImplementedError, match="A1.5"):
-        m.train([], [], epochs=1, scan_window=2)
     with pytest.raises(NotImplementedError, match="A3"):
         EM2EM.from_reference_checkpoint("ckpt", "x")
     m.plot_generator(str(tmp_path / "g.txt"))

@@ -38,6 +38,21 @@ __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : __fmul_rn(v, slope);
 }
 
+// The conv kernels' fused LeakyReLU: the f32 sum rounded to T first, then
+// the activation on that value (rounded again when stored), which is what
+// a conv in T followed by a LeakyReLU in T computes.  In bf16 this follows
+// the JAX package's default path (fast_conv off: lax.conv, then
+// nn.leaky_relu with the slope rounded to bf16), which its bf16 training
+// runs, and deliberately NOT the Pallas kernel this ports (_tconv3_kernel,
+// pallas_conv.py:111-114: LeakyReLU(0.3) on the f32 sum, one rounding):
+// the two differ on about half of the negative outputs by one bf16 step
+// (tests/test_torch_bf16_train.py pins which one the port matches).  For
+// float the first rounding changes nothing.
+template <typename T>
+__device__ __forceinline__ float conv_leaky(float v, float slope) {
+  return leaky(to_f32<T>(from_f32<T>(v)), slope);
+}
+
 // Grid for a grid-stride loop over n items with 256-thread blocks.
 inline unsigned int grid_for(long long n, long long per_thread = 1) {
   long long threads = (n + per_thread - 1) / per_thread;

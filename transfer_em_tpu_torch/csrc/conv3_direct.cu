@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int o = 0; o < OT; ++o) {
       const float a = acc[i][o];
       s_out[((dd * kTH + h0 + i) * kTW + lane) * OT + o] =
-          act ? leaky(a, slope) : a;
+          act ? conv_leaky<T>(a, slope) : a;
     }
   }
   __syncthreads();

@@ -44,7 +44,9 @@
 //     thread splits x into hi = x truncated to TF32 and lo = x - hi (exact)
 //     in registers.  Two register sets of A alternate so that one k-step's
 //     loads overlap the previous k-step's products.
-//   * Epilogue: LeakyReLU on the f32 accumulators, one rounding to T, ragged
+//   * Epilogue: LeakyReLU on the f32 accumulators (in bf16 on the value
+//     rounded to bf16 first, as JAX's default path and not its Pallas
+//     kernel computes it: common.cuh conv_leaky), rounded to T, ragged
 //     rows, planes and channels masked, stored channels-last.
 #include <type_traits>
 
@@ -254,8 +256,8 @@ __global__ void __launch_bounds__(Cfg<T, NC, CS>::kThreads)
           float v0 = acc[p][4 * j + 2 * half];
           float v1 = acc[p][4 * j + 2 * half + 1];
           if (act) {
-            v0 = leaky(v0, slope);
-            v1 = leaky(v1, slope);
+            v0 = conv_leaky<T>(v0, slope);
+            v1 = conv_leaky<T>(v1, slope);
           }
           if (n + 1 < O) {
             out[n] = from_f32<T>(v0);

@@ -19,27 +19,60 @@ from the input, the port builds its kernels up front.
 * Both kernels carry autograd Functions (forward on the kernel, backward in
   plain torch), so the same modules train.
 
-LeakyReLU slope 0.3 (Keras default; torch's default is 0.01).  Weight init
+LeakyReLU slope 0.3 (Keras default; torch's default is 0.01), rounded to
+the activation's dtype as JAX's ``nn.leaky_relu`` rounds its Python scalar
+(bf16: 0.30078125; :func:`leaky`), in the conv3 epilogue too.  Weight init
 N(0, 0.02) (tf.random_normal_initializer(0, .02)), from an explicit
 ``torch.Generator``.  ``use_norm`` turns on the InstanceNorm call sites that
 the reference comments out; it is off by default, as upstream.
+
+``compute_dtype`` (None, or torch.bfloat16): every conv casts its input to
+it at entry, as the JAX package's ``conv_nd`` does (ops/convs.py:50-61), and
+keeps its output in it; the parameters stay float32.  So an f32 tensor that
+reaches a bf16 block (InstanceNorm's output, which promotes to f32 as JAX's
+``scale * x`` does, or a concatenation with such a skip) runs the next conv
+in bf16 again.  None follows the input's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..ops.convs import conv_nd, conv_transpose_nd
-from ..ops.cuda_conv import conv3, conv3_act
-from ..ops.cuda_kernels import LEAKY_SLOPE, leaky_relu
+from ..ops.cuda_conv import conv3
+from ..ops.cuda_kernels import LEAKY_SLOPE, leaky_relu, slope_in
 
 WEIGHT_STD = 0.02
 
 __all__ = ["LEAKY_SLOPE", "ConvND", "ConvActND", "ConvTransposeND",
-           "InstanceNorm", "DownBlock", "UpBlock", "dropout_half"]
+           "InstanceNorm", "DownBlock", "UpBlock", "dropout_half",
+           "compute_dtype_of", "leaky"]
+
+DTypeLike = Union[None, str, torch.dtype]
+
+
+def compute_dtype_of(dtype: DTypeLike) -> Optional[torch.dtype]:
+    """None / "float32" / torch.float32 -> None (plain f32); "bfloat16" /
+    torch.bfloat16 -> torch.bfloat16."""
+    if dtype is None:
+        return None
+    if isinstance(dtype, str):
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    if dtype == torch.float32:
+        return None
+    if dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{dtype}")
+    return dtype
+
+
+def leaky(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.3) as the JAX modules apply it: the slope in x's dtype
+    (cuda_kernels.slope_in)."""
+    return leaky_relu(x, slope_in(x.dtype))
 
 
 def _init_normal(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
@@ -55,9 +88,11 @@ class ConvND(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, *, use_bias: bool = False, ndim: int = 3,
+                 compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride = stride
+        self.compute_dtype = compute_dtype
         self.kernel = _init_normal((kernel_size,) * ndim
                                    + (in_features, features), generator)
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
@@ -69,7 +104,11 @@ class ConvND(nn.Module):
         return (self.kernel.dim() == 5 and self.kernel.shape[0] == 3
                 and self.stride == 1)
 
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._cast(x)
         # conv3 takes the float32 parameter itself under a bf16 x: its
         # packed weights are cached per parameter, a per-call cast is not.
         if self._is_conv3():
@@ -85,9 +124,10 @@ class ConvActND(ConvND):
     """Conv + LeakyReLU(0.3); same param tree as ConvND (one ``kernel``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._cast(x)
         if self._is_conv3():
-            return conv3_act(x, self.kernel)
-        return leaky_relu(conv_nd(x, self.kernel, stride=self.stride))
+            return conv3(x, self.kernel, slope_in(x.dtype))
+        return leaky(conv_nd(x, self.kernel, stride=self.stride))
 
 
 class ConvTransposeND(nn.Module):
@@ -96,19 +136,27 @@ class ConvTransposeND(nn.Module):
     last two axes to import it)."""
 
     def __init__(self, in_features: int, features: int, *, ndim: int = 3,
+                 compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.kernel = _init_normal((4,) * ndim + (in_features, features),
                                    generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose_nd(x, self.kernel.to(x.dtype), stride=2)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        return conv_transpose_nd(x, self.kernel, stride=2)
 
 
 class InstanceNorm(nn.Module):
     """Instance normalization over the spatial axes (reference
     utils.py:10-38).  ``scale`` is stored MINUS 1, as the flax module keeps
-    it (init N(0, 0.02), applied as scale + 1); ``offset`` starts at 0."""
+    it (init N(0, 0.02), applied as scale + 1); ``offset`` starts at 0.
+
+    On a bf16 x, as ``jnp.mean`` / ``jnp.var`` take them: the mean and the
+    variance summed in f32 and rounded to bf16, ``x - mean`` and the rsqrt
+    in bf16, and the output float32 (the f32 ``scale`` promotes it)."""
 
     def __init__(self, features: int, epsilon: float = 1e-5, *,
                  generator: Optional[torch.Generator] = None):
@@ -119,20 +167,61 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(1, x.dim() - 1))
-        mean = x.mean(dim=axes, keepdim=True)
-        var = x.var(dim=axes, correction=0, keepdim=True)
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=axes, keepdim=True).to(x.dtype)
+        var = xf.var(dim=axes, correction=0, keepdim=True).to(x.dtype)
         inv = torch.rsqrt(var + self.epsilon)
         return (self.scale + 1.0) * (x - mean) * inv + self.offset
 
 
-def dropout_half(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def _keep_mask(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    return torch.randint(0, 256, y.shape, generator=generator,
+                         device=y.device, dtype=torch.uint8) < 128
+
+
+class _KeepMask(torch.autograd.Function):
+    """Dropout's keep mask where the network runs under ``torch.func.vmap``
+    over stacked parameters (``ensemble_apps``): one generator per stacked
+    network, each drawing its network's mask as that network's own
+    application would (random ops inside vmap otherwise raise)."""
+
+    @staticmethod
+    def forward(y, generators):
+        gen, = generators
+        return _keep_mask(y, gen)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, _g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, y, generators):
+        if len(generators) != info.batch_size:
+            raise ValueError(f"{len(generators)} dropout generators for "
+                             f"{info.batch_size} stacked networks")
+        d = in_dims[0]
+        return torch.stack([_keep_mask(y if d is None else y.select(d, i), g)
+                            for i, g in enumerate(generators)]), 0
+
+
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
+
+
+def dropout_half(y: torch.Tensor, generator: Generators) -> torch.Tensor:
     """Dropout(0.5) as the JAX package's ``rbg8`` draws it: one random byte
     per element, kept where it is < 128 (probability 1/2 exactly), kept
     values scaled by 1/keep = 2.  The bytes come from ``generator`` (a
-    torch.Generator on y's device); the TPU's bit stream is not reproduced,
-    only its distribution."""
-    keep = torch.randint(0, 256, y.shape, generator=generator,
-                         device=y.device, dtype=torch.uint8) < 128
+    torch.Generator on y's device), or, under ``torch.func.vmap`` over
+    stacked networks, from one generator per network (a sequence); the
+    TPU's bit stream is not reproduced, only its distribution."""
+    if isinstance(generator, torch.Generator):
+        keep = _keep_mask(y, generator)
+    else:
+        keep = _KeepMask.apply(y, tuple(generator))
     return torch.where(keep, y * 2.0, 0.0)
 
 
@@ -144,23 +233,24 @@ class DownBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, *,
                  use_norm: bool = False, ndim: int = 3,
+                 compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        k = {"ndim": ndim, "compute_dtype": compute_dtype, "generator": g}
         self.use_norm = use_norm
         conv = ConvND if use_norm else ConvActND
-        self.conv = conv(in_features, features, 3, ndim=ndim, generator=g)
+        self.conv = conv(in_features, features, 3, **k)
         self.norm1 = InstanceNorm(features, generator=g) if use_norm else None
-        self.down = ConvND(features, features, 4, stride=2, ndim=ndim,
-                           generator=g)
+        self.down = ConvND(features, features, 4, stride=2, **k)
         self.norm2 = InstanceNorm(features, generator=g) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.use_norm:
-            skip = leaky_relu(self.norm1(self.conv(x)))
-            return leaky_relu(self.norm2(self.down(skip))), skip
+            skip = leaky(self.norm1(self.conv(x)))
+            return leaky(self.norm2(self.down(skip))), skip
         skip = self.conv(x)
-        return leaky_relu(self.down(skip)), skip
+        return leaky(self.down(skip)), skip
 
 
 class UpBlock(nn.Module):
@@ -172,29 +262,29 @@ class UpBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, *,
                  use_norm: bool = False, apply_dropout: bool = True,
-                 ndim: int = 3,
+                 ndim: int = 3, compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        k = {"ndim": ndim, "compute_dtype": compute_dtype, "generator": g}
         self.use_norm = use_norm
         self.apply_dropout = apply_dropout
         conv = ConvND if use_norm else ConvActND
-        self.conv = conv(in_features, features * 2, 3, ndim=ndim, generator=g)
+        self.conv = conv(in_features, features * 2, 3, **k)
         self.norm1 = (InstanceNorm(features * 2, generator=g) if use_norm
                       else None)
-        self.up = ConvTransposeND(features * 2, features, ndim=ndim,
-                                  generator=g)
+        self.up = ConvTransposeND(features * 2, features, **k)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
-                dropout_generator: Optional[torch.Generator] = None
+                dropout_generator: Optional[Generators] = None
                 ) -> torch.Tensor:
         y = self.conv(x)
         if self.use_norm:
-            y = leaky_relu(self.norm1(y))
+            y = leaky(self.norm1(y))
         y = self.up(y)
         if self.apply_dropout and not deterministic:
             if dropout_generator is None:
                 raise ValueError("UpBlock: deterministic=False needs a "
                                  "dropout_generator")
             y = dropout_half(y, dropout_generator)
-        return leaky_relu(y)
+        return leaky(y)

@@ -16,7 +16,9 @@ the RAW input and there is no ``down1`` (the reference computes it and
 discards it; the JAX package's 2D tree has none, and neither has this
 state_dict): 40^2 -> hack 38 -> down2 17 -> down3 6 -> 6^2 logits.
 
-Input (B, 40, 40, 40, 1) float32 -> patch logits (B, 1, 1, 1, 1).  In 3D
+Input (B, 40, 40, 40, 1) -> float32 patch logits (B, 1, 1, 1, 1).  With
+``compute_dtype`` bfloat16 the input is cast at entry and every conv runs
+in bf16, as in the JAX module (discriminator.py:47-49, :77).  In 3D
 the k3 convs run on the conv3 kernels (hack, down2.conv and down3.conv on
 the tensor cores at wf=8); every 2D conv, the k4 and 1x1 convs on cuDNN.
 The LeakyReLUs after the k4 convs, the double one, the head's and, in 2D,
@@ -30,8 +32,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from ..ops.cuda_kernels import leaky_relu
-from .blocks import ConvActND, ConvND, DownBlock
+from .blocks import (ConvActND, ConvND, DownBlock, DTypeLike, compute_dtype_of,
+                     leaky)
 
 Prior = Callable[[torch.Tensor], torch.Tensor]
 
@@ -43,6 +45,8 @@ class Discriminator(nn.Module):
       wf: width factor (reference ``wf``).
       is3d: three spatial axes, or two (the HACK path, no ``down1``).
       use_norm: InstanceNorm in down2 (off by default, as upstream).
+      compute_dtype: None/float32, or bfloat16 (blocks.py); the output is
+        float32 either way.
       disc_prior: optional frozen feature extractor (train/cgan.py
         ``_tap_prior``) whose output on the input, on down2's grid, is
         concatenated before down3 (discriminator.py:67-69).  It is a plain
@@ -53,14 +57,16 @@ class Discriminator(nn.Module):
     """
 
     def __init__(self, wf: int = 8, *, is3d: bool = True,
-                 use_norm: bool = False, disc_prior: Optional[Prior] = None,
-                 prior_channels: int = 0,
+                 use_norm: bool = False, compute_dtype: DTypeLike = None,
+                 disc_prior: Optional[Prior] = None, prior_channels: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if (disc_prior is None) != (prior_channels == 0):
             raise ValueError("disc_prior and prior_channels > 0 go together")
         c1, c4 = 64 // wf, 256 // wf
-        k = {"ndim": 3 if is3d else 2, "generator": generator}
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+        k = {"ndim": 3 if is3d else 2, "compute_dtype": self.compute_dtype,
+             "generator": generator}
         self.is3d = is3d
         self.disc_prior = disc_prior
         if is3d:
@@ -72,18 +78,19 @@ class Discriminator(nn.Module):
         self.out = ConvND(c4, 1, 1, use_bias=True, **k)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
+        x = x.to(self.compute_dtype or torch.float32)
         h = self.hack(self.down1(x)[0] if self.is3d else x)
         down2, _ = self.down2(h)
         if self.disc_prior is not None:
             down2 = torch.cat([down2, self.disc_prior(x)], dim=-1)
         down3, _ = self.down3(down2)
-        h = leaky_relu(down3)  # the reference applies LeakyReLU twice here
-        return self.out(self.head(h))
+        h = leaky(down3)  # the reference applies LeakyReLU twice here
+        return self.out(self.head(h)).to(torch.float32)
 
 
 def build_discriminator(is3d: bool = True, wf: int = 8,
                         use_norm: bool = False,
+                        compute_dtype: DTypeLike = None,
                         disc_prior: Optional[Prior] = None,
                         prior_channels: int = 0,
                         generator: Optional[torch.Generator] = None
@@ -92,15 +99,16 @@ def build_discriminator(is3d: bool = True, wf: int = 8,
     (transfer_em_tpu/models/discriminator.py:80-84); ``prior_channels`` is
     the port's (its kernels are built before any input is seen)."""
     return Discriminator(wf=wf, is3d=is3d, use_norm=use_norm,
-                         disc_prior=disc_prior, prior_channels=prior_channels,
-                         generator=generator)
+                         compute_dtype=compute_dtype, disc_prior=disc_prior,
+                         prior_channels=prior_channels, generator=generator)
 
 
 def discriminator(is3d=True, norm_type="instancenorm", wf=8, disc_prior=None,
-                  prior_channels=0):
+                  prior_channels=0, compute_dtype=None):
     """Reference-named constructor (models/discriminator.py:14), at the
     reference's import path.  ``norm_type`` is inert, as in the reference
     (its norm calls are commented out, models/utils.py:75-82)."""
     del norm_type
-    return build_discriminator(is3d=is3d, wf=wf, disc_prior=disc_prior,
+    return build_discriminator(is3d=is3d, wf=wf, compute_dtype=compute_dtype,
+                               disc_prior=disc_prior,
                                prior_channels=prior_channels)

@@ -21,31 +21,18 @@ sizes above hold per spatial axis in both.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..ops.convs import crop_to_match
 from ..shapes import generator_shapes, is_valid_dimsize
-from .blocks import ConvActND, ConvND, DownBlock, UpBlock
+from .blocks import (ConvActND, ConvND, DownBlock, DTypeLike, UpBlock,
+                     compute_dtype_of)
 
-DTypeLike = Union[None, str, torch.dtype]
-
-
-def compute_dtype_of(dtype: DTypeLike) -> Optional[torch.dtype]:
-    """None / "float32" / torch.float32 -> None (plain f32); "bfloat16" /
-    torch.bfloat16 -> torch.bfloat16."""
-    if dtype is None:
-        return None
-    if isinstance(dtype, str):
-        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    if dtype == torch.float32:
-        return None
-    if dtype != torch.bfloat16:
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
-                         f"{dtype}")
-    return dtype
+__all__ = ["UNetGenerator", "build_generator", "unet_generator",
+           "compute_dtype_of", "DTypeLike"]
 
 
 class UNetGenerator(nn.Module):
@@ -54,9 +41,10 @@ class UNetGenerator(nn.Module):
     Args:
       wf: width factor dividing the base widths (reference ``wf``; 1..32).
       is3d: three spatial axes (kernels k^3), or two (k^2) for 2D images.
-      compute_dtype: None/float32, or bfloat16: the input is cast at entry
-        and activations stay bf16 end to end (convs sum in f32), like
-        generator.py:54-56; the output is cast back to float32.
+      compute_dtype: None/float32, or bfloat16: the input is cast at entry,
+        every conv casts its input to it and keeps its output in it (convs
+        sum in f32), like generator.py:54-56 and the JAX ``conv_nd``; the
+        output is cast back to float32.  Parameters stay float32.
       use_norm: the reference's (disabled) InstanceNorm call sites in down2,
         up1 and up0, as in the JAX module.
       generator: torch.Generator for the N(0, 0.02) weight init.
@@ -75,7 +63,8 @@ class UNetGenerator(nn.Module):
         self.compute_dtype = compute_dtype_of(compute_dtype)
         c1, c2, c4 = 64 // wf, 128 // wf, 256 // wf
         g, n = generator, use_norm
-        k = {"ndim": 3 if is3d else 2, "generator": g}
+        k = {"ndim": 3 if is3d else 2, "compute_dtype": self.compute_dtype,
+             "generator": g}
         self.stem = ConvActND(1, c1, 3, **k)
         self.down1 = DownBlock(c1, c1, **k)
         self.down2 = DownBlock(c1, c2, use_norm=n, **k)

@@ -19,7 +19,9 @@ packages take the same tensors at their public functions:
   tests/test_torch_2d_models.py (2D).
 
 An NDHWC (NHWC) tensor permuted to NCDHW (NCHW) is a channels_last view,
-which cuDNN takes without a copy.
+which cuDNN takes without a copy.  On the CPU the permuted kernel is made
+contiguous: there PyTorch's ``slow_conv2d``, which it picks for some shapes
+(a 2D batch of one), refuses a strided weight gradient.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ def _to_channels_first(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, n + 1, *range(1, n + 1))
 
 
+def _weight(w: torch.Tensor) -> torch.Tensor:
+    return w.contiguous() if w.device.type == "cpu" else w
+
+
 def _to_channels_last(y: torch.Tensor) -> torch.Tensor:
     n = y.dim() - 2
     return y.permute(0, *range(2, n + 2), 1).contiguous()
@@ -62,7 +68,7 @@ def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     pad = {"VALID": "valid", "SAME": "same"}[padding]
     if pad == "same" and stride != 1:
         raise ValueError("SAME padding is supported at stride 1 only")
-    w = kernel.to(x.dtype).permute(n + 1, n, *range(n))
+    w = _weight(kernel.to(x.dtype).permute(n + 1, n, *range(n)))
     y = _CONV[n](_to_channels_first(x), w, stride=stride, padding=pad)
     return _to_channels_last(y)
 
@@ -75,7 +81,7 @@ def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
     if stride != 2 or kernel.shape[0] != 4:
         raise ValueError("conv_transpose_nd supports k=4, stride=2 (the "
                          "generator's up convs)")
-    w = kernel.to(x.dtype).permute(n, n + 1, *range(n))
+    w = _weight(kernel.to(x.dtype).permute(n, n + 1, *range(n)))
     y = _CONV_T[n](_to_channels_first(x), w, stride=2, padding=1)
     return _to_channels_last(y)
 

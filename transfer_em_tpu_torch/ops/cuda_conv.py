@@ -20,15 +20,28 @@ The wrapper picks one of two kernels by shape (:func:`conv3_path`):
 Each source's header says what bounds it on the H100 and what its design
 does about it.
 
-Gradients: where autograd needs them, :func:`conv3` runs through a
-``torch.autograd.Function`` whose forward is the kernel and whose backward
-is ``F.conv3d``'s gradients in float32 (:func:`conv3_backward`), cast back
-to the input dtypes: the ``custom_vjp`` split of pallas_conv.py:196-246
-(``_bwd`` 206-216, ``_act_bwd`` 234-243), whose backward is ``lax.conv``'s
-VJP, not a Pallas kernel.  With the LeakyReLU epilogue the backward takes
-the mask from the SAVED OUTPUT (``y >= 0``); it differs from JAX's mask on
-the recomputed pre-activation only where ``pre * 0.3`` underflows to -0,
-and it costs no recomputed forward.
+Gradients: :func:`conv3` runs through a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward is ``F.conv3d``'s gradients
+(:func:`conv3_backward`): the ``custom_vjp`` split of pallas_conv.py:
+196-246 (``_bwd`` 206-216, ``_act_bwd`` 234-243), whose backward is
+``lax.conv``'s VJP, not a Pallas kernel.  float32 operands take cuDNN's
+float32 engines.  bfloat16 operands take them too, on the bf16 values
+with the TF32 tensor cores allowed (a bf16 value is a TF32 value, so
+every product is exact and summed in f32), dx and dw rounded to bf16: the
+function of JAX's default bf16 step, whose VJP is XLA's bf16 conv, and of
+its fast_conv path, which rounds f32-math gradients to bf16.  cuDNN's
+bf16 engines are not used: at the train step's largest reductions their
+dw is up to 2.8 bf16 steps off the exact value and misses its rounding at
+93% of the elements.  At the train step's 12 k3 shapes (B=128) the TF32
+engines take about 200 ms, within 0.6 bf16 steps of the exact gradients,
+against 442 ms for the bf16 engines and 2,140 ms for FP32, on an H100
+80GB HBM3 at 700 W (chip_smoke.py ``bwd_engine``; PERF.md).  With
+the LeakyReLU epilogue the backward takes the mask from the SAVED OUTPUT
+(``y >= 0``); it differs from JAX's mask on the recomputed pre-activation
+only where ``pre * 0.3`` underflows to -0, and it costs no recomputed
+forward.  Under
+``torch.func.vmap`` over stacked networks (``ensemble_apps``) the Function
+launches the kernel once per network: conv3 has no grouped form.
 """
 
 from __future__ import annotations
@@ -194,31 +207,54 @@ packed_weights.packs = 0
 def conv3_plain(x: torch.Tensor, w: torch.Tensor,
                 leaky: Optional[float] = None) -> torch.Tensor:
     """The kernels' function in plain PyTorch: w rounded to x's dtype,
-    float32 products and sums, optional LeakyReLU, one rounding to x's
-    dtype."""
+    float32 products and sums rounded to x's dtype, then the optional
+    LeakyReLU on that value, rounded again (bf16: a bf16 conv followed by a
+    bf16 activation, as the JAX package's default path computes them)."""
     y = F.conv3d(x.to(torch.float32).permute(0, 4, 1, 2, 3),
                  w.to(x.dtype).to(torch.float32).permute(4, 3, 0, 1, 2))
-    y = y.permute(0, 2, 3, 4, 1)
+    y = y.permute(0, 2, 3, 4, 1).to(x.dtype)
     if leaky is not None:
         y = torch.where(y >= 0, y, y * leaky)
-    return y.to(x.dtype).contiguous()
+    return y.contiguous()
 
 
 def conv3_backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                    need_x: bool = True, need_w: bool = True
                    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Gradients of the VALID conv (no epilogue) w.r.t. x and w for the
-    output cotangent g: ``F.conv3d``'s backward in float32 (cuDNN on the
-    card), cast back to x's and w's dtypes; None where not needed."""
+    output cotangent g, all three of one dtype; None where not needed.
+    float32 (or float64): ``F.conv3d``'s backward in that dtype (cuDNN on
+    the card).  bfloat16: the same in float32 on the bf16 values, cuDNN's
+    TF32 tensor cores allowed (exact products, f32 sums), dx and dw rounded
+    to bf16."""
+    if x.dtype != torch.bfloat16:
+        return conv_backward_in_dtype(x, w, g, need_x, need_w)
+    f = torch.float32
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        dx, dw = conv_backward_in_dtype(x.to(f), w.to(f), g.to(f), need_x,
+                                        need_w)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return tuple(None if t is None else t.to(x.dtype) for t in (dx, dw))
+
+
+def conv_backward_in_dtype(x: torch.Tensor, w: torch.Tensor,
+                           g: torch.Tensor, need_x: bool = True,
+                           need_w: bool = True
+                           ) -> Tuple[Optional[torch.Tensor],
+                                      Optional[torch.Tensor]]:
+    """``F.conv3d``'s backward in the operands' own dtype under the current
+    cuDNN flags (on bf16 operands, cuDNN's bf16 engines)."""
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        g.to(torch.float32).permute(0, 4, 1, 2, 3),
-        x.to(torch.float32).permute(0, 4, 1, 2, 3),
-        w.to(torch.float32).permute(4, 3, 0, 1, 2), None, [1, 1, 1],
-        [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1, [need_x, need_w, False])
+        g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
+        w.permute(4, 3, 0, 1, 2), None, [1, 1, 1], [0, 0, 0], [1, 1, 1],
+        False, [0, 0, 0], 1, [need_x, need_w, False])
     if dx is not None:
-        dx = dx.permute(0, 2, 3, 4, 1).to(x.dtype)
+        dx = dx.permute(0, 2, 3, 4, 1)
     if dw is not None:
-        dw = dw.permute(2, 3, 4, 1, 0).to(w.dtype)
+        dw = dw.permute(2, 3, 4, 1, 0)
     return dx, dw
 
 
@@ -228,11 +264,14 @@ class _Conv3(torch.autograd.Function):
     the cast (dw rounded to x's dtype, returned in w's)."""
 
     @staticmethod
-    def forward(ctx, x, w, leaky):
-        y = _conv3(x, w, leaky)
+    def forward(x, w, leaky):
+        return _conv3(x, w, leaky)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, leaky = inputs
         ctx.leaky = leaky
-        ctx.save_for_backward(x, w, y if leaky is not None else None)
-        return y
+        ctx.save_for_backward(x, w, output if leaky is not None else None)
 
     @staticmethod
     def backward(ctx, g):
@@ -243,6 +282,14 @@ class _Conv3(torch.autograd.Function):
                                 *ctx.needs_input_grad[:2])
         return dx, None if dw is None else dw.to(w.dtype), None
 
+    @staticmethod
+    def vmap(info, in_dims, x, w, leaky):
+        xd, wd = in_dims[:2]
+        ys = [_Conv3.apply(x if xd is None else x.select(xd, i).contiguous(),
+                           w if wd is None else w.select(wd, i), leaky)
+              for i in range(info.batch_size)]
+        return torch.stack(ys), 0
+
 
 def conv3(x: torch.Tensor, w: torch.Tensor,
           leaky: Optional[float] = None) -> torch.Tensor:
@@ -250,11 +297,10 @@ def conv3(x: torch.Tensor, w: torch.Tensor,
     dtype (float32 or bfloat16).  w is x's dtype, or a float32 parameter
     under a bfloat16 x: the conv then runs on w rounded to bfloat16, packed
     once per parameter (:func:`packed_weights`).  ``leaky`` fuses
-    LeakyReLU(negative_slope=leaky) into the epilogue.  Where autograd needs
-    a gradient the call goes through :class:`_Conv3` (same forward)."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _Conv3.apply(x, w, leaky)
-    return _conv3(x, w, leaky)
+    LeakyReLU(negative_slope=leaky) into the epilogue.  Every call goes
+    through :class:`_Conv3`, which records the gradient where autograd
+    needs one and carries the rule for ``torch.func.vmap``."""
+    return _Conv3.apply(x, w, leaky)
 
 
 def _conv3(x: torch.Tensor, w: torch.Tensor,

@@ -19,6 +19,7 @@ and the kernels run on the current stream without synchronising.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +27,17 @@ import torch
 from .. import kernels
 
 LEAKY_SLOPE = 0.3  # Keras LeakyReLU default, as in models/blocks.py
+
+
+@functools.lru_cache(maxsize=None)
+def slope_in(dtype: torch.dtype, negative_slope: float = LEAKY_SLOPE) -> float:
+    """The slope rounded to ``dtype``, as the JAX modules' weak-typed Python
+    scalar meets an array of that dtype in ``nn.leaky_relu``: bf16(0.3) =
+    0.30078125, while float32 keeps 0.3.  The kernels compute in f32 with
+    the slope they are given; with this one, a bf16 product is exact in f32
+    and rounds once, as JAX's bf16 multiply does."""
+    return float(torch.tensor(negative_slope, dtype=dtype))
+
 
 MeanStd = Optional[Tuple[float, float]]
 
@@ -127,28 +139,38 @@ def leaky_relu_plain(x: torch.Tensor,
 
 class _LeakyReLU(torch.autograd.Function):
     """leaky_relu with a gradient: the kernel forward, and the backward
-    where(x >= 0, g, slope * g) in plain torch (the VJP of the JAX
-    package's where(x >= 0, x, slope * x); it has no backward kernel)."""
+    where(x >= 0, g, slope * g) in plain torch, in g's dtype (the VJP of
+    the JAX package's where(x >= 0, x, slope * x); it has no backward
+    kernel).  Under ``torch.func.vmap`` one launch covers every stacked
+    network."""
 
     @staticmethod
-    def forward(ctx, x, negative_slope):
+    def forward(x, negative_slope):
+        return _leaky_relu(x, negative_slope)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, negative_slope = inputs
         ctx.slope = negative_slope
         ctx.save_for_backward(x)
-        return _leaky_relu(x, negative_slope)
 
     @staticmethod
     def backward(ctx, g):
         x, = ctx.saved_tensors
         return torch.where(x >= 0, g, g * ctx.slope), None
 
+    @staticmethod
+    def vmap(info, in_dims, x, negative_slope):
+        x = x.movedim(in_dims[0], 0).contiguous()
+        return _LeakyReLU.apply(x, negative_slope), 0
+
 
 def leaky_relu(x: torch.Tensor,
                negative_slope: float = LEAKY_SLOPE) -> torch.Tensor:
-    """Elementwise LeakyReLU, float32 or bfloat16; through
-    :class:`_LeakyReLU` where autograd needs a gradient."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _LeakyReLU.apply(x, negative_slope)
-    return _leaky_relu(x, negative_slope)
+    """Elementwise LeakyReLU, float32 or bfloat16, through
+    :class:`_LeakyReLU` (the gradient where autograd needs one, and the
+    rule for ``torch.func.vmap``)."""
+    return _LeakyReLU.apply(x, negative_slope)
 
 
 def _leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
@@ -160,7 +182,10 @@ def _leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
                    kernels.DTYPE_CODES[x.dtype], x.numel(), negative_slope,
                    device=x.device)
     leaky_relu.launches += 1
+    if x.dtype == torch.bfloat16:
+        leaky_relu.launches_bf16 += 1
     return y
 
 
 leaky_relu.launches = 0
+leaky_relu.launches_bf16 = 0  # those on bfloat16 tensors

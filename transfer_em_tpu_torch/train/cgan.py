@@ -17,12 +17,23 @@ Keras-exact Adam updates in place:
 
 In 3D every k3 conv runs on the conv3 kernels and every standalone
 LeakyReLU on the leaky_relu kernel, through their autograd Functions
-(backward in plain torch: cuDNN's f32 conv gradients, as ``lax.conv``'s VJP
-in the JAX package).  In 2D (``CycleGANConfig(is3d=False)``) every conv
-runs on cuDNN, as the JAX package leaves its 2D convs to XLA, and every
-LeakyReLU on the leaky_relu kernel.  Dropout draws from a torch.Generator on the batch's device,
-seeded from (seed, step): the same seed and step give the same masks, but
-not the JAX package's bits.
+(backward in plain torch: cuDNN's conv gradients in the operands' dtype,
+as ``lax.conv``'s VJP in the JAX package).  In 2D
+(``CycleGANConfig(is3d=False)``) every conv runs on cuDNN, as the JAX
+package leaves its 2D convs to XLA, and every LeakyReLU on the leaky_relu
+kernel.  ``compute_dtype="bfloat16"`` runs every conv in bf16 (f32 sums)
+with float32 parameters, network outputs, losses and Adam, as the JAX
+package's bf16 step does.  Each generator application draws its dropout
+masks from a torch.Generator of its own on the batch's device, seeded from
+(seed, step, application), as the JAX step splits its key per application:
+the same seed and step give the same masks, but not the JAX package's bits.
+
+The JAX package's opt-ins: ``remat`` (each generator application under
+``torch.utils.checkpoint``, its dropout generator rewound for the
+recompute), ``ensemble_apps`` (G and F, and Dx and Dy where their
+parameter shapes match, stacked and run as one ``torch.func.vmap`` each
+round) and the scan window (``make_scan_train_step``,
+``EM2EM.train(scan_window=k)``).
 
 ``EM2EM`` (transfer_em_tpu/train/cgan.py:476-872) drives the step from
 the data pipelines, with checkpoints (``train/checkpoints.py``) and metrics
@@ -30,23 +41,23 @@ the data pipelines, with checkpoints (``train/checkpoints.py``) and metrics
 for ``disc_prior``.
 
 Waiting for later slices (each raises NotImplementedError where a caller
-reaches it): bf16 training (ROADMAP A1.6), ``ensemble_apps``, ``remat``
-and the scan window (A1.5), ``to_mesh`` (A4), ``from_reference_checkpoint``
-and Keras priors (A3).
+reaches it): ``to_mesh`` and ``mesh=`` (ROADMAP A4),
+``from_reference_checkpoint`` and Keras priors (A3).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, vmap
+from torch.utils.checkpoint import checkpoint
 
 from ..config import CycleGANConfig
-from ..device import resolve_device
+from ..device import reject_mesh, resolve_device
 from ..models.discriminator import Discriminator
 from ..models.generator import UNetGenerator
 from ..ops import losses as L
@@ -101,24 +112,26 @@ def _tap_prior(gen: UNetGenerator, last_layer: str) -> Callable:
     return prior
 
 
-def _check_config(config: CycleGANConfig) -> None:
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {config.compute_dtype!r}: bf16 training comes "
-            "with a later slice of the port (ROADMAP A1.6); this slice "
-            "trains in float32")
-
-
 def build_models(config: CycleGANConfig, disc_prior: Optional[Callable] = None,
                  *, generator: Optional[torch.Generator] = None
                  ) -> Tuple[UNetGenerator, UNetGenerator, Discriminator,
                             Discriminator]:
-    """G, F and the two discriminators, of ``config.is3d``'s rank (disc_y
-    optionally with a prior, reference cgan.py:58-62), initialised on the
-    CPU from ``generator``."""
-    _check_config(config)
+    """G, F and the two discriminators, of ``config.is3d``'s rank and
+    ``config.compute_dtype`` (disc_y optionally with a prior, reference
+    cgan.py:58-62), initialised on the CPU from ``generator``.
+
+    A prior with bfloat16 raises TypeError, as the JAX package does when
+    its create_state initialises the discriminator: the discriminator casts
+    its input to bf16 and hands it to the prior, a float32 generator, and
+    ``lax.conv_general_dilated`` refuses a bf16 input with a float32
+    kernel."""
+    if disc_prior is not None and config.compute_dtype == "bfloat16":
+        raise TypeError(
+            "compute_dtype='bfloat16' with a disc_prior: the bf16 "
+            "discriminator input meets the prior's float32 kernels (the JAX "
+            "package raises this TypeError too)")
     k = {"wf": config.wf, "is3d": config.is3d, "use_norm": config.use_norm,
-         "generator": generator}
+         "compute_dtype": config.compute_dtype, "generator": generator}
     gg = UNetGenerator(**k)
     gf = UNetGenerator(**k)
     dx = Discriminator(**k)
@@ -151,22 +164,78 @@ def _frozen(net: torch.nn.Module) -> Callable:
     return lambda x: functional_call(net, params, (x,))
 
 
+Params = Dict[str, torch.Tensor]
+
+
+def _stacked(a: torch.nn.Module, b: torch.nn.Module) -> Params:
+    """a's and b's parameters stacked on a new leading axis, by a's names
+    (the two share one architecture); gradients reach both."""
+    return {k: torch.stack([p, q]) for (k, p), q in
+            zip(a.named_parameters(), b.parameters())}
+
+
+def _same_tree(a: torch.nn.Module, b: torch.nn.Module) -> bool:
+    """The two networks' parameters have the same names and shapes (a
+    disc_prior widens disc_y's down3)."""
+    return ([(k, p.shape) for k, p in a.named_parameters()]
+            == [(k, p.shape) for k, p in b.named_parameters()])
+
+
 def cyclegan_losses(gg: UNetGenerator, gf: UNetGenerator, dx: Discriminator,
                     dy: Discriminator, buffer: int, gamma: float,
                     real_x: torch.Tensor, real_y: torch.Tensor,
-                    dropout_generator: Optional[torch.Generator] = None, *,
-                    batched_apps: bool = True, deterministic: bool = False
-                    ) -> Tuple[torch.Tensor, LossVector]:
+                    dropout_generators: Optional[Sequence[torch.Generator]]
+                    = None, *, batched_apps: bool = True,
+                    ensemble_apps: bool = False, deterministic: bool = False,
+                    remat: bool = False) -> Tuple[torch.Tensor, LossVector]:
     """One combined scalar whose gradient w.r.t. each network equals the
     reference's four ``tape.gradient`` calls (cgan.py:144-215), and the
-    7-loss vector.  ``batched_apps=False`` runs the reference's six separate
-    generator applications (same math).  ``deterministic`` turns dropout off
-    (tests); otherwise masks come from ``dropout_generator``."""
-    B = real_x.shape[0]
+    7-loss vector (transfer_em_tpu/train/cgan.py:168-330).
 
-    def g(net, x):
-        return net(x, deterministic=deterministic,
-                   dropout_generator=dropout_generator)
+    ``batched_apps=False`` runs the reference's six separate generator
+    applications (same math).  ``ensemble_apps`` stacks G and F (and Dx and
+    Dy where their parameter shapes match) and runs each round as one
+    ``torch.func.vmap`` over ``functional_call`` with the stacked
+    parameters: the same math as batched_apps, in fewer, wider calls.
+    ``remat`` runs each generator application under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward instead of kept, with the same masks and the same gradients.
+    ``deterministic`` turns dropout off (tests); otherwise
+    ``dropout_generators`` holds one generator per generator application,
+    in the JAX package's key order: G and F on round 1, then G and F on
+    the cycles (4), or the reference's six applications in order."""
+    B = real_x.shape[0]
+    if deterministic:
+        gens = [None] * 6
+    elif dropout_generators is None:
+        raise ValueError("dropout on needs dropout_generators, one per "
+                         "generator application")
+    else:
+        gens = list(dropout_generators)
+
+    def run(fn, x, k):
+        """fn(x, k), under remat checkpointed; the recompute rewinds the
+        application's dropout generators, which the checkpoint's own RNG
+        bookkeeping (the default generators only) would not."""
+        if not remat:
+            return fn(x, k)
+        owned = [] if deterministic else (
+            [k] if isinstance(k, torch.Generator) else list(k))
+        states = [gen.get_state() for gen in owned]
+
+        def replay(x_):
+            for gen, st in zip(owned, states):
+                gen.set_state(st)
+            return fn(x_, k)
+
+        return checkpoint(replay, x, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def kw(k):
+        return {"deterministic": deterministic, "dropout_generator": k}
+
+    def g(net):
+        return lambda x, k: net(x, **kw(k))
 
     # the crops feed the conv3 kernels, which read contiguous tensors
     real_x_c = center_crop(real_x, buffer).contiguous()
@@ -174,33 +243,70 @@ def cyclegan_losses(gg: UNetGenerator, gf: UNetGenerator, dx: Discriminator,
     real_x_c2 = center_crop(real_x, buffer * 2)
     real_y_c2 = center_crop(real_y, buffer * 2)
 
-    if batched_apps:
+    if ensemble_apps:
+        st_gen = _stacked(gg, gf)
+
+        def gens_fn(x, k):
+            return vmap(lambda p, xx: functional_call(gg, p, (xx,), kw(k)))(
+                st_gen, x)
+
+        def pair(i, j):
+            return None if deterministic else (gens[i], gens[j])
+
+        out1 = run(gens_fn, torch.stack([torch.cat([real_x, real_y], 0),
+                                         torch.cat([real_y, real_x], 0)]),
+                   pair(0, 1))
+        fake_y, same_y = out1[0, :B], out1[0, B:]
+        fake_x, same_x = out1[1, :B], out1[1, B:]
+        out2 = run(gens_fn, torch.stack([zero_pad(fake_x, buffer),
+                                         zero_pad(fake_y, buffer)]),
+                   pair(2, 3))
+        cycled_y, cycled_x = out2[0], out2[1]
+    elif batched_apps:
         # round 1: everything from the real images, one apply a network
-        out_g1 = g(gg, torch.cat([real_x, real_y], 0))
+        out_g1 = run(g(gg), torch.cat([real_x, real_y], 0), gens[0])
         fake_y, same_y = out_g1[:B], out_g1[B:]
-        out_f1 = g(gf, torch.cat([real_y, real_x], 0))
+        out_f1 = run(g(gf), torch.cat([real_y, real_x], 0), gens[1])
         fake_x, same_x = out_f1[:B], out_f1[B:]
         # round 2: the cycles
-        cycled_y = g(gg, zero_pad(fake_x, buffer))
-        cycled_x = g(gf, zero_pad(fake_y, buffer))
-        out_dx = dx(torch.cat([real_x_c, fake_x.detach()], 0))
-        disc_real_x, disc_fake_x_d = out_dx[:B], out_dx[B:]
-        out_dy = dy(torch.cat([real_y_c, fake_y.detach()], 0))
-        disc_real_y, disc_fake_y_d = out_dy[:B], out_dy[B:]
+        cycled_y = run(g(gg), zero_pad(fake_x, buffer), gens[2])
+        cycled_x = run(g(gf), zero_pad(fake_y, buffer), gens[3])
     else:
         # the reference's structure (cgan.py:152-183)
-        fake_y = g(gg, real_x)
-        cycled_x = g(gf, zero_pad(fake_y, buffer))
-        fake_x = g(gf, real_y)
-        cycled_y = g(gg, zero_pad(fake_x, buffer))
-        same_x = g(gf, real_x)
-        same_y = g(gg, real_y)
-        disc_real_x = dx(real_x_c)
-        disc_real_y = dy(real_y_c)
-        disc_fake_x_d = dx(fake_x.detach())
-        disc_fake_y_d = dy(fake_y.detach())
-    disc_fake_x_gen = _frozen(dx)(fake_x)
-    disc_fake_y_gen = _frozen(dy)(fake_y)
+        fake_y = run(g(gg), real_x, gens[0])
+        cycled_x = run(g(gf), zero_pad(fake_y, buffer), gens[1])
+        fake_x = run(g(gf), real_y, gens[2])
+        cycled_y = run(g(gg), zero_pad(fake_x, buffer), gens[3])
+        same_x = run(g(gf), real_x, gens[4])
+        same_y = run(g(gg), real_y, gens[5])
+
+    if ensemble_apps and _same_tree(dx, dy):
+        st_disc = _stacked(dx, dy)
+
+        def discs(params, x):
+            return vmap(lambda p, xx: functional_call(dx, p, (xx,)))(params, x)
+
+        dout = discs(st_disc, torch.stack([
+            torch.cat([real_x_c, fake_x.detach()], 0),
+            torch.cat([real_y_c, fake_y.detach()], 0)]))
+        disc_real_x, disc_fake_x_d = dout[0, :B], dout[0, B:]
+        disc_real_y, disc_fake_y_d = dout[1, :B], dout[1, B:]
+        gout = discs({k: v.detach() for k, v in st_disc.items()},
+                     torch.stack([fake_x, fake_y]))
+        disc_fake_x_gen, disc_fake_y_gen = gout[0], gout[1]
+    else:
+        if batched_apps or ensemble_apps:
+            out_dx = dx(torch.cat([real_x_c, fake_x.detach()], 0))
+            disc_real_x, disc_fake_x_d = out_dx[:B], out_dx[B:]
+            out_dy = dy(torch.cat([real_y_c, fake_y.detach()], 0))
+            disc_real_y, disc_fake_y_d = out_dy[:B], out_dy[B:]
+        else:
+            disc_real_x = dx(real_x_c)
+            disc_real_y = dy(real_y_c)
+            disc_fake_x_d = dx(fake_x.detach())
+            disc_fake_y_d = dy(fake_y.detach())
+        disc_fake_x_gen = _frozen(dx)(fake_x)
+        disc_fake_y_gen = _frozen(dy)(fake_y)
     cycled_x_c = center_crop(cycled_x, buffer)
     cycled_y_c = center_crop(cycled_y, buffer)
 
@@ -226,13 +332,15 @@ def cyclegan_losses(gg: UNetGenerator, gf: UNetGenerator, dx: Discriminator,
     return combined, loss_vec
 
 
-def _dropout_generator(device: torch.device, seed: int, step: int,
-                       micro: Optional[int] = None) -> torch.Generator:
-    """The dropout masks' generator for one step (and microbatch): seeded
-    from (seed, step[, micro]), as the JAX step folds the step (and the
-    microbatch index) into its key."""
+def _dropout_generators(device: torch.device, seed: int, step: int,
+                        micro: Optional[int] = None) -> list:
+    """The dropout masks' generators for one step (and microbatch), one per
+    generator application: seeded from (seed, step[, micro], application),
+    as the JAX step folds the step (and the microbatch index) into its key
+    and splits it per application."""
     words = [seed, step] if micro is None else [seed, step, micro]
-    return torch.Generator(device=device).manual_seed(derive_seed(*words))
+    return [torch.Generator(device=device).manual_seed(
+        derive_seed(*words, app)) for app in range(6)]
 
 
 def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
@@ -246,11 +354,8 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
     (the gradients add up in ``p.grad``), averages, and applies ONE update:
     full-batch math, since every loss is a per-sample mean.  ``seed`` with
     the state's step count seeds the dropout masks; ``deterministic`` turns
-    dropout off (tests)."""
-    if config.ensemble_apps or config.remat:
-        raise NotImplementedError(
-            "ensemble_apps and remat are opt-ins of the JAX package that "
-            "come with a later slice of the port (ROADMAP A1.5)")
+    dropout off (tests).  ``config.remat`` and ``config.ensemble_apps``
+    select those forms of :func:`cyclegan_losses`."""
     accum = int(config.accum_steps)
     if accum < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum}")
@@ -269,12 +374,13 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
         micro = B // accum
         loss_sum = None
         for i in range(accum):
-            gen = None if deterministic else _dropout_generator(
+            gens = None if deterministic else _dropout_generators(
                 real_x.device, seed, state.step, i if accum > 1 else None)
             part = slice(i * micro, (i + 1) * micro)
             combined, lv = cyclegan_losses(
-                *nets, buffer, gamma, real_x[part], real_y[part], gen,
-                batched_apps=batched_apps, deterministic=deterministic)
+                *nets, buffer, gamma, real_x[part], real_y[part], gens,
+                batched_apps=batched_apps, ensemble_apps=config.ensemble_apps,
+                deterministic=deterministic, remat=config.remat)
             combined.backward()
             loss_sum = lv if loss_sum is None else loss_sum + lv
         if accum > 1:
@@ -309,11 +415,35 @@ def make_train_step(config: CycleGANConfig, device="cuda") -> Callable:
     return run
 
 
-def make_scan_train_step(*_args, **_kwargs):
-    """Several steps per dispatch (JAX ``lax.scan``): not in this slice."""
-    raise NotImplementedError(
-        "make_scan_train_step (the scan window) is an opt-in of the JAX "
-        "package that comes with a later slice of the port (ROADMAP A1.5)")
+def make_scan_train_step(config: CycleGANConfig, window: int,
+                         disc_prior: Optional[Callable] = None,
+                         device="cuda", mesh=None) -> Callable:
+    """``window`` consecutive optimization steps in one call (JAX
+    ``make_scan_train_step``, transfer_em_tpu/train/cgan.py:419-473):
+    ``scan(state, xs, ys, seed) -> (window, 7)`` losses, with xs / ys the
+    window's batches stacked, (window, B, *spatial, 1).  Step i equals the
+    i-th of ``window`` sequential ``make_train_step`` calls: the same
+    (seed, step) dropout seeds and the same updates.  The JAX package scans
+    the step on the device in one dispatch; eager PyTorch has no dispatch
+    to save, so this is a loop over the window with the same numbers.  The
+    prior, if any, rides in the state's disc_y, so ``disc_prior`` (the JAX
+    signature's) is not needed; ``mesh`` is the parallel slice's (ROADMAP
+    A4) and raises."""
+    del disc_prior
+    reject_mesh(mesh)
+    window = int(window)
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    step = make_train_step(config, device)
+
+    def scan(state: CycleGANState, xs, ys, seed: int) -> torch.Tensor:
+        if len(xs) != window or len(ys) != window:
+            raise ValueError(f"stacked batches have leading dim {len(xs)}/"
+                             f"{len(ys)}, expected window={window}")
+        return torch.stack([step(state, xs[i], ys[i], seed)
+                            for i in range(window)])
+
+    return scan
 
 
 def create_prior_helper(model_dir: str, last_layer: str, device="cuda"
@@ -364,10 +494,12 @@ class EM2EM:
     The constructor keeps the JAX package's arguments and adds ``device``
     (default ``cuda``; raises where it is absent).  ``norm_type`` is
     deprecated upstream and ``dropout_impl`` selects nothing here (dropout
-    masks come from a torch.Generator seeded from (seed, step)).  Later
-    slices (each raises NotImplementedError): bf16 (ROADMAP A1.6),
-    ``remat`` / ``ensemble_apps`` and ``train``'s ``scan_window`` (A1.5),
-    ``to_mesh`` (A4), ``from_reference_checkpoint`` (A3).
+    masks come from torch.Generators seeded from (seed, step, application)).
+    ``compute_dtype="bfloat16"`` trains and predicts with the bf16
+    networks; the state, and so every checkpoint, is float32 in both
+    dtypes, and a checkpoint of either restores into the other.  Later
+    slices (each raises NotImplementedError): ``to_mesh`` (A4),
+    ``from_reference_checkpoint`` (A3).
 
     Checkpoints (``train/checkpoints.py``): ``torch.save`` files under
     ``<checkpoint_root>/train_<exp_name>/<epoch>/``, written on a background
@@ -477,14 +609,15 @@ class EM2EM:
         and written as ``<exp_name>_sample.png``.  ``metrics_log``: a JSONL
         path for per-epoch losses and timing; ``profile_dir``: a
         torch.profiler trace of the run.  ``enable_eager`` is accepted and
-        changes nothing: the port runs eagerly anyway."""
+        changes nothing: the port runs eagerly anyway.  ``scan_window``: the
+        JAX package runs that many steps per device dispatch
+        (:func:`make_scan_train_step`); eager PyTorch has no dispatch to
+        save, so every batch runs as a single step, which gives the numbers
+        of a scan window."""
         from .metrics import MetricsLogger, profile_trace
 
         del enable_eager
-        if int(scan_window) > 1:
-            raise NotImplementedError(
-                "scan_window > 1 (several steps per dispatch) comes with a "
-                "later slice of the port (ROADMAP A1.5)")
+        int(scan_window)  # what the JAX package accepts
         logger = MetricsLogger(metrics_log)
         pbar = None
         try:
