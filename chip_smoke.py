@@ -156,12 +156,38 @@ each printing one JSON line:
             load_generator -> make_tile_step within one grey level on at
             most 1e-3 of the voxels of the plain versions.  Every kernel,
             conv3 and LeakyReLU on bf16 among them, must launch.
-12. the card's nvidia-smi line, then the ``kernels`` line (``launches``
+12. int8    the int8 serving opt-in (UNetGenerator(int8_conv=True)) and
+            the phase-decomposed transposed conv: conv_int8 against its
+            plain version (the exact integer conv in float64) at every
+            conv of the int8 generator, on the codes a forward gives it,
+            3D and 2D, wf=8 at B=128 and wf=1 (64-256 channels) at B=4:
+            int32 accumulators and dequantized outputs bit-equal, times
+            beside the bound (int8 operations at 1,979 TOPS or bytes);
+            the port's int8 convs (k3 with its epilogue, k4 stride-2,
+            transposed; f32 and bf16 out; N(0, 1) and tie-rich inputs)
+            bit-equal to an independent float64 reference, and each of
+            three planted faults (roundf quantization, one weight scale
+            per tensor, a dropped tap) breaking that equality; the int8
+            goldens (PSNR >= 40 dB, the card's output within 1e-5 of the
+            CPU's); conv_transpose_nd(phase_decompose=True) against
+            cuDNN's default at up1.up / up0.up (B=128) and the slab's
+            B=1 up0.up, f32 (relative gap <= 1e-5) and bf16, timed; with
+            TensorFlow, a Keras .h5 -> load_generator -> make_tile_step
+            round trip (else listed under ``not_run``); then, counted,
+            the int8 tile step (make_tile_step, tpad 2) against f32 and
+            bf16 of the same weights at wf=8 B=128, wf=1 B=4 and B=16:
+            ms a batch, Mvox/s, peak memory, within one level on at most
+            1e-3 of the voxels of the int8 step through the plain
+            versions, int8 against f32 (read), one profiled batch.
+            conv_int8, preprocess, postprocess and LeakyReLU must launch,
+            conv3 must not.
+13. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
    from the em2em phase, ``serve_ng_launches`` from the serve_ng phase,
    ``twod_launches`` from the twod phase's quick start,
-   ``train_bf16_launches`` from the bf16 quick start, ``twod`` the 2D
+   ``train_bf16_launches`` from the bf16 quick start, ``int8_launches``
+   from the int8 tile step (``launches`` for conv_int8), ``twod`` the 2D
    shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
    at the train step's shapes, ``slab_shapes`` from the volume phase's
    kernel checks), then the ``ok`` line.  Any failed check exits non-zero
@@ -651,13 +677,14 @@ def check_disc_golden(dev):
 
 # -- phase 5: serving --------------------------------------------------------
 
-def seeded_generator(seed, dev, is3d=True):
-    """wf=8 generator (3D, or 2D) with numpy-seeded weights of std
-    1/sqrt(fan-in), so the outputs vary over the whole uint8 range."""
+def seeded_generator(seed, dev, is3d=True, wf=8, **kw):
+    """wf=8 (or ``wf``) generator (3D, or 2D) with numpy-seeded weights of
+    std 1/sqrt(fan-in), so the outputs vary over the whole uint8 range;
+    ``kw`` goes to UNetGenerator (compute_dtype, int8_conv)."""
     from transfer_em_tpu_torch.models import UNetGenerator
 
     rng = np.random.default_rng(seed)
-    gen = UNetGenerator(wf=8, is3d=is3d)
+    gen = UNetGenerator(wf=wf, is3d=is3d, **kw)
     sd = {k: torch.from_numpy(rng.normal(
         0, float(np.prod(v.shape[:-1])) ** -0.5, tuple(v.shape)).astype(
             np.float32)) for k, v in gen.state_dict().items()}
@@ -688,7 +715,7 @@ def plain_versions(noise=0.0, seed=5):
     of a chosen relative size."""
     from transfer_em_tpu_torch.infer import device_stitch, slab, tiling
     from transfer_em_tpu_torch.models import blocks
-    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8, quant
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -704,6 +731,7 @@ def plain_versions(noise=0.0, seed=5):
 
     swaps = [(blocks, "conv3", conv3),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
+             (quant, "conv_int8", cuda_int8.conv_int8_plain),
              *[(m, n, f) for m in (tiling, device_stitch, slab)
                for n, f in (("preprocess_u8", ck.preprocess_u8_plain),
                             ("postprocess_to_u8", ck.postprocess_u8_plain))]]
@@ -802,9 +830,10 @@ def counters():
 
 
 def reset_counts():
-    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8
     for c in counters().values():
         c.launches = 0
+    cuda_int8.conv_int8.launches = 0
     cuda_conv.conv3.launches_tc = cuda_conv.conv3.launches_direct = 0
     cuda_conv.conv3.launches_bf16 = 0
     counters()["leaky_relu"].launches_bf16 = 0
@@ -814,9 +843,11 @@ def reset_counts():
 def read_counts():
     """Launches per kernel, conv3 also per path (tc, direct), conv3's and
     LeakyReLU's on bfloat16 operands, and the weight packs (plain torch,
-    not a kernel launch)."""
-    from transfer_em_tpu_torch.ops import cuda_conv
+    not a kernel launch); conv_int8's, which only the int8 path launches,
+    beside them."""
+    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8
     out = {k: c.launches for k, c in counters().items()}
+    out["conv_int8"] = cuda_int8.conv_int8.launches
     out["conv3_tc"] = cuda_conv.conv3.launches_tc
     out["conv3_direct"] = cuda_conv.conv3.launches_direct
     out["conv3_bf16"] = cuda_conv.conv3.launches_bf16
@@ -3076,6 +3107,461 @@ def check_train_bf16(dev, smi):
     return rec
 
 
+# -- phase 12: int8 serving and the phase-decomposed transposed conv ----------
+
+INT8_TOPS = 1979e12  # H100 SXM int8 dense, tensor cores
+# the int8 generator's conv calls in order; "up" is a phase conv (a k3
+# kernel with 2^n * Cout outputs whose true taps are 2^n of its 3^n)
+INT8_LAYERS = ["stem", "down1.conv", "down1.down", "down2.conv",
+               "down2.down", "up1.conv", "up1.up", "mid", "up0.conv",
+               "up0.up", "head", "out"]
+# (rank, wf, B) of the kernel checks: the wf=8 tile step's batch and the
+# reference's full width (wf=1, 64-256 channels)
+INT8_CHECKS = [(3, 8, B), (3, 1, 4), (2, 8, B), (2, 1, 4)]
+# (wf, B) of the timed tile steps, int8 against f32 and bf16
+INT8_STEPS = [(8, B), (1, 4), (1, 16)]
+INT8_VOL = 192  # side of the seeded volume the tiles come from
+
+
+@contextlib.contextmanager
+def recorded_int8():
+    """Record the operands of every conv_int8 call under the block (codes,
+    scales, out dtype, epilogue), in call order."""
+    from transfer_em_tpu_torch.ops import quant
+
+    calls, f = [], quant.conv_int8
+
+    def rec(qx, qk, sx, sk, out_dtype=torch.float32, leaky=None):
+        calls.append((qx, qk, sx, sk, out_dtype, leaky))
+        return f(qx, qk, sx, sk, out_dtype, leaky)
+
+    quant.conv_int8 = rec
+    try:
+        yield calls
+    finally:
+        quant.conv_int8 = f
+
+
+def _int8_work(layer, call):
+    """(operations, bytes) of one conv_int8 call: the JAX function's
+    multiply-adds x 2 (a phase conv's zero taps not counted), each operand
+    read once and the output written once."""
+    qx, qk, _, sk, out_dtype, _ = call
+    n = qx.dim() - 2
+    taps = math.prod(qk.shape[:n])
+    out_sp = [a - b + 1 for a, b in zip(qx.shape[1:-1], qk.shape[:n])]
+    m = qx.shape[0] * math.prod(out_sp)
+    o = qk.shape[-1]
+    macs = m * taps * qk.shape[-2] * o
+    if layer.endswith(".up"):
+        macs = macs * 2 ** n // 3 ** n
+    es = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = qx.numel() + qk.numel() + 4 * sk.numel() + m * o * es
+    return 2 * macs, nbytes
+
+
+def _int8_layer_checks(dev, rank, wf, bsz):
+    """conv_int8 against its plain version at every layer of the int8
+    generator (rank, wf, B), on the codes a forward of a seeded generator
+    over a seeded batch gives it: the int32 accumulators and the
+    dequantized output (its dtype and epilogue) bit-equal, times of the
+    kernel (events) and the plain version, the bound."""
+    from transfer_em_tpu_torch.ops import cuda_int8
+
+    gen = seeded_generator(60 + wf, dev, is3d=rank == 3, wf=wf,
+                           int8_conv=True)
+    x = torch.from_numpy(np.random.default_rng(61).uniform(
+        -1, 1, (bsz,) + (74,) * rank + (1,)).astype(np.float32)).to(dev)
+    with torch.inference_mode(), recorded_int8() as calls:
+        gen(x)
+    rows = []
+    for layer, call in zip(INT8_LAYERS, calls):
+        qx, qk, sx, sk, od, leaky = call
+        acc = cuda_int8.conv_int8(qx, qk, sx, sk, torch.int32)
+        acc_ref = cuda_int8.conv_int8_plain(qx, qk, sx, sk, torch.int32)
+        y = cuda_int8.conv_int8(*call)
+        y_ref = cuda_int8.conv_int8_plain(*call)
+        torch.cuda.synchronize()
+        ops, nbytes = _int8_work(layer, call)
+        b_ms, b_by = bound(nbytes, ops, None, peak=INT8_TOPS)
+        ms = cuda_ms(lambda: cuda_int8.conv_int8(*call))
+        rows.append({
+            "layer": layer, "x": list(qx.shape), "kernel": list(qk.shape),
+            "out_dtype": str(od).replace("torch.", ""),
+            "epilogue": leaky is not None,
+            "acc_equal": bool(torch.equal(acc, acc_ref)),
+            "out_equal": bool(torch.equal(y, y_ref)),
+            "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
+            "acc_max_abs": int(acc_ref.abs().max()),
+            "ms": ms, "plain_ms": cuda_ms(
+                lambda: cuda_int8.conv_int8_plain(*call), reps=2),
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+            "bytes": nbytes, "tops": ops / ms / 1e9})
+        del acc, acc_ref, y, y_ref
+    del calls
+    torch.cuda.empty_cache()
+    return {"rank": rank, "wf": wf, "batch": bsz, "layers": rows,
+            "ok": len(rows) == len(INT8_LAYERS)
+            and all(r["acc_equal"] and r["out_equal"] for r in rows)}
+
+
+def _int8_reference(x, w, kind, out_dtype, leaky=None):
+    """The JAX package's int8 conv written independently of the port: the
+    scales and codes as jnp computes them (true division, round half to
+    even), the integer conv in float64 (exact) by the conv's own
+    definition (VALID stride 1 or 2; the transposed conv as
+    ``F.conv_transpose{2,3}d(stride=2, padding=1)`` of the codes, the TF-
+    SAME k4 transposed conv), dequantized as float(acc) * (sx * sk)."""
+    n = x.dim() - 2
+
+    def q(a, axes):
+        a = a.float()
+        s = torch.clamp(a.abs().amax(dim=axes, keepdim=True),
+                        min=1e-12) / a.new_full((), 127.0)
+        return torch.clamp(torch.round(a / s), -127, 127), s
+
+    qx, sx = q(x, tuple(range(x.dim())))
+    qk, sk = q(w, tuple(range(n + 1)))
+    xc = qx.double().permute(0, n + 1, *range(1, n + 1))
+    if kind == "up":
+        conv = F.conv_transpose3d if n == 3 else F.conv_transpose2d
+        acc = conv(xc, qk.double().permute(n, n + 1, *range(n)), stride=2,
+                   padding=1)
+    else:
+        conv = F.conv3d if n == 3 else F.conv2d
+        acc = conv(xc, qk.double().permute(n + 1, n, *range(n)),
+                   stride=2 if kind == "down" else 1)
+    acc = acc.permute(0, *range(2, n + 2), 1)
+    y = (acc.float() * (sx.reshape(()) * sk.reshape(-1))).to(out_dtype)
+    return y if leaky is None else torch.where(y >= 0, y, y * leaky)
+
+
+def _tie_rich(shape, gen, dev):
+    """Activations whose every value / scale is an exact half (amax 127,
+    scale 1, values k + 0.5): where round half to even and roundf part."""
+    v = torch.randint(-126, 126, shape, generator=gen, device=dev).float()
+    v = v + 0.5
+    v.view(-1)[0] = 127.0
+    return v
+
+
+@contextlib.contextmanager
+def int8_fault(kind):
+    """A planted fault in the port's int8 conv: ``roundf`` quantizes with
+    round half away from zero; ``weight_per_tensor`` takes one weight scale
+    for all output channels; ``dropped_tap`` zeroes the kernel's first
+    tap."""
+    from transfer_em_tpu_torch.ops import quant
+
+    saved_q, saved_c = quant.quantize_sym, quant.conv_int8
+
+    def q_roundf(a, axes):
+        a = a.float()
+        amax = a.abs().amax(dim=tuple(axes), keepdim=True)
+        s = torch.clamp(amax, min=1e-12) / amax.new_full((), 127.0)
+        t = a / s
+        r = torch.sign(t) * torch.floor(t.abs() + 0.5)
+        return torch.clamp(r, -127, 127).to(torch.int8), s
+
+    def q_per_tensor(a, axes):
+        if a.dim() - 1 in axes:  # activations
+            return saved_q(a, axes)
+        q, s = saved_q(a, tuple(range(a.dim())))
+        return q, s.expand(*([1] * (a.dim() - 1)), a.shape[-1])
+
+    def c_dropped(qx, qk, sx, sk, out_dtype=torch.float32, leaky=None):
+        qk = qk.clone()
+        qk[(0,) * (qk.dim() - 2)] = 0
+        return saved_c(qx, qk, sx, sk, out_dtype, leaky)
+
+    if kind == "roundf":
+        quant.quantize_sym = q_roundf
+    elif kind == "weight_per_tensor":
+        quant.quantize_sym = q_per_tensor
+    else:
+        quant.conv_int8 = c_dropped
+    try:
+        yield
+    finally:
+        quant.quantize_sym, quant.conv_int8 = saved_q, saved_c
+
+
+INT8_FAULTS = ("roundf", "weight_per_tensor", "dropped_tap")
+
+
+def _int8_conv_checks(dev, gen):
+    """The port's int8 convs (quantize, rearrange, kernel, dequantize)
+    against _int8_reference at the wf=8 layer kinds (B=16, f32 and bf16 out,
+    3D and 2D): a k3 conv with its epilogue, a k4 stride-2 down conv, a
+    transposed conv, each on N(0, 1) activations and on tie-rich ones;
+    bit-equal.  Each planted fault must break the equality of at least one
+    of them."""
+    from transfer_em_tpu_torch.ops import quant
+    from transfer_em_tpu_torch.ops.cuda_kernels import slope_in
+
+    cases = []
+    for rank in (3, 2):
+        for kind, side, c, o in (("k3", 24, 32, 16), ("down", 34, 8, 8),
+                                 ("up", 13, 32, 16)):
+            k = {"k3": 3, "down": 4, "up": 4}[kind]
+            w = torch.randn((k,) * rank + (c, o), generator=gen, device=dev)
+            shape = (16,) + (side,) * rank + (c,)
+            for data in ("normal", "ties"):
+                x = (torch.randn(shape, generator=gen, device=dev)
+                     if data == "normal" else _tie_rich(shape, gen, dev))
+                for od in (torch.float32, torch.bfloat16):
+                    cases.append((rank, kind, data, od, x, w))
+
+    def run(rank, kind, data, od, x, w):
+        leaky = slope_in(od) if kind == "k3" else None
+        if kind == "up":
+            got = quant.conv_transpose_nd_int8(x, w, out_dtype=od)
+        else:
+            got = quant.conv_nd_int8(x, w, stride=2 if kind == "down" else 1,
+                                     out_dtype=od, leaky=leaky)
+        return torch.equal(got, _int8_reference(x, w, kind, od, leaky))
+
+    rows = [{"rank": r, "kind": k, "data": d,
+             "dtype": str(od).replace("torch.", ""),
+             "equal": run(r, k, d, od, x, w)} for r, k, d, od, x, w in cases]
+    faults = {}
+    for fault in INT8_FAULTS:
+        with int8_fault(fault):
+            broken = [f"{r}d.{k}.{d}.{str(od)[6:]}"
+                      for r, k, d, od, x, w in cases
+                      if not run(r, k, d, od, x, w)]
+        faults[fault] = {"cases_broken": len(broken), "of": len(cases),
+                         "first": broken[:4]}
+    return {"cases": rows, "faults": faults,
+            "ok": all(r["equal"] for r in rows)
+            and all(f["cases_broken"] > 0 for f in faults.values())}
+
+
+def _int8_goldens(dev):
+    """The int8 generator (wf=8) with the goldens' weights, f32 and bf16,
+    3D and 2D: PSNR against the frozen TF output, and the card's output
+    against the CPU's (plain versions, which the CPU tests hold equal to
+    the JAX package's int8 output)."""
+    from transfer_em_tpu_torch.models import UNetGenerator
+    from transfer_em_tpu_torch.models.convert import params_from_tf_order
+
+    out = {}
+    for name in ("gen_3d", "gen_2d"):
+        data = np.load(os.path.join(ROOT, "tests", "goldens", name + ".npz"))
+        sd = params_from_tf_order(data)
+        for cd in (None, "bfloat16"):
+            got = []
+            for where in (dev, "cpu"):
+                g = UNetGenerator(wf=8, is3d=name == "gen_3d", int8_conv=True,
+                                  compute_dtype=cd)
+                g.load_state_dict(sd)
+                with torch.inference_mode():
+                    got.append(g.to(where).eval()(
+                        torch.from_numpy(data["x"]).to(where)).cpu().numpy())
+            out[f"{name}.{cd or 'float32'}"] = {
+                "psnr_db": psnr(got[0], data["y"]),
+                "card_vs_cpu_max_abs": float(np.abs(got[0] - got[1]).max())}
+    return out
+
+
+def _int8_tiles(vol, n, seed):
+    """n tiles of 74^3 at seeded corners of a zyx volume."""
+    rng = np.random.default_rng(seed)
+    cs = rng.integers(0, vol.shape[0] - 74 + 1, (n, 3))
+    return np.stack([vol[z:z + 74, y:y + 74, x:x + 74] for z, y, x in cs])
+
+
+def _int8_step_case(dev, vol, wf, bsz, counted):
+    """make_tile_step over one batch of bsz tiles with the same seeded
+    weights in int8, f32 and bf16: ms a batch and Mvox/s (one warm and 3
+    timed calls, host clock around the synchronised step), peak memory;
+    int8 against the same step through the plain versions (one level on
+    at most 1e-3 of the voxels) and against f32 (read).  With ``counted``
+    the int8 step's timed calls are the phase's main path: the counts run
+    from just before them to just after, and one of its batches is
+    profiled."""
+    from transfer_em_tpu_torch.infer import make_tile_step
+
+    tiles = _int8_tiles(vol, bsz, 70 + wf)
+    rec, outs = {"wf": wf, "batch": bsz, "tpad": 2}, {}
+    for name, kw in (("int8", {"int8_conv": True}), ("float32", {}),
+                     ("bfloat16", {"compute_dtype": "bfloat16"})):
+        gen = seeded_generator(62, dev, wf=wf, **kw)
+        step = make_tile_step(gen, MS_X, MS_Y, 2)
+        out, times, peak, launches = _timed(lambda: step(tiles))
+        med = sorted(times)[len(times) // 2]
+        outs[name] = out
+        rec[name] = {"ms": med * 1e3, "times_s": times,
+                     "mvox_per_s": bsz * 36 ** 3 / med / 1e6,
+                     "tiles_per_s": bsz / med, "peak_gb": peak / 1e9,
+                     "launches": launches}
+        if name == "int8":
+            if counted:
+                rec["profile"] = profile_round(lambda: step(tiles))
+            with plain_versions():
+                ref = step(tiles)
+            rec[name]["u8_max_diff"], rec[name]["u8_frac_differing"] = \
+                _u8_diff(out, ref)
+        del gen, step
+        torch.cuda.empty_cache()
+    rec["int8_vs_f32"] = dict(zip(("u8_max_diff", "u8_frac_differing"),
+                                  _u8_diff(outs["int8"], outs["float32"])))
+    rec["int8_vs_f32"]["psnr_db"] = psnr(outs["int8"], outs["float32"])
+    i8 = rec["int8"]
+    rec["ok"] = bool(i8["u8_max_diff"] <= 1 and i8["u8_frac_differing"]
+                     <= 1e-3 and outs["int8"].shape == (bsz, 36, 36, 36)
+                     and i8["launches"]["conv_int8"] > 0)
+    return rec
+
+
+def _phase_conv_cases(dev, gen):
+    """conv_transpose_nd(phase_decompose=True) against the default
+    (cuDNN's transposed conv) at up1.up and up0.up of the wf=8 tile step
+    (B=128) and at the slab's B=1 up0.up (1, 22, 182, 182, 16): f32
+    relative gap (gated at 1e-5) and bf16 (read), ms of both by events."""
+    from transfer_em_tpu_torch.ops.convs import conv_transpose_nd
+
+    out = []
+    for name, shape, cin, cout in (
+            ("up1.up", (B, 13, 13, 13), 32, 16),
+            ("up0.up", (B, 22, 22, 22), 16, 8),
+            ("slab.up0.up", (1, 22, 182, 182), 16, 8)):
+        x = torch.randn(shape + (cin,), generator=gen, device=dev)
+        w = torch.randn((4, 4, 4, cin, cout), generator=gen,
+                        device=dev) / (64 * cin) ** 0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            ref = conv_transpose_nd(xd, w)
+            got = conv_transpose_nd(xd, w, phase_decompose=True)
+            rel = float((got.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            out.append({
+                "layer": name, "x": list(xd.shape), "cout": cout,
+                "dtype": str(dtype).replace("torch.", ""), "rel_err": rel,
+                "ms_phase": cuda_ms(lambda: conv_transpose_nd(
+                    xd, w, phase_decompose=True)),
+                "ms_default": cuda_ms(lambda: conv_transpose_nd(xd, w))})
+            del ref, got
+    torch.cuda.empty_cache()
+    return {"cases": out, "ok": all(r["rel_err"] <= 1e-5 for r in out
+                                    if r["dtype"] == "float32")}
+
+
+def _int8_tf_interop(dev, vol):
+    """With TensorFlow: the seeded wf=8 generator's weights in a Keras
+    reference-architecture model saved as .h5 with a meta.json beside it,
+    load_generator of the .h5, make_tile_step over 16 tiles, bit-equal to
+    the same step on the seeded generator."""
+    from transfer_em_tpu_torch import compat
+    from transfer_em_tpu_torch.config import ExportMeta
+    from transfer_em_tpu_torch.infer import load_generator, make_tile_step
+
+    gen = seeded_generator(62, dev)
+    sd = {k: v.cpu().numpy() for k, v in gen.state_dict().items()}
+    model, layers = compat.keras_generator(8, True, 74)
+    for (path, sub), layer in zip(compat.GEN_SLOTS, layers):
+        k = sd[(path if sub is None else f"{path}.{sub}") + ".kernel"]
+        layer.set_weights([np.swapaxes(k, -1, -2) if sub == "up" else k])
+    with tempfile.TemporaryDirectory() as tmp:
+        h5 = os.path.join(tmp, "gen.h5")
+        model.save(h5)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            f.write(ExportMeta(17, 40, MS_X, MS_Y).to_json())
+        loaded, meta = load_generator(h5)
+    tiles = _int8_tiles(vol, 16, 80)
+    got = make_tile_step(loaded, MS_X, MS_Y, 2)(tiles)
+    want = make_tile_step(gen, MS_X, MS_Y, 2)(tiles)
+    return {"wf": meta.wf, "is3d": meta.is3d,
+            "bit_equal": bool(np.array_equal(got, want)),
+            "ok": bool(np.array_equal(got, want)) and meta.wf == 8}
+
+
+def check_int8(dev, smi):
+    """int8 serving (phase 12): conv_int8 against its plain version at
+    every int8 layer (INT8_CHECKS), the int8 convs against an independent
+    reference with three planted faults, the int8 goldens, the
+    phase-decomposed transposed conv against cuDNN's default, TF interop
+    where TensorFlow imports, then the int8 tile step against f32 and bf16
+    (INT8_STEPS; the first's int8 timed calls are the main path, counted)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(60)
+    rec = {"phase": "int8", "card": smi, "not_run": {}}
+    rec["layers"] = [_int8_layer_checks(dev, *c) for c in INT8_CHECKS]
+    rec["convs"] = _int8_conv_checks(dev, gen)
+    rec["golden"] = _int8_goldens(dev)
+    rec["phase_conv"] = _phase_conv_cases(dev, gen)
+    vol = smooth_volume(INT8_VOL, seed=63, dev=dev)
+    tf_found = has_module("tensorflow")
+    rec["packages"] = {"tensorflow": tf_found}
+    if tf_found:
+        rec["tf_interop"] = _int8_tf_interop(dev, vol)
+    else:
+        rec["not_run"]["tensorflow"] = [
+            "compat: .h5 -> load_generator -> make_tile_step (TensorFlow "
+            "does not import here; held on the CPU by "
+            "tests/test_torch_compat.py)"]
+    rec["steps"] = []
+    for i, (wf, bsz) in enumerate(INT8_STEPS):
+        rec["steps"].append(_int8_step_case(dev, vol, wf, bsz, i == 0))
+        if i == 0:
+            launches = rec["steps"][0]["int8"]["launches"]
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(
+        all(c["ok"] for c in rec["layers"]) and rec["convs"]["ok"]
+        and all(g["psnr_db"] >= 40 and g["card_vs_cpu_max_abs"] <= 1e-5
+                for g in rec["golden"].values())
+        and rec["phase_conv"]["ok"]
+        and rec.get("tf_interop", {"ok": True})["ok"]
+        and all(s["ok"] for s in rec["steps"])
+        and all(launches[k] > 0 for k in ("conv_int8", "preprocess_u8",
+                                          "postprocess_u8", "leaky_relu"))
+        and launches["conv3"] == 0)
+    emit(rec)
+    return rec
+
+
+def _int8_sums(rows):
+    """Times and bound of a generator's conv_int8 calls, summed."""
+    t_ops = sum(r["ops"] for r in rows) / INT8_TOPS * 1e3
+    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+    return {"ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "library_ms": None}
+
+
+def int8_kernel_line(int8):
+    """The ``kernels`` line's conv_int8 entry: times summed over the 12
+    convs of one int8 tile batch (3D, wf=8, B=128, float32 out), launches
+    from the int8 phase's main path (the counted tile step)."""
+    by = {(c["rank"], c["wf"]): c for c in int8["layers"]}
+    main = by[(3, 8)]
+    layers = [{k: r[k] for k in ("layer", "x", "kernel", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "tops")}
+              for r in main["layers"]]
+    checks = [r for c in int8["layers"] for r in c["layers"]]
+    return {"name": "conv_int8", "route": "cuda",
+            "source": "transfer_em_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "transfer_em_tpu/ops/quant.py:65 (not a Pallas "
+                        "kernel: the XLA int8 conv, lax.conv_general_dilated "
+                        "at :65 and :89, of conv_nd_int8 and "
+                        "conv_transpose_nd_int8, quant.py:56-95)",
+            "launches": int8["launches"]["conv_int8"],
+            **_int8_sums(main["layers"]),
+            "per": "the 12 convs of one B=128 int8 tile batch (3D, wf=8, "
+                   "float32 out); library_ms null: no PyTorch call "
+                   "computes an int8 conv on CUDA",
+            "checks": 2 * len(checks),
+            "passed": sum(r["acc_equal"] + r["out_equal"] for r in checks),
+            "layers": layers,
+            "wf1_b4": _int8_sums(by[(3, 1)]["layers"]),
+            "twod_b128": _int8_sums(by[(2, 8)]["layers"]),
+            "twod_wf1_b4": _int8_sums(by[(2, 1)]["layers"])}
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -3164,6 +3650,10 @@ def main():
     bf16 = check_train_bf16(dev, smi)
     if not bf16["ok"]:
         fail("train_bf16", "the bf16 training phase failed a check")
+
+    int8 = check_int8(dev, smi)
+    if not int8["ok"]:
+        fail("int8", "the int8 phase failed a check")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -3272,6 +3762,14 @@ def main():
             {k: r[k] for k in slab_keys if k in r}
             for r in volume["slab_kernels"]
             if r["kernel"] == line["name"]]
+    lines.append(int8_kernel_line(int8))
+    for key, src in (("train_launches", lt), ("em2em_launches", le),
+                     ("volume_launches", lv),
+                     ("serve_ng_launches", ln), ("twod_launches", l2),
+                     ("train_bf16_launches", lb)):
+        lines[-1][key] = src["conv_int8"]
+    for line in lines[:-1]:
+        line["int8_launches"] = int8["launches"][line["name"]]
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

@@ -311,20 +311,23 @@ def test_metrics_records_match_jax(tmp_path):
 
 
 LATER = {
-    # the refusals still owed to later slices, one raising test each
-    "to_mesh": (lambda m: m.to_mesh(), "A4"),
+    # the refusal still owed to a later slice (A4); the TF-interop entry
+    # points (A3), ported since, default to cuda and raise here before
+    # reading anything (tests/test_torch_compat.py runs them on the CPU)
+    "to_mesh": (lambda m: m.to_mesh(), NotImplementedError, "A4"),
     "from_reference_checkpoint": (
-        lambda m: EM2EM.from_reference_checkpoint("ckpt", "x"), "A3"),
+        lambda m: EM2EM.from_reference_checkpoint("ckpt", "x"),
+        RuntimeError, "torch.cuda.is_available"),
     "keras_prior": (lambda m: create_prior_helper("prior.h5", "down1"),
-                    "A3"),
+                    RuntimeError, "torch.cuda.is_available"),
 }
 
 
 @pytest.mark.parametrize("case", list(LATER))
 def test_later_slices_raise(tmp_path, case):
-    call, item = LATER[case]
+    call, error, match = LATER[case]
     m = _model(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         call(m)
 
 
@@ -360,8 +363,8 @@ def test_ported_options_train(tmp_path, case):
 
 def test_later_methods_raise_plots_and_sample(tmp_path, monkeypatch,
                                               capsys):
-    """to_mesh and from_reference_checkpoint name their later slices;
-    plot_* write a table of the parameters; the bound networks run
+    """to_mesh names its later slice; from_reference_checkpoint defaults
+    to cuda and raises here; plot_* write a table of the parameters; the bound networks run
     the live parameters without gradients; with debug and a sample, an
     epoch ends with the sample's accuracy and <exp_name>_sample.png."""
     monkeypatch.chdir(tmp_path)
@@ -373,7 +376,7 @@ def test_later_methods_raise_plots_and_sample(tmp_path, monkeypatch,
     assert (tmp_path / "exp_sample.png").exists()
     with pytest.raises(NotImplementedError, match="A4"):
         m.to_mesh()
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         EM2EM.from_reference_checkpoint("ckpt", "x")
     m.plot_generator(str(tmp_path / "g.txt"))
     m.plot_discriminator(str(tmp_path / "d.txt"))

@@ -73,6 +73,8 @@ def _entry_points(tmp_path):
     from transfer_em_tpu_torch.infer.tiling import predict_ng_cube
     from transfer_em_tpu_torch.serve import (NgOutputPredictor,
                                              TransferEMPredictor)
+    from transfer_em_tpu_torch import compat
+    from transfer_em_tpu_torch.train import create_prior_helper
 
     gen = UNetGenerator(wf=32)
     cfg = CycleGANConfig(dimsize=74, wf=32)
@@ -116,6 +118,14 @@ def _entry_points(tmp_path):
         "NgOutputPredictor.from_path": lambda:
             NgOutputPredictor.from_path(str(tmp_path),
                                         dest_root=str(tmp_path)),
+        "compat.load_tf_generator": lambda: compat.load_tf_generator(
+            str(tmp_path / "gen.h5")),
+        "compat.load_tf_discriminator": lambda:
+            compat.load_tf_discriminator(str(tmp_path / "disc.h5")),
+        "compat.load_reference_checkpoint": lambda:
+            compat.load_reference_checkpoint(str(tmp_path)),
+        "create_prior_helper(.h5)": lambda: create_prior_helper(
+            str(tmp_path / "prior.h5"), "down1"),
     }
 
 
@@ -130,7 +140,11 @@ def _entry_points(tmp_path):
                                   "predict_ng_cube",
                                   "predict_cube_from_saved_model",
                                   "TransferEMPredictor.from_path",
-                                  "NgOutputPredictor.from_path"])
+                                  "NgOutputPredictor.from_path",
+                                  "compat.load_tf_generator",
+                                  "compat.load_tf_discriminator",
+                                  "compat.load_reference_checkpoint",
+                                  "create_prior_helper(.h5)"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """Called without ``device`` where CUDA is absent, every entry point
     raises instead of running on the CPU."""
@@ -213,3 +227,32 @@ assert not bad, bad
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
 
+
+
+def test_compat_and_quant_load_no_jax_or_tf():
+    """``transfer_em_tpu_torch.compat`` (through the top-level lazy name and
+    as a module) loads neither TensorFlow, JAX nor torch at import, and
+    ``ops.quant`` loads torch but neither TensorFlow nor JAX, in a fresh
+    interpreter; TF comes only with the interop functions."""
+    import subprocess
+    import sys
+
+    code = """
+import sys
+import transfer_em_tpu_torch as t
+compat = t.compat
+import transfer_em_tpu_torch.compat
+assert compat.GEN_SLOTS[0] == ("stem", None)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "tensorflow", "keras"))
+assert not bad, bad
+from transfer_em_tpu_torch.ops import quant
+assert "torch" in sys.modules
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "tensorflow", "keras",
+                                    "transfer_em_tpu"))
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0, res.stderr

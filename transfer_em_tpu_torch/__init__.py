@@ -18,7 +18,9 @@ with the package, as in the JAX package (none of them imports torch); the
 names in ``_LAZY`` resolve on first use (PEP 562): a bare ``import
 transfer_em_tpu_torch`` loads no torch, so the data plane
 (``serve.backends``, ``serve.client``, ``serve.data_service``, which fork
-worker processes) stays free of it.
+worker processes) stays free of it.  ``compat`` (the TF/Keras interop)
+resolves as a submodule on first use too, and loads neither TensorFlow nor
+torch until one of its functions runs.
 """
 
 import importlib
@@ -37,15 +39,19 @@ _LAZY = {
     "save_model": "transfer_em_tpu_torch.infer.export",
 }
 
+_LAZY_MODULES = ("compat",)
+
 __all__ = ["shapes", "CycleGANConfig", "ExportMeta", "__version__",
-           *_LAZY]
+           *_LAZY, *_LAZY_MODULES]
 
 
 def __getattr__(name):
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f"{__name__}.{name}")
     if name not in _LAZY:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     return getattr(importlib.import_module(_LAZY[name]), name)
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_LAZY))
+    return sorted(set(globals()) | set(_LAZY) | set(_LAZY_MODULES))

@@ -9,8 +9,10 @@ in the JAX layout, so a machine with numpy alone can read it; or, with
 package loads.  It reads either (msgpack when ``msgpack`` is importable:
 flax stores each ndarray as msgpack ext type 1 holding ``(shape, dtype
 name, bytes)``).  A 2D generator exports and loads as a 3D one does;
-``meta.json``'s ``is3d`` says which to build.  A reference TF SavedModel
-waits for the TF-interop slice.
+``meta.json``'s ``is3d`` says which to build.  ``load_generator`` also
+reads the reference's own export, a Keras SavedModel directory or an
+``.h5`` / ``.keras`` file with its 4-key ``meta.json`` beside it, through
+``compat`` (TensorFlow needed then only).
 
 ``save_model`` (reference utils.py:133-167; transfer_em_tpu/infer/
 export.py:95-110) rebuilds ``EM2EM`` from one of its checkpoints and
@@ -28,7 +30,7 @@ import torch
 
 from ..config import ExportMeta
 from ..device import resolve_device
-from ..models.convert import params_from_jax, params_to_jax
+from ..models.convert import params_from_jax, params_geometry, params_to_jax
 from ..models.generator import DTypeLike, UNetGenerator
 
 PARAMS_FILE = "generator.npz"
@@ -100,23 +102,37 @@ def _read_params(model_dir: str) -> Dict[str, torch.Tensor]:
     packed = os.path.join(model_dir, MSGPACK_FILE)
     if os.path.exists(packed):
         return params_from_jax(read_flax_msgpack(packed))
-    if os.path.exists(os.path.join(model_dir, "saved_model.pb")):
-        raise NotImplementedError(
-            "reference TF SavedModel exports are read by the TF-interop "
-            "slice of the port; convert with the JAX package first")
-    raise FileNotFoundError(f"{model_dir!r} contains neither {PARAMS_FILE} "
-                            f"nor {MSGPACK_FILE}")
+    raise FileNotFoundError(
+        f"{model_dir!r} contains neither {PARAMS_FILE} / {MSGPACK_FILE} "
+        "(the port's or the JAX package's export) nor saved_model.pb/.h5/"
+        ".keras (a reference TF export)")
 
 
 def load_generator(model_dir: str, device="cuda",
                    compute_dtype: DTypeLike = None
                    ) -> Tuple[UNetGenerator, ExportMeta]:
     """Load an exported generator onto ``device``: returns (gen, meta), gen
-    in eval mode, 3D or 2D as ``meta.is3d`` says.  Reads this package's npz
-    or the JAX package's msgpack."""
+    in eval mode, 3D or 2D as ``meta.is3d`` says.  Reads this package's npz,
+    the JAX package's msgpack, or a reference TF export: a Keras SavedModel
+    directory or an ``.h5`` / ``.keras`` file, whose meta.json sits beside
+    it, converted by ``compat`` with ``wf`` and 2D/3D from the weights
+    (transfer_em_tpu/infer/export.py:60-83)."""
     dev = resolve_device(device)
-    with open(os.path.join(model_dir, META_FILE)) as f:
+    is_file = (model_dir.endswith((".h5", ".keras"))
+               and os.path.isfile(model_dir))
+    meta_dir = os.path.dirname(model_dir) if is_file else model_dir
+    with open(os.path.join(meta_dir, META_FILE)) as f:
         meta = ExportMeta.from_json(f.read())
+    if is_file or os.path.exists(os.path.join(model_dir, "saved_model.pb")):
+        import dataclasses
+
+        from ..compat import load_tf_generator
+        _, params = load_tf_generator(model_dir, device="cpu")
+        wf, is3d = params_geometry(params)
+        meta = dataclasses.replace(meta, wf=wf, is3d=is3d)
+        gen = UNetGenerator(wf=wf, compute_dtype=compute_dtype, is3d=is3d)
+        gen.load_state_dict(params, strict=True)
+        return gen.to(dev).eval(), meta
     gen = UNetGenerator(wf=meta.wf, compute_dtype=compute_dtype,
                         is3d=meta.is3d)
     gen.load_state_dict(_read_params(model_dir), strict=True)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "tem_postprocess_u8": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f,
                            _vp],
     "tem_leaky_relu": [_vp, _vp, _i, _ll, _f, _vp],
+    "tem_conv_int8": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
+                      _i, _i, _i, _i, _i, _i, _f, _vp],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

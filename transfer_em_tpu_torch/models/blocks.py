@@ -18,6 +18,14 @@ from the input, the port builds its kernels up front.
   kernel (ops/cuda_kernels.py).
 * Both kernels carry autograd Functions (forward on the kernel, backward in
   plain torch), so the same modules train.
+* ``int8_conv`` (serving only, as in the JAX package, models/blocks.py:
+  62-66, 106-110, 143-147): every conv quantizes its operands and runs on
+  the hand-written int8 conv kernel (ops/quant.py), before and instead of
+  the conv3 route, as JAX's int8 branch comes before ``fast_conv``.  It
+  quantizes its input as it arrives (no cast to ``compute_dtype`` first,
+  as JAX's ``conv_nd_int8`` takes it) and dequantizes into the compute
+  dtype; a conv + LeakyReLU fuses the activation into the kernel's
+  epilogue, on the value rounded to that dtype.  No gradient.
 
 LeakyReLU slope 0.3 (Keras default; torch's default is 0.01), rounded to
 the activation's dtype as JAX's ``nn.leaky_relu`` rounds its Python scalar
@@ -44,6 +52,7 @@ from torch import nn
 from ..ops.convs import conv_nd, conv_transpose_nd
 from ..ops.cuda_conv import conv3
 from ..ops.cuda_kernels import LEAKY_SLOPE, leaky_relu, slope_in
+from ..ops.quant import conv_nd_int8, conv_transpose_nd_int8
 
 WEIGHT_STD = 0.02
 
@@ -84,15 +93,17 @@ def _init_normal(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
 class ConvND(nn.Module):
     """VALID conv, channels last; kernel ((k,) * ndim, Cin, Cout); a
     ``bias`` (zeros at init) only with ``use_bias`` (the discriminator's
-    ``out``)."""
+    ``out``); ``int8_conv`` runs it on the int8 kernel."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, *, use_bias: bool = False, ndim: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
+                 int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride = stride
         self.compute_dtype = compute_dtype
+        self.int8_conv = int8_conv
         self.kernel = _init_normal((kernel_size,) * ndim
                                    + (in_features, features), generator)
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
@@ -107,14 +118,23 @@ class ConvND(nn.Module):
     def _cast(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
+    def _int8(self, x: torch.Tensor, leaky_slope: Optional[float] = None
+              ) -> torch.Tensor:
+        """The int8 conv, dequantized into the compute dtype (float32 when
+        None); ``leaky_slope`` fuses LeakyReLU into the epilogue."""
+        return conv_nd_int8(x, self.kernel, stride=self.stride,
+                            out_dtype=self.compute_dtype or torch.float32,
+                            leaky=leaky_slope)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._cast(x)
+        if self.int8_conv:
+            y = self._int8(x)
         # conv3 takes the float32 parameter itself under a bf16 x: its
         # packed weights are cached per parameter, a per-call cast is not.
-        if self._is_conv3():
-            y = conv3(x, self.kernel)
+        elif self._is_conv3():
+            y = conv3(self._cast(x), self.kernel)
         else:
-            y = conv_nd(x, self.kernel, stride=self.stride)
+            y = conv_nd(self._cast(x), self.kernel, stride=self.stride)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -124,6 +144,9 @@ class ConvActND(ConvND):
     """Conv + LeakyReLU(0.3); same param tree as ConvND (one ``kernel``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_conv:
+            return self._int8(x, slope_in(self.compute_dtype
+                                          or torch.float32))
         x = self._cast(x)
         if self._is_conv3():
             return conv3(x, self.kernel, slope_in(x.dtype))
@@ -133,17 +156,24 @@ class ConvActND(ConvND):
 class ConvTransposeND(nn.Module):
     """TF-exact stride-2 SAME transposed conv; kernel ((4,) * ndim, Cin,
     Cout) in the transpose direction (TF stores (.., Cout, Cin): swap the
-    last two axes to import it)."""
+    last two axes to import it).  ``int8_conv`` runs it on the int8
+    kernel, as its phase decomposition."""
 
     def __init__(self, in_features: int, features: int, *, ndim: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
+                 int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.int8_conv = int8_conv
         self.kernel = _init_normal((4,) * ndim + (in_features, features),
                                    generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_conv:
+            return conv_transpose_nd_int8(
+                x, self.kernel, stride=2,
+                out_dtype=self.compute_dtype or torch.float32)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
         return conv_transpose_nd(x, self.kernel, stride=2)
@@ -234,10 +264,12 @@ class DownBlock(nn.Module):
     def __init__(self, in_features: int, features: int, *,
                  use_norm: bool = False, ndim: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
+                 int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
-        k = {"ndim": ndim, "compute_dtype": compute_dtype, "generator": g}
+        k = {"ndim": ndim, "compute_dtype": compute_dtype,
+             "int8_conv": int8_conv, "generator": g}
         self.use_norm = use_norm
         conv = ConvND if use_norm else ConvActND
         self.conv = conv(in_features, features, 3, **k)
@@ -263,10 +295,12 @@ class UpBlock(nn.Module):
     def __init__(self, in_features: int, features: int, *,
                  use_norm: bool = False, apply_dropout: bool = True,
                  ndim: int = 3, compute_dtype: Optional[torch.dtype] = None,
+                 int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
-        k = {"ndim": ndim, "compute_dtype": compute_dtype, "generator": g}
+        k = {"ndim": ndim, "compute_dtype": compute_dtype,
+             "int8_conv": int8_conv, "generator": g}
         self.use_norm = use_norm
         self.apply_dropout = apply_dropout
         conv = ConvND if use_norm else ConvActND

@@ -47,6 +47,9 @@ class UNetGenerator(nn.Module):
         output is cast back to float32.  Parameters stay float32.
       use_norm: the reference's (disabled) InstanceNorm call sites in down2,
         up1 and up0, as in the JAX module.
+      int8_conv: serve every conv in int8 (ops/quant.py; the hand-written
+        int8 conv kernel), dequantized into ``compute_dtype``; forward only,
+        as the JAX module's ``int8_conv``.
       generator: torch.Generator for the N(0, 0.02) weight init.
 
     ``forward(x, deterministic=True, dropout_generator=None)``: with
@@ -56,15 +59,17 @@ class UNetGenerator(nn.Module):
 
     def __init__(self, wf: int = 8, compute_dtype: DTypeLike = None, *,
                  is3d: bool = True, use_norm: bool = False,
+                 int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.wf = wf
         self.is3d = is3d
+        self.int8_conv = int8_conv
         self.compute_dtype = compute_dtype_of(compute_dtype)
         c1, c2, c4 = 64 // wf, 128 // wf, 256 // wf
         g, n = generator, use_norm
         k = {"ndim": 3 if is3d else 2, "compute_dtype": self.compute_dtype,
-             "generator": g}
+             "int8_conv": int8_conv, "generator": g}
         self.stem = ConvActND(1, c1, 3, **k)
         self.down1 = DownBlock(c1, c1, **k)
         self.down2 = DownBlock(c1, c2, use_norm=n, **k)

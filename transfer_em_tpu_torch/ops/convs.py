@@ -16,7 +16,10 @@ packages take the same tensors at their public functions:
   because it writes the transposed conv as a forward conv on the dilated
   input; ``conv_transpose{2,3}d`` is the adjoint itself).  Pinned against
   the JAX function in tests/test_torch_ops.py (3D) and
-  tests/test_torch_2d_models.py (2D).
+  tests/test_torch_2d_models.py (2D).  ``phase_decompose=True`` computes it
+  as the JAX package's subpixel formulation (convs.py:135-189): one k3
+  VALID conv over x padded by 1, with 2^n * Cout output channels
+  (:func:`phase_kernel`), then interleaved (:func:`interleave_phases`).
 
 An NDHWC (NHWC) tensor permuted to NCDHW (NCHW) is a channels_last view,
 which cuDNN takes without a copy.  On the CPU the permuted kernel is made
@@ -26,7 +29,8 @@ contiguous: there PyTorch's ``slow_conv2d``, which it picks for some shapes
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+import itertools
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -74,16 +78,65 @@ def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
 
 
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
-                      stride: int = 2) -> torch.Tensor:
+                      stride: int = 2,
+                      phase_decompose: Optional[bool] = None) -> torch.Tensor:
     """TF-exact stride-2 SAME transposed conv, 2D or 3D: (B, *n, Cin) *
-    (4.., Cin, Cout) -> (B, *2n, Cout)."""
+    (4.., Cin, Cout) -> (B, *2n, Cout).  ``phase_decompose`` (default off,
+    as in the JAX package): one stride-1 k3 conv with 2^n * Cout outputs,
+    then interleaved; the same function, summed in another order."""
     n = _spatial_rank(x, kernel)
+    if phase_decompose:
+        if stride != 2 or kernel.shape[0] != 4:
+            raise ValueError("phase_decompose supports stride=2, k=4 only")
+        return _conv_transpose_phase(x, kernel)
     if stride != 2 or kernel.shape[0] != 4:
         raise ValueError("conv_transpose_nd supports k=4, stride=2 (the "
                          "generator's up convs)")
     w = _weight(kernel.to(x.dtype).permute(n, n + 1, *range(n)))
     y = _CONV_T[n](_to_channels_first(x), w, stride=2, padding=1)
     return _to_channels_last(y)
+
+
+# Per axis, the TF SAME stride-2 k4 transposed conv is
+#   y[2m] = x[m-1] w[3] + x[m] w[1],   y[2m+1] = x[m] w[2] + x[m+1] w[0],
+# i.e. over x padded by 1, the even phase takes window offsets {0: w[3],
+# 1: w[1]} and the odd phase {1: w[2], 2: w[0]} of a k3 window
+# (transfer_em_tpu/ops/convs.py:135-189).
+_TAPMAP = ({0: 3, 1: 1}, {1: 2, 2: 0})
+
+
+def phase_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """(4,)*n + (Cin, Cout) -> the phase conv's (3,)*n + (Cin, 2^n * Cout)
+    kernel, phase p (the per-axis phase bits, first axis most significant)
+    in output channels [p * Cout, (p + 1) * Cout).  Each tap is written
+    once into zeros, so the values (int8 codes too) carry over exactly."""
+    n = kernel.dim() - 2
+    cin, cout = kernel.shape[-2], kernel.shape[-1]
+    k3 = kernel.new_zeros((3,) * n + (cin, cout * 2 ** n))
+    for pidx, phases in enumerate(itertools.product((0, 1), repeat=n)):
+        for offs in itertools.product(*[_TAPMAP[p] for p in phases]):
+            taps = tuple(_TAPMAP[p][o] for p, o in zip(phases, offs))
+            k3[offs + (slice(None), slice(pidx * cout, (pidx + 1) * cout))] \
+                = kernel[taps]
+    return k3
+
+
+def interleave_phases(y: torch.Tensor) -> torch.Tensor:
+    """The phase conv's (B, *S, 2^n * Cout) -> (B, *2S, Cout)."""
+    n = y.dim() - 2
+    bsz, sp, cout = y.shape[0], tuple(y.shape[1:-1]), y.shape[-1] // 2 ** n
+    y = y.reshape((bsz,) + sp + (2,) * n + (cout,))
+    perm = [0]
+    for i in range(n):
+        perm += [1 + i, 1 + n + i]  # (m, phase) per axis
+    y = y.permute(perm + [1 + 2 * n])
+    return y.reshape((bsz,) + tuple(2 * s for s in sp) + (cout,))
+
+
+def _conv_transpose_phase(x: torch.Tensor, kernel: torch.Tensor
+                          ) -> torch.Tensor:
+    y = conv_nd(zero_pad(x, 1), phase_kernel(kernel))
+    return interleave_phases(y).contiguous()
 
 
 def center_crop(x: torch.Tensor,

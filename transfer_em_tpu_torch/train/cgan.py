@@ -37,12 +37,12 @@ round) and the scan window (``make_scan_train_step``,
 
 ``EM2EM`` (transfer_em_tpu/train/cgan.py:476-872) drives the step from
 the data pipelines, with checkpoints (``train/checkpoints.py``) and metrics
-(``train/metrics.py``); ``create_prior_helper`` taps an exported generator
-for ``disc_prior``.
+(``train/metrics.py``); ``EM2EM.from_reference_checkpoint`` continues a
+reference TF run (``compat``); ``create_prior_helper`` taps an exported
+generator or a reference Keras asset for ``disc_prior``.
 
-Waiting for later slices (each raises NotImplementedError where a caller
-reaches it): ``to_mesh`` and ``mesh=`` (ROADMAP A4),
-``from_reference_checkpoint`` and Keras priors (A3).
+Waiting for a later slice (raises NotImplementedError where a caller
+reaches it): ``to_mesh`` and ``mesh=`` (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -87,7 +87,9 @@ def _tap_prior(gen: UNetGenerator, last_layer: str) -> Callable:
     generator's adversarial loss through disc_y includes the path through
     the prior.  The returned callable runs ``gen`` up to the submodule
     ``last_layer`` (a DownBlock gives its downsampled output) and carries
-    ``channels``, the tap's width."""
+    ``channels``, the tap's width, and ``params``, the generator's detached
+    parameters by name (``compat`` holds a checkpoint's stored prior
+    weights against them)."""
     sub = gen.get_submodule(last_layer)
     kernels = [p for n, p in sub.named_parameters() if n.endswith("kernel")]
 
@@ -109,6 +111,7 @@ def _tap_prior(gen: UNetGenerator, last_layer: str) -> Callable:
         return out[0]
 
     prior.channels = int(kernels[-1].shape[-1])
+    prior.params = {k: v.detach() for k, v in gen.named_parameters()}
     return prior
 
 
@@ -448,19 +451,18 @@ def make_scan_train_step(config: CycleGANConfig, window: int,
 
 def create_prior_helper(model_dir: str, last_layer: str, device="cuda"
                         ) -> Callable:
-    """A weight-frozen tap of an exported generator's ``last_layer``
-    submodule, to pass as ``disc_prior`` (transfer_em_tpu/train/cgan.py:
-    48-76, reference cgan.py:21-29).  ``model_dir`` is the port's export
-    (generator.npz + meta.json) or the JAX package's (generator.msgpack +
-    meta.json); it is loaded onto ``device`` (default ``cuda``).  Priors
-    from reference Keras assets (.h5, SavedModel) come with the TF-interop
-    slice (ROADMAP A3).  A 2D export gives a 2D prior, for a 2D
+    """A weight-frozen tap of a generator's ``last_layer`` submodule, to
+    pass as ``disc_prior`` (transfer_em_tpu/train/cgan.py:48-76, reference
+    cgan.py:21-29), loaded onto ``device`` (default ``cuda``).
+    ``model_dir`` is the port's export (generator.npz + meta.json), the JAX
+    package's (generator.msgpack + meta.json), or a reference-architecture
+    Keras asset (``.h5`` / ``.keras`` file or SavedModel directory, through
+    ``compat``).  A 2D generator gives a 2D prior, for a 2D
     discriminator."""
     if (model_dir.endswith((".h5", ".keras"))
             or os.path.exists(os.path.join(model_dir, "saved_model.pb"))):
-        raise NotImplementedError(
-            "priors from reference Keras assets come with the TF-interop "
-            "slice of the port (ROADMAP A3)")
+        from ..compat import prior_from_tf_generator
+        return prior_from_tf_generator(model_dir, last_layer, device)
     from ..infer.export import load_generator
 
     gen, _ = load_generator(model_dir, device=device)
@@ -497,9 +499,8 @@ class EM2EM:
     masks come from torch.Generators seeded from (seed, step, application)).
     ``compute_dtype="bfloat16"`` trains and predicts with the bf16
     networks; the state, and so every checkpoint, is float32 in both
-    dtypes, and a checkpoint of either restores into the other.  Later
-    slices (each raises NotImplementedError): ``to_mesh`` (A4),
-    ``from_reference_checkpoint`` (A3).
+    dtypes, and a checkpoint of either restores into the other.  A later
+    slice (raises NotImplementedError): ``to_mesh`` (A4).
 
     Checkpoints (``train/checkpoints.py``): ``torch.save`` files under
     ``<checkpoint_root>/train_<exp_name>/<epoch>/``, written on a background
@@ -574,11 +575,44 @@ class EM2EM:
         print(f"checkpoint {ckpt_restore} restored")
 
     @classmethod
-    def from_reference_checkpoint(cls, *_args, **_kwargs) -> "EM2EM":
-        """Continue a reference TF run: needs ``compat``."""
-        raise NotImplementedError(
-            "from_reference_checkpoint reads TF checkpoints through compat, "
-            "which comes with the TF-interop slice of the port (ROADMAP A3)")
+    def from_reference_checkpoint(cls, ckpt_path: str, exp_name: str,
+                                  dimsize: int = 74,
+                                  disc_prior: Optional[Callable] = None,
+                                  **kwargs) -> "EM2EM":
+        """Continue a REFERENCE training run here: an EM2EM whose
+        parameters, Adam moments and counts and step come from a reference
+        ``tf.train.Checkpoint`` (reference cgan.py:86-103; read by
+        ``compat.load_reference_checkpoint``, either TF layout;
+        transfer_em_tpu/train/cgan.py:589-627).  ``wf`` and 2D/3D come from
+        the weights; the other keyword arguments go to ``__init__``
+        (checkpoint_root, compute_dtype, device, ...).  ``disc_prior``: the
+        frozen feature extractor the run was trained with, if any."""
+        from ..compat import load_reference_checkpoint
+        device = kwargs.get("device", "cuda")
+        state, wf, is3d = load_reference_checkpoint(ckpt_path, disc_prior,
+                                                    device)
+        model = cls(dimsize, exp_name, is3d=is3d, wf=wf,
+                    disc_prior=disc_prior, **kwargs)
+        if model._ckpt.latest_step() is not None:
+            raise ValueError(
+                f"experiment {exp_name!r} already has checkpoints at "
+                f"{model.checkpoint_path} (they would collide with the "
+                "imported run's step numbering) — pass a fresh exp_name, "
+                "or restore the existing run with EM2EM(...) directly")
+        with torch.no_grad():
+            for tree in ("gg", "gf", "dx", "dy"):
+                dst = dict(getattr(model.state, tree).named_parameters())
+                src = dict(getattr(state, tree).named_parameters())
+                if ({k: tuple(v.shape) for k, v in dst.items()}
+                        != {k: tuple(v.shape) for k, v in src.items()}):
+                    raise ValueError(
+                        f"imported {tree} does not match the built model")
+                for k, p in dst.items():
+                    p.copy_(src[k])
+                setattr(model.state, "opt_" + tree,
+                        getattr(state, "opt_" + tree))
+        model.state.step = state.step
+        return model
 
     def to_mesh(self, mesh=None) -> "EM2EM":
         """Data-parallel training over several cards."""
