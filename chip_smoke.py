@@ -181,6 +181,30 @@ each printing one JSON line:
             versions, int8 against f32 (read), one profiled batch.
             conv_int8, preprocess, postprocess and LeakyReLU must launch,
             conv3 must not.
+14. parallel  data and halo parallelism on meshes of this one card (run
+            after int8): under cudnn.deterministic, predict_tiled on a
+            128^3 chunk, ModelService serving it, and predict_volume at
+            the volume phase's 360^3 request in device and stream mode,
+            each on make_mesh(devices=[cuda:0] * 2) (data=2) bit-equal to
+            the unmeshed call at the same batch a device, Mvox/s beside
+            it; halo_predict in f32 over 4 shards (z over 4 on a
+            160x234x234 input, z x y over 2 x 2 on 80x80x234), each shard
+            bit-equal to the generator on its block of the padded volume,
+            and at the JAX tests' N(0, 0.02) init within their bar (rtol
+            1e-4, atol 1e-5) of one pass over the padded volume, whose gap
+            at the fan-in-scaled weights is printed; make_dp_train_step on
+            [cuda:0] * 2 at global B=16 against make_train_step at B=16
+            from the same state: dropout off, losses rtol 1e-4 and every
+            reduced gradient within GRAD_TOL; dropout on, losses rtol
+            1e-4; a second DP step's weight packs 2 x a step's (the
+            replica repacks); EM2EM(74, wf=8).to_mesh trains 4 steps at
+            B=16 and its checkpoint restores bit-equal into an unmeshed
+            model; two processes of this script (``--parallel-worker``)
+            on the card over gloo: a DP step on 8 rows each against the
+            single-process step, a 2-shard halo ring across the process
+            boundary, each worker's launch counts; one NCCL rank
+            (world size 1) running a DP step.  conv3, LeakyReLU,
+            preprocess and postprocess must launch in the phase.
 13. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
@@ -190,7 +214,8 @@ each printing one JSON line:
    from the int8 tile step (``launches`` for conv_int8), ``twod`` the 2D
    shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
    at the train step's shapes, ``slab_shapes`` from the volume phase's
-   kernel checks), then the ``ok`` line.  Any failed check exits non-zero
+   kernel checks, ``parallel_launches`` from phase 14's single-process
+   part), then the ``ok`` line.  Any failed check exits non-zero
    before the last line.
 """
 
@@ -3562,6 +3587,504 @@ def int8_kernel_line(int8):
             "twod_wf1_b4": _int8_sums(by[(2, 1)]["layers"])}
 
 
+# -- phase 14: data and halo parallelism ----------------------------------------
+
+PAR_REQUEST = ((64, 64, 64), (128,) * 3)  # one 128^3 chunk: 64 tiles
+PAR_B = 128                               # the batch a meshed call is given
+HALO_RTOL, HALO_ATOL = 1e-4, 1e-5  # the JAX tests' bar (tests/test_parallel.py)
+DP_B = 16                          # the DP step's global batch
+# (name, mesh kwargs, input zyx extents, halo kwargs)
+HALO_CASES = (("z4", dict(data=1, space=4), (160, 234, 234), {}),
+              ("z2y2", dict(data=1, space=2, space_y=2), (80, 80, 234),
+               dict(y_axis="space_y")))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _standardized(vol_u8, dev):
+    """A uint8 volume as the generator's float input, (Z, Y, X, 1)."""
+    v = torch.from_numpy(np.ascontiguousarray(vol_u8)).to(dev).float()
+    return ((v - 128.0) / 40.0)[..., None].contiguous()
+
+
+def _halo_case(dev, gen, vol, mesh_kw, kw):
+    """halo_predict over ``[dev] * 4``: wall time, and each shard against
+    the generator on that shard's block of the zero-padded volume (bit for
+    bit under cudnn.deterministic: what halo_predict defines)."""
+    from transfer_em_tpu_torch.parallel import make_mesh
+    from transfer_em_tpu_torch.parallel.halo import halo_predict_fn
+
+    mesh = make_mesh(devices=[dev] * 4, **mesh_kw)
+    split = (0, 1) if "y_axis" in kw else (0,)
+    f = halo_predict_fn(gen, mesh, 17, vol.shape[0], y_axis=kw.get("y_axis"),
+                        y_extent=vol.shape[1] if "y_axis" in kw else None)
+    f(None, vol)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = f(None, vol)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pad = [0, 0, 0, 0, 0, 0]
+    for a in split:  # F.pad's order: last axis first; channel axis unpadded
+        pad[2 * (2 - a)] = pad[2 * (2 - a) + 1] = 17
+    padded = F.pad(vol[..., 0], pad)[..., None]
+    exact = True
+    with torch.inference_mode():
+        for s in out.addressable_shards:
+            block = tuple(slice(s.index[a].start, s.index[a].stop + 34)
+                          if a in split else slice(None) for a in range(3))
+            exact = exact and torch.equal(
+                s.data, gen(padded[block][None].contiguous())[0])
+    return out.gather(dev), padded, wall, exact
+
+
+def check_halo(dev):
+    """halo_predict in f32 on one card as 4 shards: z over 4 and z x y over
+    2 x 2, each on a uint8-derived volume (a crop of a seeded smoothed
+    volume, standardized).  Gates: every shard bit-equal to the generator
+    on its block of the padded volume; at the JAX tests' N(0, 0.02) init,
+    the whole output within their bar of one generator pass over the
+    padded volume.  With the fan-in-scaled weights that whole-pass gap is
+    recorded, not gated: the transposed convs' TF-SAME edges make a slab's
+    last planes differ from the whole pass's (so in the JAX package too)."""
+    from transfer_em_tpu_torch.models import UNetGenerator
+    from transfer_em_tpu_torch.parallel import halo_predict, make_mesh
+
+    scaled = seeded_generator(3, dev)
+    init = UNetGenerator(wf=8, generator=torch.Generator().manual_seed(5))
+    init = init.to(dev).eval()
+    src = smooth_volume(240, seed=41, dev=dev)
+    rows = {}
+    with cudnn_deterministic():
+        for name, mesh_kw, shape, kw in HALO_CASES:
+            vol = _standardized(src[:shape[0], :shape[1], :shape[2]], dev)
+            got, padded, wall, exact = _halo_case(dev, scaled, vol, mesh_kw,
+                                                  kw)
+            with torch.inference_mode():
+                whole = scaled(padded[None])[0]
+                got0 = halo_predict(init, None, vol, make_mesh(
+                    devices=[dev] * 4, **mesh_kw), 17, **kw)
+                whole0 = init(padded[None])[0]
+            gap = (got - whole).abs()
+            ok0 = bool(torch.allclose(got0, whole0, rtol=HALO_RTOL,
+                                      atol=HALO_ATOL))
+            rows[name] = {
+                "input": list(vol.shape), "output": list(got.shape),
+                "mesh": mesh_kw, "wall_s": wall,
+                "mvox_per_s": got.numel() / wall / 1e6,
+                "shards_bit_equal": exact,
+                "whole_pass_max_abs": float(gap.max()),
+                "whole_pass_max_rel": float(gap.max() / whole.abs().max()),
+                "whole_pass_planes_off": int((gap.amax(dim=(1, 2, 3))
+                                              > 1e-4).sum()),
+                "jax_init_within_bar": ok0,
+                "jax_init_max_abs_err": float((got0 - whole0).abs().max()),
+                "jax_init_output_max_abs": float(whole0.abs().max())}
+    return rows
+
+
+def check_dp(dev):
+    """The DP step on ``[dev] * 2`` at global B=16 against make_train_step
+    at B=16 from the same state (redrawn weights, std-0.3 batches): dropout
+    off, the 7 losses within rtol 1e-4 and every reduced gradient within
+    GRAD_TOL of its own largest |g|; dropout on, the losses within rtol
+    1e-4 (global masks); a second DP step's weight packs = 2 x one step's
+    (the replica repacks after its parameter copy)."""
+    import copy
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.parallel import (make_dp_train_step,
+                                                make_mesh, shard_state)
+    from transfer_em_tpu_torch.train import (build_step_fn, create_state,
+                                             make_train_step)
+
+    cfg = CycleGANConfig()
+    state = create_state(cfg, seed=1, device=dev)
+    redraw(state, 2)
+    x, y = smooth_batches(DP_B, 0.3, 13, dev)
+    mesh = make_mesh(devices=[dev] * 2)
+    rec = {"batch": DP_B, "shards": 2}
+    for dropout in (False, True):
+        single = copy.deepcopy(state)
+        meshed = shard_state(copy.deepcopy(state), mesh)
+        one = (make_train_step(cfg, dev) if dropout
+               else build_step_fn(cfg, deterministic=True))
+        dp = make_dp_train_step(cfg, mesh, deterministic=not dropout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = one(single, x, y, 7).cpu().numpy()
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = dp(meshed, x, y, 7).cpu().numpy()
+        dp_s = time.perf_counter() - t0
+        key = "dropout_on" if dropout else "dropout_off"
+        rec[key] = {"losses": got.tolist(), "single_losses": want.tolist(),
+                    "loss_max_rel_err": float(np.max(
+                        np.abs(got - want) / np.abs(want))),
+                    "single_step_s": single_s, "first_step_s": dp_s}
+        if not dropout:
+            rec[key]["grad_max_err_over_own_max"] = _worst(
+                _grad_errors(meshed, single))
+            packs = cuda_conv.packed_weights.packs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp(meshed, x, y, 8)
+            torch.cuda.synchronize()
+            rec[key]["second_step_s"] = time.perf_counter() - t0
+            rec[key]["second_step_packs"] = (cuda_conv.packed_weights.packs
+                                             - packs)
+            rec[key]["packs_per_single_step"] = expected_step_counts(
+                state)["conv3_weight_packs"]
+        del single, meshed
+    off, on = rec["dropout_off"], rec["dropout_on"]
+    rec["ok"] = (off["loss_max_rel_err"] <= 1e-4
+                 and on["loss_max_rel_err"] <= 1e-4
+                 and all(v <= GRAD_TOL for v in
+                         off["grad_max_err_over_own_max"].values())
+                 and off["second_step_packs"]
+                 == 2 * off["packs_per_single_step"])
+    return rec
+
+
+def check_to_mesh(dev):
+    """EM2EM(74, wf=8).to_mesh([dev] * 2) trains one epoch of 4 steps at
+    B=16 (seconds, finite losses); its checkpoint restores bit-equal into
+    an unmeshed model."""
+    from transfer_em_tpu_torch.parallel import make_mesh
+    from transfer_em_tpu_torch.train import EM2EM
+
+    batches = [smooth_batches(DP_B, 0.3, 20 + i, dev) for i in range(4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        model = EM2EM(74, "par", wf=8, checkpoint_root=tmp, device=dev)
+        model.to_mesh(make_mesh(devices=[dev] * 2))
+        log = os.path.join(tmp, "metrics.jsonl")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train([b[0] for b in batches], [b[1] for b in batches],
+                    epochs=1, metrics_log=log)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        epoch = json.loads(open(log).read().splitlines()[-1])
+        restored = EM2EM(74, "par", wf=8, checkpoint_root=tmp, device=dev,
+                         seed=9)
+        equal = _states_equal(model.state, restored.state)
+    losses = list(epoch["loss"].values())
+    return {"epoch_s": epoch_s, "steps": epoch["steps"], "losses": losses,
+            "tiles_per_s": 4 * DP_B / epoch_s,
+            "restored_unmeshed_bit_equal": equal,
+            "ok": (equal and epoch["steps"] == 4
+                   and all(math.isfinite(v) for v in losses))}
+
+
+def check_mesh_inference(dev, gen, vol, vol_d):
+    """Each inference mesh= path on ``[dev] * 2`` (data=2) against the
+    unmeshed call at the same batch a device, bit for bit under
+    cudnn.deterministic, with Mvox/s of each (one warm call, one timed)
+    with cuDNN's default algorithms and under cudnn.deterministic:
+    predict_tiled on a 128^3 chunk, ModelService serving it (deterministic
+    only), and predict_volume at the volume phase's 360^3 request in device
+    and stream mode."""
+    from transfer_em_tpu_torch.config import ExportMeta
+    from transfer_em_tpu_torch.infer import (export_generator, predict_tiled,
+                                             predict_volume)
+    from transfer_em_tpu_torch.infer.tiling import plan_tiles, tile_batch
+    from transfer_em_tpu_torch.native import gather_box
+    from transfer_em_tpu_torch.parallel import make_mesh
+    from transfer_em_tpu_torch.serve import (ModelService, NumpyVolume,
+                                             register_volume)
+
+    mesh = make_mesh(devices=[dev] * 2)
+    start, size = PAR_REQUEST
+    n_chunk = plan_tiles(start, size, 40, 17).num_tiles
+    chunk_b = tile_batch(n_chunk, PAR_B, 2) // 2  # tiles a device a step
+
+    def fetch(c, n):
+        return gather_box(vol, c, (n,) * 3)
+
+    def tiled(m, b):
+        return predict_tiled(fetch, gen, start, size, 40, 17, MS_X, MS_Y,
+                             batch_size=b, mesh=m, device=dev)
+
+    def volume(mode):
+        src = vol_d if mode == "device" else vol
+        return lambda m, b: predict_volume(src, gen, VOL_START, VOL_SIZE,
+                                           MS_X, MS_Y, mode=mode,
+                                           batch_size=b, mesh=m, device=dev)
+
+    runs = {"predict_tiled": (tiled, math.prod(size), PAR_B, chunk_b),
+            "device": (volume("device"), math.prod(VOL_SIZE), PAR_B, PAR_B),
+            "stream": (volume("stream"), math.prod(VOL_SIZE), PAR_B, PAR_B)}
+    rows, outs = {}, {}
+    for det in (False, True):
+        ctx = cudnn_deterministic() if det else contextlib.nullcontext()
+        with ctx:
+            for name, (run, nvox, b_mesh, b_single) in runs.items():
+                row = rows.setdefault(name, {"batch_a_device": b_single})
+                for tag, m, b in (("single", None, b_single),
+                                  ("mesh", mesh, b_mesh)):
+                    key = tag + ("_deterministic" if det else "")
+                    run(m, b)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs[name, tag] = np.asarray(run(m, b))
+                    row[key + "_s"] = time.perf_counter() - t0
+                    row[key + "_mvox_per_s"] = nvox / row[key + "_s"] / 1e6
+                if det:
+                    row["bit_equal"] = bool(np.array_equal(
+                        outs[name, "mesh"], outs[name, "single"]))
+    with cudnn_deterministic():
+        register_volume("smoke/par", NumpyVolume(vol))
+        with tempfile.TemporaryDirectory() as tmp:
+            export_generator(gen, ExportMeta(17, 40, MS_X, MS_Y, dimsize=74,
+                                             wf=gen.wf),
+                             os.path.join(tmp, "models", "par", "v1"))
+            row, blocks = {}, {}
+            # 4 tiles a device a batch however the request's tiles group:
+            # the batcher pads a group of k tiles to min(8 ceil(k / 8),
+            # max(max_batch, k)) rounded up to the data axis
+            for tag, m, mb in (("single", None, 4), ("mesh", mesh, 8)):
+                svc = ModelService(model_root=os.path.join(tmp, "models"),
+                                   mesh=m, max_batch=mb, device=dev)
+                svc.start()
+                try:
+                    for rep in range(2):  # the first loads the model
+                        dest = os.path.join(tmp, f"out_{tag}{rep}")
+                        cfg = {"location": "smoke/par", "start": list(start),
+                               "glbstart": [0, 0, 0], "size": list(size),
+                               "model_name": "par:v1", "dest": dest}
+                        req = urllib.request.Request(
+                            svc.url + "/", data=json.dumps(cfg).encode(),
+                            headers={"Content-type": "application/json"})
+                        t0 = time.perf_counter()
+                        body = urllib.request.urlopen(req, timeout=600).read()
+                        wall = time.perf_counter() - t0
+                        if body != b"success":
+                            fail("parallel", f"ModelService {tag}: {body!r}")
+                finally:
+                    svc.stop()
+                blocks[tag] = {n: gzip.decompress(open(os.path.join(
+                    dest, n), "rb").read()) for n in sorted(os.listdir(dest))}
+                row[tag + "_deterministic_s"] = wall
+                row[tag + "_deterministic_mvox_per_s"] = (math.prod(size)
+                                                          / wall / 1e6)
+            row["bit_equal"] = (
+                len(blocks["mesh"]) == math.prod(s // 64 for s in size)
+                and blocks["mesh"] == blocks["single"])
+            rows["model_service"] = row
+    return rows
+
+
+def parallel_worker(rank, port, outdir):
+    """One of two processes on the one card, joined over gloo (NCCL
+    refuses two ranks on one device): one DP step on this process's 8 rows
+    of the global B=16 batch (dropout off), a 2-shard halo ring across the
+    process boundary (this process's shard against the generator on its
+    slab of the padded volume), this process's launch counts; rank 0 also
+    writes the reduced gradients for the parent to hold against its
+    single-process step."""
+    import torch.distributed as dist
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.parallel import (halo_predict_fn,
+                                                host_local_batch,
+                                                make_dp_train_step, make_mesh,
+                                                shard_state)
+    from transfer_em_tpu_torch.parallel.distributed import (barrier,
+                                                            initialize)
+    from transfer_em_tpu_torch.train import create_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout_s=300)
+    mesh = make_mesh(devices=[dev])
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "mesh": repr(mesh)}
+    cfg = CycleGANConfig()
+    state = create_state(cfg, seed=1, device=dev)
+    redraw(state, 2)
+    x, y = smooth_batches(DP_B, 0.3, 13, dev)
+    rows = slice(rank * DP_B // 2, (rank + 1) * DP_B // 2)
+    shard_state(state, mesh)
+    reset_counts()
+    step = make_dp_train_step(cfg, mesh, deterministic=True)
+    xs, ys = host_local_batch(x[rows], mesh), host_local_batch(y[rows], mesh)
+    t0 = time.perf_counter()
+    res["losses"] = step(state, xs, ys, 7).tolist()
+    res["dp_first_step_s"] = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({t: {n: p.grad.cpu() for n, p in
+                        getattr(state, t).named_parameters()} for t in TREES},
+                   os.path.join(outdir, "grads.pt"))
+    t0 = time.perf_counter()
+    step(state, xs, ys, 8).tolist()
+    res["dp_second_step_s"] = time.perf_counter() - t0
+    gen = seeded_generator(3, dev)
+    vol = _standardized(smooth_volume(80, seed=43, dev=dev)[:, :74, :74],
+                        dev)
+    smesh = make_mesh(devices=[dev], data=1, space=2)
+    t0 = time.perf_counter()
+    out = halo_predict_fn(gen, smesh, 17, 80)(None, vol)
+    torch.cuda.synchronize()
+    res["halo_s"] = time.perf_counter() - t0
+    padded = F.pad(vol, (0, 0, 0, 0, 0, 0, 17, 17))
+    res["halo_shards"] = []
+    with torch.inference_mode():
+        for s in out.addressable_shards:
+            lo = s.index[0].start
+            res["halo_shards"].append({
+                "z": [lo, s.index[0].stop],
+                "bit_equal": bool(torch.equal(
+                    s.data, gen(padded[None, lo:lo + 74])[0]))})
+    res["launches"] = read_counts()
+    barrier("parallel_worker_done")
+    with open(os.path.join(outdir, f"worker_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def check_two_processes(dev):
+    """Two processes of this script on the one card (gloo): their DP step
+    against the single-process step from the same state and batches (the
+    losses within rtol 1e-4, rank 0's reduced gradients within GRAD_TOL),
+    both ranks' losses equal, each halo shard bit-equal, each worker's
+    launch counts."""
+    import copy
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port = str(_free_port())
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             str(rank), port, tmp], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:  # a failed or hung pair must not outlive us
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            fail("parallel", "a worker process failed", codes=codes,
+                 logs=[lg[-3000:] for lg in logs])
+        workers = [json.load(open(os.path.join(tmp, f"worker_{r}.json")))
+                   for r in (0, 1)]
+        grads = torch.load(os.path.join(tmp, "grads.pt"))
+    cfg = CycleGANConfig()
+    state = create_state(cfg, seed=1, device=dev)
+    redraw(state, 2)
+    x, y = smooth_batches(DP_B, 0.3, 13, dev)
+    single = copy.deepcopy(state)
+    with cudnn_deterministic():
+        want = build_step_fn(cfg, deterministic=True)(single, x, y, 7)
+    want = want.cpu().numpy()
+    got = np.asarray(workers[0]["losses"])
+    errs = {}
+    for t in TREES:
+        errs[t] = max(float((grads[t][n] - p.grad.cpu()).abs().max()
+                            / p.grad.cpu().abs().max().clamp_min(1e-30))
+                      for n, p in getattr(single, t).named_parameters())
+    rec = {"wall_s": wall, "workers": workers,
+           "loss_max_rel_err": float(np.max(np.abs(got - want)
+                                            / np.abs(want))),
+           "ranks_equal": workers[0]["losses"] == workers[1]["losses"],
+           "grad_max_err_over_own_max": errs}
+    rec["ok"] = (rec["loss_max_rel_err"] <= 1e-4 and rec["ranks_equal"]
+                 and all(v <= GRAD_TOL for v in errs.values())
+                 and all(s["bit_equal"] for w in workers
+                         for s in w["halo_shards"])
+                 and all(w["backend"] == "gloo" for w in workers)
+                 and all(w["launches"]["conv3"] > 0 for w in workers))
+    return rec
+
+
+def check_nccl(dev):
+    """One rank over NCCL (world size 1): initialize, make_mesh() over the
+    local card, one DP step (dropout off, its gradient all-reduce and
+    shard_state's broadcast on NCCL) against the single-process step."""
+    import copy
+
+    import torch.distributed as dist
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.parallel import (make_dp_train_step,
+                                                make_mesh, shard_state)
+    from transfer_em_tpu_torch.parallel.distributed import initialize
+    from transfer_em_tpu_torch.train import build_step_fn, create_state
+
+    cfg = CycleGANConfig()
+    state = create_state(cfg, seed=1, device=dev)
+    redraw(state, 2)
+    x, y = smooth_batches(DP_B // 2, 0.3, 17, dev)
+    single = copy.deepcopy(state)
+    want = build_step_fn(cfg, deterministic=True)(single, x, y, 7)
+    t0 = time.perf_counter()
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl",
+               timeout_s=120)
+    try:
+        init_s = time.perf_counter() - t0
+        backend = dist.get_backend()
+        mesh = make_mesh()
+        shard_state(state, mesh)
+        got = make_dp_train_step(cfg, mesh, deterministic=True)(
+            state, x, y, 7)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    rel = float(((got - want).abs() / want.abs()).max())
+    return {"backend": backend, "init_s": init_s, "mesh": repr(mesh),
+            "loss_max_rel_err": rel,
+            "ok": backend == "nccl" and rel <= 1e-4}
+
+
+def check_parallel(dev, smi):
+    """Phase 14: every mesh= of the port on meshes of this card repeated,
+    halo_predict, the DP step and EM2EM.to_mesh, two gloo processes on the
+    card and one NCCL rank.  The launch counts are zeroed just before the
+    single-process part (the meshed runs and their unmeshed references)
+    and read just after it; each worker process counts its own."""
+    t_phase = time.perf_counter()
+    gen = seeded_generator(3, dev)
+    vol = smooth_volume(VOL_SIDE, seed=31, dev=dev)
+    vol_d = torch.from_numpy(vol).to(dev)
+    reset_counts()
+    inference = check_mesh_inference(dev, gen, vol, vol_d)
+    halo = check_halo(dev)
+    dp = check_dp(dev)
+    to_mesh = check_to_mesh(dev)
+    launches = read_counts()
+    del vol_d
+    torch.cuda.empty_cache()
+    two = check_two_processes(dev)
+    nccl = check_nccl(dev)
+    rec = {"phase": "parallel", "card": smi, "inference": inference,
+           "halo": halo, "dp": dp, "to_mesh": to_mesh,
+           "two_processes": two, "nccl": nccl, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    rec["ok"] = (all(r["bit_equal"] for r in inference.values())
+                 and all(r["shards_bit_equal"] and r["jax_init_within_bar"]
+                         for r in halo.values())
+                 and dp["ok"] and to_mesh["ok"] and two["ok"] and nccl["ok"]
+                 and all(launches[k] > 0 for k in counters()))
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -3569,11 +4092,20 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="directory for the JSON lines and the build log")
-    OUT_DIR = ap.parse_args().out
+    ap.add_argument("--parallel-worker", nargs=3, default=None,
+                    metavar=("RANK", "PORT", "DIR"),
+                    help="run as one of the parallel phase's two processes "
+                         "(the phase starts them itself)")
+    args = ap.parse_args()
+    OUT_DIR = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "runs only on a CUDA card", file=sys.stderr)
         sys.exit(2)
+    if args.parallel_worker is not None:
+        rank, port, outdir = args.parallel_worker
+        parallel_worker(int(rank), port, outdir)
+        return
     from transfer_em_tpu_torch import kernels
     from transfer_em_tpu_torch.device import resolve_device
 
@@ -3654,6 +4186,10 @@ def main():
     int8 = check_int8(dev, smi)
     if not int8["ok"]:
         fail("int8", "the int8 phase failed a check")
+
+    par = check_parallel(dev, smi)
+    if not par["ok"]:
+        fail("parallel", "the parallel phase failed a check")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -3770,6 +4306,11 @@ def main():
         lines[-1][key] = src["conv_int8"]
     for line in lines[:-1]:
         line["int8_launches"] = int8["launches"][line["name"]]
+    for line in lines:
+        line["parallel_launches"] = par["launches"][line["name"]]
+    for p in paths:
+        p["parallel_launches"] = par["launches"][
+            "conv3_" + p["name"].split(".")[1]]
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

@@ -311,10 +311,13 @@ def test_metrics_records_match_jax(tmp_path):
 
 
 LATER = {
-    # the refusal still owed to a later slice (A4); the TF-interop entry
-    # points (A3), ported since, default to cuda and raise here before
-    # reading anything (tests/test_torch_compat.py runs them on the CPU)
-    "to_mesh": (lambda m: m.to_mesh(), NotImplementedError, "A4"),
+    # entry points of later slices, ported since, default to cuda and raise
+    # here before doing anything: to_mesh (A4) builds make_mesh() over the
+    # local cards (tests/test_torch_parallel.py runs it on a CPU mesh), the
+    # TF interop (A3) reads on cuda (tests/test_torch_compat.py runs it on
+    # the CPU)
+    "to_mesh": (lambda m: m.to_mesh(), RuntimeError,
+                "torch.cuda.is_available"),
     "from_reference_checkpoint": (
         lambda m: EM2EM.from_reference_checkpoint("ckpt", "x"),
         RuntimeError, "torch.cuda.is_available"),
@@ -363,8 +366,8 @@ def test_ported_options_train(tmp_path, case):
 
 def test_later_methods_raise_plots_and_sample(tmp_path, monkeypatch,
                                               capsys):
-    """to_mesh names its later slice; from_reference_checkpoint defaults
-    to cuda and raises here; plot_* write a table of the parameters; the bound networks run
+    """to_mesh and from_reference_checkpoint default to cuda and raise
+    here; plot_* write a table of the parameters; the bound networks run
     the live parameters without gradients; with debug and a sample, an
     epoch ends with the sample's accuracy and <exp_name>_sample.png."""
     monkeypatch.chdir(tmp_path)
@@ -374,7 +377,7 @@ def test_later_methods_raise_plots_and_sample(tmp_path, monkeypatch,
     m.train([], [], epochs=1, debug=True, sample=x, sample_gt=x)
     assert "Accuracy on sample: " in capsys.readouterr().out
     assert (tmp_path / "exp_sample.png").exists()
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         m.to_mesh()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         EM2EM.from_reference_checkpoint("ckpt", "x")

@@ -74,6 +74,7 @@ def _entry_points(tmp_path):
     from transfer_em_tpu_torch.serve import (NgOutputPredictor,
                                              TransferEMPredictor)
     from transfer_em_tpu_torch import compat
+    from transfer_em_tpu_torch.parallel import make_mesh
     from transfer_em_tpu_torch.train import create_prior_helper
 
     gen = UNetGenerator(wf=32)
@@ -126,6 +127,7 @@ def _entry_points(tmp_path):
             compat.load_reference_checkpoint(str(tmp_path)),
         "create_prior_helper(.h5)": lambda: create_prior_helper(
             str(tmp_path / "prior.h5"), "down1"),
+        "make_mesh": lambda: make_mesh(),
     }
 
 
@@ -144,7 +146,7 @@ def _entry_points(tmp_path):
                                   "compat.load_tf_generator",
                                   "compat.load_tf_discriminator",
                                   "compat.load_reference_checkpoint",
-                                  "create_prior_helper(.h5)"])
+                                  "create_prior_helper(.h5)", "make_mesh"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """Called without ``device`` where CUDA is absent, every entry point
     raises instead of running on the CPU."""
@@ -154,14 +156,24 @@ def test_entry_points_default_to_cuda(name, tmp_path):
 
 
 def test_mesh_is_a_later_slice(tmp_path):
+    """(The name is kept from the slices before the parallel one.)  A mesh
+    without a 'data' axis raises ValueError in predict_tiled and
+    ModelService, as in the JAX package (tests/test_tiling.py:155-160)."""
     from transfer_em_tpu_torch.infer import predict_tiled
+    from transfer_em_tpu_torch.parallel import make_mesh
+    from transfer_em_tpu_torch.parallel.mesh import Mesh
     from transfer_em_tpu_torch.serve import ModelService
 
-    with pytest.raises(NotImplementedError, match="parallel"):
-        ModelService(model_root=str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    cpu = torch.device("cpu")
+    space_only = Mesh(np.array([cpu] * 4, dtype=object), ("space",))
+    halo_mesh = make_mesh(4, data=1, space=4, devices=[cpu] * 4)
+    assert "data" in halo_mesh.shape  # a data axis of size 1 still serves
+    with pytest.raises(ValueError, match="'data' axis"):
+        ModelService(model_root=str(tmp_path), device="cpu",
+                     mesh=space_only)
+    with pytest.raises(ValueError, match="'data' axis"):
         predict_tiled(None, None, (0, 0, 0), (36, 36, 36), 40, 17, None,
-                      None, device="cpu", mesh=object())
+                      None, device="cpu", mesh=space_only)
 
 
 def test_data_plane_loads_no_torch(tmp_path):

@@ -281,10 +281,15 @@ def test_tensor_source_host_modes(vol, gen, mode):
 
 
 def test_mesh_and_unknown_mode(vol, gen):
+    """mesh= needs a 'data' axis in device and stream modes and is refused
+    by the others (tests/test_torch_parallel.py runs the meshed modes)."""
+    from transfer_em_tpu_torch.parallel.mesh import Mesh
     args = ((40, 40, 40), (36, 36, 36))
+    space_only = Mesh(np.array([torch.device("cpu")] * 2, dtype=object),
+                      ("space",))
     for mode in ("device", "stream"):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            _port(vol, gen, *args, mode, mesh=object())
+        with pytest.raises(ValueError, match="'data' axis"):
+            _port(vol, gen, *args, mode, mesh=space_only)
     for mode in ("slab", "tiles"):
         with pytest.raises(ValueError, match="mode='device' or 'stream'"):
             _port(vol, gen, *args, mode, mesh=object())

@@ -266,8 +266,10 @@ def test_2d_step_at_batch_one():
 def test_scan_window_rejects_bad_arguments():
     with pytest.raises(ValueError, match="window"):
         make_scan_train_step(CFG, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        make_scan_train_step(CFG, 2, device="cpu", mesh=object())
+    from transfer_em_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="window"):
+        make_scan_train_step(CFG, 0, mesh=make_mesh(
+            devices=[torch.device("cpu")] * 2))
     scan = make_scan_train_step(CFG, 2, device="cpu")
     state = create_state(CFG, 0, "cpu")
     x = torch.zeros((3, 2, 74, 74, 1))

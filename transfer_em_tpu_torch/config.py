@@ -18,8 +18,8 @@ from typing import Tuple
 class CycleGANConfig:
     """Model and training hyperparameters (reference EM2EM.__init__,
     cgan.py:40), the JAX package's fields but two.  The train step
-    (train/cgan.py) takes 3D or 2D, float32, without ``remat`` or
-    ``ensemble_apps``, and raises NotImplementedError on the rest.
+    (train/cgan.py) takes every one of them: 3D or 2D, float32 or
+    bfloat16, ``remat``, ``ensemble_apps`` and ``accum_steps``.
     ``batch_size``, ``epoch_size`` and ``buffer_size`` are the dataset's
     (reference datasets.py:10-12), for a caller that builds the pipelines.
     The JAX package's ``fast_conv`` and ``dropout_impl`` select nothing

@@ -22,11 +22,3 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
-
-
-def reject_mesh(mesh=None, sharding=None) -> None:
-    """This slice is single-GPU: data-parallel fan-out is a later slice."""
-    if mesh is not None or sharding is not None:
-        raise NotImplementedError(
-            "mesh=/sharding= (multi-GPU fan-out) belongs to the 'parallel' "
-            "slice of the port; this slice serves on one GPU")

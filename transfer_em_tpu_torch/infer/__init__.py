@@ -90,8 +90,11 @@ def predict_volume(vol_zyx, gen: torch.nn.Module, start, size,
     the result as a tensor on the device.  ``out`` (stream and tiles):
     preallocated zyx uint8 output, e.g. an np.memmap for results larger
     than host RAM; device and slab stitch on the card and reject it.
-    ``mesh`` (device and stream): multi-GPU fan-out is a later slice and
-    raises ``NotImplementedError``.  ``batch_size=None``: width-aware
+    ``mesh`` (device and stream): a ``parallel.make_mesh`` mesh with a
+    'data' axis; the tile batches are dealt out over its devices, and the
+    output equals the unmeshed call's at the same batch a device; the
+    other modes raise ``ValueError`` (spatially sharded inference is
+    ``parallel.halo_predict``).  ``batch_size=None``: width-aware
     (``infer.tiling.default_batch_size``).  ``device``: "cuda" (default)
     or "cpu"; CUDA absent raises.
     """
@@ -118,8 +121,8 @@ def predict_volume(vol_zyx, gen: torch.nn.Module, start, size,
     if mesh is not None and mode not in ("device", "stream"):
         raise ValueError(
             f"mesh= is only supported with mode='device' or 'stream' "
-            f"(got {mode!r}); spatially-sharded inference "
-            "(parallel.halo_predict) is a later slice of the port")
+            f"(got {mode!r}); for spatially-sharded inference use "
+            "parallel.halo_predict")
     if not as_numpy and mode in ("stream", "tiles"):
         raise ValueError(
             f"as_numpy=False is not supported with mode={mode!r}: these "

@@ -47,8 +47,9 @@ class TileBatcher:
       linger_ms: after the first tile of a batch arrives, wait at most this
         long for more before dispatching.
       Batches are zero-padded to ``round_up(k, BUCKET)`` (clamped to
-      ``max_batch``), so pad waste stays under BUCKET slots per batch and
-      few batch shapes ever run.
+      ``max_batch``) rounded up to a multiple of ``multiple`` (the mesh's
+      data-axis size when the step splits batches over it), so pad waste
+      stays under BUCKET slots per batch and few batch shapes ever run.
       outdimsize / buffer / meanstd_x / meanstd_y / model / device: what the
         step bakes in, when known; ``predict_tiled`` rejects a request whose
         plan, normalization, model or device differ.
@@ -56,6 +57,7 @@ class TileBatcher:
 
     def __init__(self, step: Callable, *, insize: Optional[int] = None,
                  max_batch: int = 128, linger_ms: float = 5.0,
+                 multiple: int = 1,
                  outdimsize: Optional[int] = None,
                  buffer: Optional[int] = None,
                  meanstd_x=None, meanstd_y=None, model=None, device=None):
@@ -72,6 +74,7 @@ class TileBatcher:
         self.model = model
         self.device = device
         self.max_batch = int(max_batch)
+        self._multiple = max(1, int(multiple))
         self._linger = float(linger_ms) / 1000.0
         self._q: queue.Queue = queue.Queue()
         self._lock = threading.Lock()
@@ -134,8 +137,8 @@ class TileBatcher:
     # -- worker side -------------------------------------------------------
 
     def _bucket(self, k: int) -> int:
-        b = -(-k // BUCKET) * BUCKET
-        return min(b, max(self.max_batch, k))
+        b = min(-(-k // BUCKET) * BUCKET, max(self.max_batch, k))
+        return -(-b // self._multiple) * self._multiple
 
     def _gather(self, first: _Item):
         """First tile in hand: wait up to linger for more, then take
@@ -218,20 +221,27 @@ def make_tile_batcher(gen, meanstd_x, meanstd_y, outdimsize: int,
     Takes the (outdimsize, buffer) the model's meta.json records and applies
     the multiple-of-6 trim / tpad fold exactly as ``plan_tiles`` does, so
     the batcher serves any ``predict_tiled`` request for this model.
-    ``max_batch=None``: the width-aware default (128 at wf=8).
+    ``max_batch=None``: the width-aware default (128 at wf=8).  ``mesh``:
+    split every batch over the mesh's 'data' axis, one generator replica a
+    device (bucket sizes round up to the axis size); ``sharding`` takes the
+    devices (``tiling.data_sharding(mesh)``) instead.
     """
-    from ..device import reject_mesh, resolve_device
+    from ..device import resolve_device
     from ..shapes import tile_plan_outdimsize
-    from .tiling import default_batch_size, make_tile_step
+    from .tiling import data_sharding, default_batch_size, make_tile_step
 
-    reject_mesh(mesh, sharding)
+    if mesh is not None:
+        if sharding is not None:
+            raise ValueError("pass either mesh= or sharding=, not both")
+        sharding = data_sharding(mesh)
     dev = resolve_device(device)
     if max_batch is None:
         max_batch = default_batch_size(gen)
     eff_out, eff_buf, tpad = tile_plan_outdimsize(outdimsize, buffer)
-    step = make_tile_step(gen, meanstd_x, meanstd_y, tpad, dev)
+    step = make_tile_step(gen, meanstd_x, meanstd_y, tpad, dev, sharding)
     return TileBatcher(step, insize=eff_out + 2 * eff_buf,
                        max_batch=max_batch, linger_ms=linger_ms,
+                       multiple=len(sharding) if sharding is not None else 1,
                        outdimsize=eff_out, buffer=eff_buf,
                        meanstd_x=meanstd_x, meanstd_y=meanstd_y,
                        model=gen, device=dev)

@@ -16,6 +16,13 @@ contiguous ``(B, s, s, s)`` batch; one ``index_put`` per batch stitches.
 The index tensors are built once, on the device: the batch loop launches
 no per-tile work and never waits for the card.
 
+With ``mesh=`` the tile batches are dealt out over the mesh's 'data' axis:
+each device runs its share of the batches on a replica of the generator
+and stitches them into a zero-initialised partial output of its own, and
+the partials combine by an elementwise max on the caller's device (the JAX
+package's ``pmax``; tiles are disjoint, and a padding tile repeats the last
+one, so the max is exact).
+
 Out-of-bounds halos read zeros, as ``gather_blocks`` gives the host path:
 the volume is zero-padded by exactly enough for every tile slice to lie in
 range (a torch slice past the end would come back short, and one with a
@@ -24,17 +31,18 @@ negative start would wrap), and the range is checked before any launch.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import reject_mesh, resolve_device
+from ..device import resolve_device
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
 from .tiling import (_DEVICE_LOCK, TilePlan, check_3d_generator,
-                     check_generator, meanstd_tuple, plan_tiles, tile_batch)
+                     check_generator, data_sharding, meanstd_tuple,
+                     plan_tiles, replicas, tile_batch)
 
 
 def volume_on(vol_zyx, dev: torch.device) -> torch.Tensor:
@@ -71,26 +79,34 @@ def device_predict_tiled(
     guarantees every tile read lies inside ``vol_zyx`` (infer/stream.py
     fetches haloed blocks), so no padding copy is made.  Batches run at
     ``tiling.tile_batch``'s shape, as ``predict_tiled``'s do.  ``mesh``:
-    multi-GPU fan-out is a later slice (raises ``NotImplementedError``).
+    optional mesh with a 'data' axis; each of its devices runs
+    ``batch_size``-tile batches (the batch count rounds up to the axis
+    size), and the result lands on ``device``.
     """
-    reject_mesh(mesh)
     dev = resolve_device(device)
+    devices = (data_sharding(mesh, "device_predict_tiled")
+               if mesh is not None else None)
     check_3d_generator(gen)
     check_generator(gen, dev)
     plan = plan_tiles(start, size, outdimsize, buffer)
     out = stitch_plan(vol_zyx, gen, plan,
                       tile_batch(plan.num_tiles, batch_size),
-                      meanstd_x, meanstd_y, prepadded, dev)
+                      meanstd_x, meanstd_y, prepadded, dev, devices)
     return to_result(out, as_numpy)
 
 
 def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
                 meanstd_x, meanstd_y, prepadded: bool,
-                dev: torch.device) -> torch.Tensor:
+                dev: torch.device,
+                devices: Optional[Sequence[torch.device]] = None
+                ) -> torch.Tensor:
     """Every tile of ``plan`` gathered from ``vol_zyx``, predicted ``batch``
     tiles a step and stitched on ``dev``: the zyx uint8 tensor of the
     request.  infer/stream.py runs each chunk through this at its whole
-    request's batch, so the chunking changes no voxel."""
+    request's batch, so the chunking changes no voxel.  ``devices``: deal
+    the batches out over these (contiguous runs of equal length, the last
+    padded by repeats of the last tile), each stitching its own partial,
+    combined by max on ``dev``."""
     s, od = plan.insize, plan.outdimsize
     sx, sy, sz = plan.size
     T = plan.num_tiles
@@ -122,22 +138,37 @@ def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
     # (step od from the first corner) and the output.  Padding tiles
     # repeat the last tile, whose duplicate writes carry the same voxels.
     # The cells are computed on the device: no copy, no wait.
+    devices = list(devices) if devices is not None else [dev]
+    n = len(devices)
     nb = -(-T // batch)
+    per = -(-nb // n)  # batches a device: the count rounds up to n
     pz, py, px = plan.padded_size
     nz, ny = pz // od, py // od
-    t = torch.arange(nb * batch, device=dev).clamp_(max=T - 1)
-    gz, gy, gx = t % nz, t // nz % ny, t // (nz * ny)
     first = corners[0]
-    windows = (vol[first[0]:, first[1]:, first[2]:]
-               .unfold(0, s, od).unfold(1, s, od).unfold(2, s, od))
-    out = torch.zeros(plan.padded_size, dtype=torch.uint8, device=dev)
-    out_tiles = out.view(pz // od, od, py // od, od, px // od, od).permute(
-        0, 2, 4, 1, 3, 5)
+    shards = []
+    for d, g in zip(devices, replicas(gen, devices)):
+        t = torch.arange(n * per * batch, device=d).clamp_(max=T - 1)
+        v = vol.to(d)
+        out = torch.zeros(plan.padded_size, dtype=torch.uint8, device=d)
+        shards.append((
+            g, (t % nz, t // nz % ny, t // (nz * ny)),
+            v[first[0]:, first[1]:, first[2]:]
+            .unfold(0, s, od).unfold(1, s, od).unfold(2, s, od),
+            out, out.view(pz // od, od, py // od, od, px // od, od)
+            .permute(0, 2, 4, 1, 3, 5)))
 
     ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
     with _DEVICE_LOCK, torch.inference_mode():
-        for i in range(0, nb * batch, batch):
-            idx = (gz[i:i + batch], gy[i:i + batch], gx[i:i + batch])
-            y = gen(preprocess_u8(windows[idx], ms_x))
-            out_tiles[idx] = postprocess_to_u8(y, ms_y, plan.tpad)
+        # step k of every device before step k + 1 of any, so the devices
+        # run together; device j takes batches [j per, (j + 1) per)
+        for k in range(per):
+            for j, (g, (gz, gy, gx), windows, _, out_tiles) in enumerate(
+                    shards):
+                i = (j * per + k) * batch
+                idx = (gz[i:i + batch], gy[i:i + batch], gx[i:i + batch])
+                y = g(preprocess_u8(windows[idx], ms_x))
+                out_tiles[idx] = postprocess_to_u8(y, ms_y, plan.tpad)
+        out = shards[0][3].to(dev)
+        for shard in shards[1:]:
+            out = torch.maximum(out, shard[3].to(dev))
     return out[:sz, :sy, :sx]

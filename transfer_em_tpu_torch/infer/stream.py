@@ -36,12 +36,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import reject_mesh, resolve_device
+from ..device import resolve_device
 from ..native import gather_box
 from ..shapes import tile_plan_outdimsize
 from .device_stitch import stitch_plan
-from .tiling import (check_3d_generator, check_generator, plan_tiles,
-                     tile_batch)
+from .tiling import (check_3d_generator, check_generator, data_sharding,
+                     plan_tiles, tile_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,15 +202,18 @@ def predict_streaming(
         two blocks and two result chunks are on the device at once, so
         peak memory is about 2 * max_block_bytes + 2 * chunk bytes + the
         model's activations.
-      mesh: multi-GPU fan-out is a later slice (raises).
+      mesh: optional mesh with a 'data' axis: each chunk's tile batches are
+        dealt out over its devices, as ``device_predict_tiled(mesh=)``
+        deals a request's (``batch_size`` tiles a device and a step).
       out: optional preallocated zyx uint8 output of ``size`` (e.g. a
         np.memmap for outputs larger than host RAM).
       device: "cuda" (default) or "cpu"; CUDA absent raises.
     Returns:
       zyx uint8 array of ``size`` (``out`` if given).
     """
-    reject_mesh(mesh)
     dev = resolve_device(device)
+    devices = (data_sharding(mesh, "predict_streaming")
+               if mesh is not None else None)
     check_3d_generator(gen)
     check_generator(gen, dev)
     plan = plan_chunks(start, size, outdimsize, buffer, max_block_bytes)
@@ -244,7 +247,8 @@ def predict_streaming(
 
     def compute(block: torch.Tensor) -> torch.Tensor:
         return stitch_plan(block, gen, chunk_tiles, batch, meanstd_x,
-                           meanstd_y, prepadded=True, dev=dev)
+                           meanstd_y, prepadded=True, dev=dev,
+                           devices=devices)
 
     def write(k: int, chunk_zyx: np.ndarray, landed):
         if landed is not None:

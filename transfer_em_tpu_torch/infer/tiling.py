@@ -11,11 +11,16 @@ UNetGenerator (conv3 + LeakyReLU kernels, cuDNN k4 convs) -> postprocess
 kernel, which reads the tpad-trimmed window in place -> uint8.  Device work
 comes from one thread at a time: every step holds ``_DEVICE_LOCK`` (on the
 batched path only the batcher's worker runs steps, so it is uncontended).
+
+With ``mesh=`` (a ``parallel.make_mesh`` mesh with a 'data' axis) every tile
+batch is split over the data axis's devices, one generator replica each:
+the multi-card path for sources streamed from the host or remote storage.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import copy
 import dataclasses
 import math
 import threading
@@ -29,7 +34,7 @@ from torch import nn
 
 from ..data.sources import (CloudRunFetcher, _parallel_fetch,
                             open_tensorstore, read_ts_box_zyx)
-from ..device import reject_mesh, resolve_device
+from ..device import resolve_device
 from ..native import scatter_blocks
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
 from ..shapes import tile_plan_outdimsize
@@ -112,23 +117,63 @@ def meanstd_tuple(meanstd):
     return tuple(float(v) for v in meanstd) if meanstd is not None else None
 
 
+def data_sharding(mesh, who: str = "tiled inference") -> List[torch.device]:
+    """The devices of ``mesh``'s 'data' axis, one per shard of a tile batch
+    (the JAX package's NamedSharding over 'data'; positions along the other
+    axes would repeat the same work).  Inference runs in one process, so
+    every one of them must be this process's."""
+    if "data" not in mesh.shape:
+        raise ValueError(
+            f"{who} needs a mesh with a 'data' axis (got axes "
+            f"{tuple(mesh.shape)}); for spatially-sharded inference use "
+            "parallel.halo_predict")
+    if mesh.spans_processes:
+        raise ValueError(f"{who} runs in one process; this mesh spans "
+                         "several (use a mesh of this process's devices)")
+    return mesh.axis_devices("data")
+
+
+def replicas(gen: nn.Module, devices: Sequence[torch.device]
+             ) -> List[nn.Module]:
+    """``gen`` on each of ``devices``: itself where it already lives, else
+    one copy of its parameters per device."""
+    home = next(gen.parameters()).device
+    made = {home: gen}
+    for d in devices:
+        if d not in made:
+            made[d] = copy.deepcopy(gen).to(d)
+    return [made[d] for d in devices]
+
+
 def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
-                   device="cuda") -> Callable[[np.ndarray], np.ndarray]:
+                   device="cuda", sharding: Optional[Sequence] = None
+                   ) -> Callable[[np.ndarray], np.ndarray]:
     """Fused step: (B, s, s, s) uint8 numpy -> (B, o, o, o) uint8 numpy on
     ``device`` (where ``gen`` must already live); for a 2D generator
     (B, s, s) -> (B, o, o), as the JAX package's step takes either rank.
-    ``o`` is the generator's output side less ``2 * tpad``."""
+    ``o`` is the generator's output side less ``2 * tpad``.  ``sharding``:
+    devices (``data_sharding(mesh)``) to split every batch over, in equal
+    parts, each on a replica of ``gen``; B must divide by their count."""
     dev = resolve_device(device)
     check_generator(gen, dev)
     ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
     tpad = int(tpad)
+    devices = list(sharding) if sharding is not None else [dev]
+    gens = replicas(gen, devices)
 
     def step(tiles_u8: np.ndarray) -> np.ndarray:
         arr = np.ascontiguousarray(tiles_u8, np.uint8)
+        if len(arr) % len(devices):
+            raise ValueError(f"batch {len(arr)} does not split over "
+                             f"{len(devices)} devices")
         with _DEVICE_LOCK, torch.inference_mode():
-            x = torch.from_numpy(arr).to(dev)
-            y = gen(preprocess_u8(x, ms_x))
-            return postprocess_to_u8(y, ms_y, tpad).cpu().numpy()
+            # every part is launched before any is read back, so the
+            # devices run together
+            outs = [postprocess_to_u8(g(preprocess_u8(
+                        torch.from_numpy(part).to(d), ms_x)), ms_y, tpad)
+                    for d, g, part in zip(devices, gens,
+                                          np.split(arr, len(devices)))]
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
     return step
 
@@ -158,16 +203,20 @@ def default_batch_size(gen: nn.Module) -> int:
     return max(8, min(128, (128 * 32 // widest) // 8 * 8))
 
 
-def tile_batch(n_tiles: int, batch_size: int) -> int:
+def tile_batch(n_tiles: int, batch_size: int, multiple: int = 1) -> int:
     """Tiles per device step for a request of ``n_tiles``: small requests
     must not pay full-batch padding, so ``batch_size`` is clamped to the
     tile count rounded up to a multiple of 8 (as in the JAX package).  The
     tile-grid modes (tiles, device, stream) run at this shape, so they
     agree bit for bit: a conv's summation order may depend on the batch
     (on the CPU it does; the stream fits each chunk's batch to the chunk on
-    CUDA only, infer/stream.py)."""
+    CUDA only, infer/stream.py).  ``multiple``: a batch split over that
+    many devices is rounded up to a multiple of it, before and after the
+    clamp, as the JAX package rounds to its mesh's data axis."""
+    batch_size = -(-batch_size // multiple) * multiple
     ladder = n_tiles if n_tiles <= 8 else -(-n_tiles // 8) * 8
-    return max(1, min(batch_size, ladder))
+    clamped = -(-min(batch_size, ladder) // multiple) * multiple
+    return max(1, clamped)
 
 
 def _check_batcher(batcher, plan: TilePlan, gen, meanstd_x, meanstd_y,
@@ -233,17 +282,25 @@ def predict_tiled(
         and every 0.2 s while awaiting batcher futures; when it returns True
         the run raises ``InferenceCancelled``.
       device: "cuda" (default) or "cpu"; CUDA absent raises.
-      mesh, sharding: multi-GPU fan-out is a later slice (raise).
+      mesh: optional mesh with a 'data' axis: each tile batch is split over
+        its devices (``batch_size`` is rounded up to a multiple of the
+        axis size, before and after the clamp).  ``sharding`` takes the
+        devices (``data_sharding(mesh)``) instead.  Unused with a batcher,
+        which carries its own.
       fetch_input: also stitch the input voxels under each output tile.
     Returns:
       the zyx uint8 prediction of ``size`` (``out`` if given); with
       ``fetch_input``, the pair (input, prediction).
     """
-    reject_mesh(mesh, sharding)
+    if mesh is not None:
+        if sharding is not None:
+            raise ValueError("pass either mesh= or sharding=, not both")
+        sharding = data_sharding(mesh)
     dev = resolve_device(device)
     check_3d_generator(gen)
     plan = plan_tiles(start, size, outdimsize, buffer)
-    batch_size = tile_batch(plan.num_tiles, batch_size)
+    batch_size = tile_batch(plan.num_tiles, batch_size,
+                            len(sharding) if sharding is not None else 1)
     if out is not None:
         want = (size[2], size[1], size[0])  # zyx
         if tuple(out.shape) != want:
@@ -255,7 +312,8 @@ def predict_tiled(
         return _predict_tiled_batched(batcher, fetch_tile, plan, out=out,
                                       should_cancel=should_cancel,
                                       fetch_input=fetch_input)
-    step = make_tile_step(gen, meanstd_x, meanstd_y, plan.tpad, dev)
+    step = make_tile_step(gen, meanstd_x, meanstd_y, plan.tpad, dev,
+                          sharding)
 
     user_out = out is not None
     if out is None:
@@ -381,9 +439,7 @@ def predict_ng_cube(location: str, start, size, model, meanstd_x, meanstd_y,
     ``cloudrun=None`` reads through tensorstore, zero-filled outside the
     volume's domain; otherwise through the data service at that URL
     (``POST /volume``).  ``fetch_input``, ``batch_size``, ``batcher``,
-    ``out`` and ``device`` as in ``predict_tiled``; ``mesh`` raises (a later
-    slice)."""
-    reject_mesh(mesh)
+    ``out``, ``device`` and ``mesh`` as in ``predict_tiled``."""
     dev = resolve_device(device)
     if hasattr(model, "outdimsize"):
         outdimsize = model.outdimsize if outdimsize is None else outdimsize
@@ -410,5 +466,5 @@ def predict_ng_cube(location: str, start, size, model, meanstd_x, meanstd_y,
 
     return predict_tiled(fetch_tile, gen, start, size, outdimsize, buffer,
                          meanstd_x, meanstd_y, batch_size=batch_size,
-                         batcher=batcher, out=out, device=dev,
+                         batcher=batcher, out=out, device=dev, mesh=mesh,
                          fetch_input=fetch_input)

@@ -204,7 +204,33 @@ class InstanceNorm(nn.Module):
         return (self.scale + 1.0) * (x - mean) * inv + self.offset
 
 
-def _keep_mask(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+class RowDraw:
+    """A dropout generator for a shard of a larger batch: it draws the keep
+    mask of the whole ``total``-row batch from ``generator``, as the
+    unsharded application draws it, and keeps the rows ``rows`` (a 1-D
+    index), so a data-parallel step gives every row the mask the
+    single-device step gives it (parallel/dp.py).  ``get_state`` /
+    ``set_state`` are the generator's, for remat's rewind."""
+
+    def __init__(self, generator: torch.Generator, total: int,
+                 rows: torch.Tensor):
+        self.generator = generator
+        self.total = int(total)
+        self.rows = rows
+
+    def get_state(self) -> torch.Tensor:
+        return self.generator.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.generator.set_state(state)
+
+
+def _keep_mask(y: torch.Tensor, generator) -> torch.Tensor:
+    if isinstance(generator, RowDraw):
+        full = torch.randint(0, 256, (generator.total,) + tuple(y.shape[1:]),
+                             generator=generator.generator, device=y.device,
+                             dtype=torch.uint8)
+        return full.index_select(0, generator.rows.to(y.device)) < 128
     return torch.randint(0, 256, y.shape, generator=generator,
                          device=y.device, dtype=torch.uint8) < 128
 
@@ -238,17 +264,19 @@ class _KeepMask(torch.autograd.Function):
                             for i, g in enumerate(generators)]), 0
 
 
-Generators = Union[torch.Generator, Sequence[torch.Generator]]
+Generators = Union[torch.Generator, RowDraw,
+                   Sequence[Union[torch.Generator, RowDraw]]]
 
 
 def dropout_half(y: torch.Tensor, generator: Generators) -> torch.Tensor:
     """Dropout(0.5) as the JAX package's ``rbg8`` draws it: one random byte
     per element, kept where it is < 128 (probability 1/2 exactly), kept
     values scaled by 1/keep = 2.  The bytes come from ``generator`` (a
-    torch.Generator on y's device), or, under ``torch.func.vmap`` over
-    stacked networks, from one generator per network (a sequence); the
+    torch.Generator on y's device, or a ``RowDraw`` of one), or, under
+    ``torch.func.vmap`` over stacked networks, from one generator per
+    network (a sequence); the
     TPU's bit stream is not reproduced, only its distribution."""
-    if isinstance(generator, torch.Generator):
+    if isinstance(generator, (torch.Generator, RowDraw)):
         keep = _keep_mask(y, generator)
     else:
         keep = _KeepMask.apply(y, tuple(generator))

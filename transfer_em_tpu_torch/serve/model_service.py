@@ -33,10 +33,10 @@ from typing import Optional
 
 import numpy as np
 
-from ..device import reject_mesh, resolve_device
+from ..device import resolve_device
 from ..infer.export import load_generator
 from ..infer.tiling import (InferenceCancelled, check_3d_generator,
-                            predict_tiled)
+                            data_sharding, predict_tiled)
 from .backends import open_volume
 
 BLOCK = 64
@@ -342,8 +342,12 @@ class ModelCache:
         return s
 
 
-def make_handler(cache: ModelCache, limiter: Optional[_Limiter] = None,
+def make_handler(cache: ModelCache, mesh=None,
+                 limiter: Optional[_Limiter] = None,
                  request_timeout_s: Optional[float] = None):
+    """The service's request handler class.  ``mesh``: split every
+    request's tile batches over its 'data' axis, where the model has no
+    batcher (a batcher carries the mesh itself)."""
     class Handler(BaseHTTPRequestHandler):
         # A client that sends Content-Length but never the body would pin a
         # handler thread forever, outside admission control.
@@ -439,7 +443,8 @@ def make_handler(cache: ModelCache, limiter: Optional[_Limiter] = None,
                     fetch_tile, gen, start, size, meta.outdimsize,
                     meta.buffer, meta.meanstd_x, meta.meanstd_y,
                     batcher=batcher, should_cancel=should_cancel,
-                    device=cache.device)
+                    device=cache.device,
+                    mesh=None if batcher is not None else mesh)
                 offset = [start[d] - glbstart[d] for d in range(3)]
                 write_ng_blocks(out_zyx, config["dest"], offset)
                 self._send(200, b"success")
@@ -461,7 +466,8 @@ def make_handler(cache: ModelCache, limiter: Optional[_Limiter] = None,
 
 
 class ModelService:
-    """Threaded model-serving HTTP service on one GPU.
+    """Threaded model-serving HTTP service on one GPU, or on the devices of
+    a mesh's 'data' axis.
 
     ``device``: "cuda" (default) or "cpu"; CUDA absent raises.
     ``compute_dtype``: None (float32, like the JAX service) or "bfloat16".
@@ -471,8 +477,11 @@ class ModelService:
     ``cache_size`` (env MODEL_CACHE_SIZE, default 1), ``max_inflight``
     (env MAX_INFLIGHT, default 8, 0 disables; excess requests get 503) and
     ``request_timeout_s`` (env REQUEST_TIMEOUT_S, default 600, 0 disables;
-    past it the client gets 504) as in the JAX service.  ``mesh`` raises:
-    multi-GPU serving is a later slice."""
+    past it the client gets 504) as in the JAX service.  ``mesh``: a
+    ``parallel.make_mesh`` mesh with a 'data' axis; every request's tile
+    batches are split over its devices, one generator replica each (the
+    multi-card path for sources streamed from storage); a mesh without a
+    'data' axis raises ValueError here."""
 
     def __init__(self, model_root: Optional[str] = None,
                  host: str = "127.0.0.1", port: int = 0, mesh=None,
@@ -481,8 +490,9 @@ class ModelService:
                  max_inflight: Optional[int] = None,
                  request_timeout_s: Optional[float] = None,
                  device="cuda", compute_dtype=None):
-        reject_mesh(mesh)
         dev = resolve_device(device)
+        if mesh is not None:
+            data_sharding(mesh, "ModelService")
         model_root = model_root or os.environ.get("MODEL_BUCKET", ".")
         if cache_size is None:
             cache_size = int(os.environ.get("MODEL_CACHE_SIZE", "1"))
@@ -499,12 +509,12 @@ class ModelService:
                 return make_tile_batcher(
                     gen, meta.meanstd_x, meta.meanstd_y, meta.outdimsize,
                     meta.buffer, device=dev, max_batch=max_batch,
-                    linger_ms=linger_ms)
+                    linger_ms=linger_ms, mesh=mesh)
         self.cache = ModelCache(model_root, batcher_factory=factory,
                                 capacity=cache_size, device=dev,
                                 compute_dtype=compute_dtype)
         self.limiter = _Limiter(max_inflight) if max_inflight else None
-        handler = make_handler(self.cache, limiter=self.limiter,
+        handler = make_handler(self.cache, mesh=mesh, limiter=self.limiter,
                                request_timeout_s=request_timeout_s or None)
         self.server = ThreadingHTTPServer((host, port), handler)
         self._thread = None

@@ -39,10 +39,9 @@ round) and the scan window (``make_scan_train_step``,
 the data pipelines, with checkpoints (``train/checkpoints.py``) and metrics
 (``train/metrics.py``); ``EM2EM.from_reference_checkpoint`` continues a
 reference TF run (``compat``); ``create_prior_helper`` taps an exported
-generator or a reference Keras asset for ``disc_prior``.
-
-Waiting for a later slice (raises NotImplementedError where a caller
-reaches it): ``to_mesh`` and ``mesh=`` (ROADMAP A4).
+generator or a reference Keras asset for ``disc_prior``.  ``EM2EM.to_mesh``
+and ``make_scan_train_step(mesh=)`` train data-parallel over a device mesh
+(``parallel/dp.py``).
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
 
 from ..config import CycleGANConfig
-from ..device import reject_mesh, resolve_device
+from ..device import resolve_device
 from ..models.discriminator import Discriminator
 from ..models.generator import UNetGenerator
 from ..ops import losses as L
@@ -223,7 +222,7 @@ def cyclegan_losses(gg: UNetGenerator, gf: UNetGenerator, dx: Discriminator,
         if not remat:
             return fn(x, k)
         owned = [] if deterministic else (
-            [k] if isinstance(k, torch.Generator) else list(k))
+            list(k) if isinstance(k, (tuple, list)) else [k])
         states = [gen.get_state() for gen in owned]
 
         def replay(x_):
@@ -430,14 +429,18 @@ def make_scan_train_step(config: CycleGANConfig, window: int,
     the step on the device in one dispatch; eager PyTorch has no dispatch
     to save, so this is a loop over the window with the same numbers.  The
     prior, if any, rides in the state's disc_y, so ``disc_prior`` (the JAX
-    signature's) is not needed; ``mesh`` is the parallel slice's (ROADMAP
-    A4) and raises."""
+    signature's) is not needed.  ``mesh``: each step is the data-parallel
+    step over it (``parallel.make_dp_train_step``), the stacked batches
+    split on their axis 1, and ``device`` is unused."""
     del disc_prior
-    reject_mesh(mesh)
     window = int(window)
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    step = make_train_step(config, device)
+    if mesh is None:
+        step = make_train_step(config, device)
+    else:
+        from ..parallel.dp import make_dp_train_step
+        step = make_dp_train_step(config, mesh)
 
     def scan(state: CycleGANState, xs, ys, seed: int) -> torch.Tensor:
         if len(xs) != window or len(ys) != window:
@@ -499,8 +502,9 @@ class EM2EM:
     masks come from torch.Generators seeded from (seed, step, application)).
     ``compute_dtype="bfloat16"`` trains and predicts with the bf16
     networks; the state, and so every checkpoint, is float32 in both
-    dtypes, and a checkpoint of either restores into the other.  A later
-    slice (raises NotImplementedError): ``to_mesh`` (A4).
+    dtypes, and a checkpoint of either restores into the other.
+    ``to_mesh`` trains data-parallel over a device mesh; the state, and so
+    every checkpoint, stays one copy.
 
     Checkpoints (``train/checkpoints.py``): ``torch.save`` files under
     ``<checkpoint_root>/train_<exp_name>/<epoch>/``, written on a background
@@ -536,6 +540,7 @@ class EM2EM:
             raise ValueError(f"dimsize {dimsize} gives an odd output size")
         self.buffer = shapes.buffer
         self.outdimsize = shapes.out
+        self.mesh = None
         self._train_step = make_train_step(self.config, self.device)
 
         self.checkpoint_path = os.path.abspath(
@@ -551,7 +556,12 @@ class EM2EM:
     def make_checkpoint(self, epoch_num: int) -> None:
         """Save the state as step ``epoch_num`` (reference cgan.py:105-108):
         a synchronous host copy now, written and committed on the
-        background writer.  ``wait_until_finished`` drains it."""
+        background writer.  ``wait_until_finished`` drains it.  On a mesh
+        that spans processes only rank 0 writes (every process holds the
+        same state)."""
+        from ..parallel.mesh import process_rank
+        if self.mesh is not None and process_rank() != 0:
+            return
         self._ckpt.save(epoch_num, snapshot(self.state))
         print(f"Saving checkpoint for epoch {epoch_num} at "
               f"{self.checkpoint_path}/{epoch_num}")
@@ -615,15 +625,28 @@ class EM2EM:
         return model
 
     def to_mesh(self, mesh=None) -> "EM2EM":
-        """Data-parallel training over several cards."""
-        raise NotImplementedError(
-            "to_mesh (data-parallel training) comes with the parallel slice "
-            "of the port (ROADMAP A4)")
+        """Train data-parallel over ``mesh`` (default: ``make_mesh()``, every
+        local card): the state moves to the mesh's first device of this
+        process (``parallel.shard_state``; rank 0's copy on every process)
+        and ``train_step`` becomes ``parallel.make_dp_train_step``'s, each
+        batch split over the mesh.  Returns self."""
+        from ..parallel import make_mesh
+        from ..parallel.dp import (first_local_device, make_dp_train_step,
+                                   shard_state)
+        if mesh is None:
+            mesh = make_mesh()
+        shard_state(self.state, mesh)
+        self.mesh = mesh
+        self.device = first_local_device(mesh)
+        self._train_step = make_dp_train_step(self.config, mesh,
+                                              self.disc_prior)
+        return self
 
     # ----------------------------------------------------------------- train
     def train_step(self, real_x, real_y) -> torch.Tensor:
         """One optimization step; returns the 7-loss vector on the device
-        (cgan.py:144)."""
+        (cgan.py:144).  On a mesh the batches are the global ones, split
+        over it."""
         return self._train_step(self.state, real_x, real_y, self.seed)
 
     def train(self, train_input: Iterable, train_target: Iterable,
