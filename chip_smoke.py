@@ -181,30 +181,37 @@ each printing one JSON line:
             versions, int8 against f32 (read), one profiled batch.
             conv_int8, preprocess, postprocess and LeakyReLU must launch,
             conv3 must not.
-14. parallel  data and halo parallelism on meshes of this one card (run
-            after int8): under cudnn.deterministic, predict_tiled on a
-            128^3 chunk, ModelService serving it, and predict_volume at
-            the volume phase's 360^3 request in device and stream mode,
-            each on make_mesh(devices=[cuda:0] * 2) (data=2) bit-equal to
-            the unmeshed call at the same batch a device, Mvox/s beside
-            it; halo_predict in f32 over 4 shards (z over 4 on a
-            160x234x234 input, z x y over 2 x 2 on 80x80x234), each shard
-            bit-equal to the generator on its block of the padded volume,
-            and at the JAX tests' N(0, 0.02) init within their bar (rtol
-            1e-4, atol 1e-5) of one pass over the padded volume, whose gap
-            at the fan-in-scaled weights is printed; make_dp_train_step on
-            [cuda:0] * 2 at global B=16 against make_train_step at B=16
-            from the same state: dropout off, losses rtol 1e-4 and every
+14. parallel  data and halo parallelism (run after int8) on meshes whose
+            positions take the visible cards in turn (``_cards``:
+            ``[cuda:0] * k`` on one card): under cudnn.deterministic,
+            predict_tiled on a 128^3 chunk, ModelService serving it, and
+            predict_volume at the volume phase's 360^3 request in device
+            and stream mode, each on a data=2 mesh bit-equal to the
+            unmeshed call at the same batch a device, Mvox/s beside it;
+            halo_predict in f32 over 4 shards (z over 4 on a 160x234x234
+            input, z x y over 2 x 2 on 80x80x234), each shard bit-equal
+            to the generator on its block of the padded volume, and at
+            the JAX tests' N(0, 0.02) init within their bar (rtol 1e-4,
+            atol 1e-5) of one pass over the padded volume, whose gap at
+            the fan-in-scaled weights is printed; make_dp_train_step on 2
+            positions at global B=16 against make_train_step at B=16 from
+            the same state: dropout off, losses rtol 1e-4 and every
             reduced gradient within GRAD_TOL; dropout on, losses rtol
-            1e-4; a second DP step's weight packs 2 x a step's (the
-            replica repacks); EM2EM(74, wf=8).to_mesh trains 4 steps at
-            B=16 and its checkpoint restores bit-equal into an unmeshed
-            model; two processes of this script (``--parallel-worker``)
-            on the card over gloo: a DP step on 8 rows each against the
-            single-process step, a 2-shard halo ring across the process
-            boundary, each worker's launch counts; one NCCL rank
-            (world size 1) running a DP step.  conv3, LeakyReLU,
-            preprocess and postprocess must launch in the phase.
+            1e-4; a second DP step packs each card's weights once;
+            EM2EM(74, wf=8).to_mesh trains 4 steps at B=16 and its
+            checkpoint restores bit-equal into an unmeshed model; worker
+            processes of this script (``--parallel-worker``): two on one
+            card over gloo, else one a card over NCCL, a DP step on their
+            rows against the single-process step and a halo ring across
+            the process boundaries; one NCCL rank (world size 1) running
+            a DP step; with two or more cards, device-mode Mvox/s and DP
+            tiles/s on 1, 2 and every card.  The counts are zeroed just
+            before each meshed call and read just after it (every
+            unmeshed reference outside), summed per path: tile and volume
+            must launch all four kernels, halo and DP conv3 and
+            LeakyReLU; each worker's DP steps and ring the same two.
+            ``--parallel-only`` builds the kernels and runs this phase
+            alone (no kernels line).
 13. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
@@ -214,8 +221,8 @@ each printing one JSON line:
    from the int8 tile step (``launches`` for conv_int8), ``twod`` the 2D
    shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
    at the train step's shapes, ``slab_shapes`` from the volume phase's
-   kernel checks, ``parallel_launches`` from phase 14's single-process
-   part), then the ``ok`` line.  Any failed check exits non-zero
+   kernel checks, ``parallel_launches`` from phase 14's meshed calls,
+   ``parallel_launches_by_path`` split by path), then the ``ok`` line.  Any failed check exits non-zero
    before the last line.
 """
 
@@ -3597,6 +3604,63 @@ DP_B = 16                          # the DP step's global batch
 HALO_CASES = (("z4", dict(data=1, space=4), (160, 234, 234), {}),
               ("z2y2", dict(data=1, space=2, space_y=2), (80, 80, 234),
                dict(y_axis="space_y")))
+# the kernels each meshed path must launch (halo and DP feed the generator
+# floats: no pre/postprocess)
+PATH_KERNELS = {"tile": ("conv3", "preprocess_u8", "postprocess_u8",
+                         "leaky_relu"),
+                "volume": ("conv3", "preprocess_u8", "postprocess_u8",
+                           "leaky_relu"),
+                "halo": ("conv3", "leaky_relu"),
+                "dp": ("conv3", "leaky_relu")}
+SCALE_TILES = 16                   # the DP step's tiles a card when scaling
+
+
+def _cards(k):
+    """k mesh positions over the visible cards in turn: ``[cuda:0] * k`` on
+    one card, one position a card on k or more."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(k)]
+
+
+def _workers():
+    """The processes of the two-process part and their backend: two on one
+    card over gloo (NCCL refuses two ranks on one device), else one a card
+    over NCCL."""
+    n = torch.cuda.device_count()
+    return (2, "gloo") if n == 1 else (n, "nccl")
+
+
+class MeshedCounts:
+    """The launch counts of the meshed calls alone, summed per path: a
+    window zeroes the counts as it opens and reads them as it closes (into
+    the dict it yields), and every unmeshed reference runs outside the
+    windows."""
+
+    def __init__(self):
+        self.paths = {}
+
+    @contextlib.contextmanager
+    def window(self, path):
+        got = {}
+        reset_counts()
+        yield got
+        got.update(read_counts())
+        acc = self.paths.setdefault(path, dict.fromkeys(got, 0))
+        for k, v in got.items():
+            acc[k] += v
+
+    def ok(self, paths=PATH_KERNELS):
+        """Every kernel of every path launched in that path's windows."""
+        return all(self.paths.get(p, {}).get(k, 0) > 0
+                   for p, ks in paths.items() for k in ks)
+
+
+MESHED = MeshedCounts()
+
+
+def _sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def _free_port():
@@ -3613,22 +3677,23 @@ def _standardized(vol_u8, dev):
 
 
 def _halo_case(dev, gen, vol, mesh_kw, kw):
-    """halo_predict over ``[dev] * 4``: wall time, and each shard against
+    """halo_predict over ``_cards(4)``: wall time, and each shard against
     the generator on that shard's block of the zero-padded volume (bit for
     bit under cudnn.deterministic: what halo_predict defines)."""
     from transfer_em_tpu_torch.parallel import make_mesh
     from transfer_em_tpu_torch.parallel.halo import halo_predict_fn
 
-    mesh = make_mesh(devices=[dev] * 4, **mesh_kw)
+    mesh = make_mesh(devices=_cards(4), **mesh_kw)
     split = (0, 1) if "y_axis" in kw else (0,)
     f = halo_predict_fn(gen, mesh, 17, vol.shape[0], y_axis=kw.get("y_axis"),
                         y_extent=vol.shape[1] if "y_axis" in kw else None)
-    f(None, vol)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = f(None, vol)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with MESHED.window("halo"):
+        f(None, vol)  # warm
+        _sync_all()
+        t0 = time.perf_counter()
+        out = f(None, vol)
+        _sync_all()
+        wall = time.perf_counter() - t0
     pad = [0, 0, 0, 0, 0, 0]
     for a in split:  # F.pad's order: last axis first; channel axis unpadded
         pad[2 * (2 - a)] = pad[2 * (2 - a) + 1] = 17
@@ -3639,7 +3704,7 @@ def _halo_case(dev, gen, vol, mesh_kw, kw):
             block = tuple(slice(s.index[a].start, s.index[a].stop + 34)
                           if a in split else slice(None) for a in range(3))
             exact = exact and torch.equal(
-                s.data, gen(padded[block][None].contiguous())[0])
+                s.data.to(dev), gen(padded[block][None].contiguous())[0])
     return out.gather(dev), padded, wall, exact
 
 
@@ -3667,9 +3732,10 @@ def check_halo(dev):
                                                   kw)
             with torch.inference_mode():
                 whole = scaled(padded[None])[0]
-                got0 = halo_predict(init, None, vol, make_mesh(
-                    devices=[dev] * 4, **mesh_kw), 17, **kw)
                 whole0 = init(padded[None])[0]
+            with MESHED.window("halo"):
+                got0 = halo_predict(init, None, vol, make_mesh(
+                    devices=_cards(4), **mesh_kw), 17, **kw).to(dev)
             gap = (got - whole).abs()
             ok0 = bool(torch.allclose(got0, whole0, rtol=HALO_RTOL,
                                       atol=HALO_ATOL))
@@ -3689,16 +3755,16 @@ def check_halo(dev):
 
 
 def check_dp(dev):
-    """The DP step on ``[dev] * 2`` at global B=16 against make_train_step
+    """The DP step on ``_cards(2)`` at global B=16 against make_train_step
     at B=16 from the same state (redrawn weights, std-0.3 batches): dropout
     off, the 7 losses within rtol 1e-4 and every reduced gradient within
     GRAD_TOL of its own largest |g|; dropout on, the losses within rtol
-    1e-4 (global masks); a second DP step's weight packs = 2 x one step's
-    (the replica repacks after its parameter copy)."""
+    1e-4 (global masks); a second DP step packs each card's copy of the
+    weights once (the state's on the first card, a replica's on another:
+    it repacks after its parameter refresh)."""
     import copy
 
     from transfer_em_tpu_torch.config import CycleGANConfig
-    from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.parallel import (make_dp_train_step,
                                                 make_mesh, shard_state)
     from transfer_em_tpu_torch.train import (build_step_fn, create_state,
@@ -3708,8 +3774,9 @@ def check_dp(dev):
     state = create_state(cfg, seed=1, device=dev)
     redraw(state, 2)
     x, y = smooth_batches(DP_B, 0.3, 13, dev)
-    mesh = make_mesh(devices=[dev] * 2)
-    rec = {"batch": DP_B, "shards": 2}
+    devices = _cards(2)
+    mesh = make_mesh(devices=devices)
+    rec = {"batch": DP_B, "shards": 2, "devices": [str(d) for d in devices]}
     for dropout in (False, True):
         single = copy.deepcopy(state)
         meshed = shard_state(copy.deepcopy(state), mesh)
@@ -3720,9 +3787,10 @@ def check_dp(dev):
         t0 = time.perf_counter()
         want = one(single, x, y, 7).cpu().numpy()
         single_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = dp(meshed, x, y, 7).cpu().numpy()
-        dp_s = time.perf_counter() - t0
+        with MESHED.window("dp"):
+            t0 = time.perf_counter()
+            got = dp(meshed, x, y, 7).cpu().numpy()
+            dp_s = time.perf_counter() - t0
         key = "dropout_on" if dropout else "dropout_off"
         rec[key] = {"losses": got.tolist(), "single_losses": want.tolist(),
                     "loss_max_rel_err": float(np.max(
@@ -3731,14 +3799,13 @@ def check_dp(dev):
         if not dropout:
             rec[key]["grad_max_err_over_own_max"] = _worst(
                 _grad_errors(meshed, single))
-            packs = cuda_conv.packed_weights.packs
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dp(meshed, x, y, 8)
-            torch.cuda.synchronize()
-            rec[key]["second_step_s"] = time.perf_counter() - t0
-            rec[key]["second_step_packs"] = (cuda_conv.packed_weights.packs
-                                             - packs)
+            with MESHED.window("dp") as second:
+                _sync_all()
+                t0 = time.perf_counter()
+                dp(meshed, x, y, 8)
+                _sync_all()
+                rec[key]["second_step_s"] = time.perf_counter() - t0
+            rec[key]["second_step_packs"] = second["conv3_weight_packs"]
             rec[key]["packs_per_single_step"] = expected_step_counts(
                 state)["conv3_weight_packs"]
         del single, meshed
@@ -3748,12 +3815,12 @@ def check_dp(dev):
                  and all(v <= GRAD_TOL for v in
                          off["grad_max_err_over_own_max"].values())
                  and off["second_step_packs"]
-                 == 2 * off["packs_per_single_step"])
+                 == len(set(devices)) * off["packs_per_single_step"])
     return rec
 
 
 def check_to_mesh(dev):
-    """EM2EM(74, wf=8).to_mesh([dev] * 2) trains one epoch of 4 steps at
+    """EM2EM(74, wf=8).to_mesh(_cards(2)) trains one epoch of 4 steps at
     B=16 (seconds, finite losses); its checkpoint restores bit-equal into
     an unmeshed model."""
     from transfer_em_tpu_torch.parallel import make_mesh
@@ -3762,14 +3829,15 @@ def check_to_mesh(dev):
     batches = [smooth_batches(DP_B, 0.3, 20 + i, dev) for i in range(4)]
     with tempfile.TemporaryDirectory() as tmp:
         model = EM2EM(74, "par", wf=8, checkpoint_root=tmp, device=dev)
-        model.to_mesh(make_mesh(devices=[dev] * 2))
+        model.to_mesh(make_mesh(devices=_cards(2)))
         log = os.path.join(tmp, "metrics.jsonl")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.train([b[0] for b in batches], [b[1] for b in batches],
-                    epochs=1, metrics_log=log)
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
+        with MESHED.window("dp"):
+            _sync_all()
+            t0 = time.perf_counter()
+            model.train([b[0] for b in batches], [b[1] for b in batches],
+                        epochs=1, metrics_log=log)
+            _sync_all()
+            epoch_s = time.perf_counter() - t0
         epoch = json.loads(open(log).read().splitlines()[-1])
         restored = EM2EM(74, "par", wf=8, checkpoint_root=tmp, device=dev,
                          seed=9)
@@ -3783,7 +3851,7 @@ def check_to_mesh(dev):
 
 
 def check_mesh_inference(dev, gen, vol, vol_d):
-    """Each inference mesh= path on ``[dev] * 2`` (data=2) against the
+    """Each inference mesh= path on ``_cards(2)`` (data=2) against the
     unmeshed call at the same batch a device, bit for bit under
     cudnn.deterministic, with Mvox/s of each (one warm call, one timed)
     with cuDNN's default algorithms and under cudnn.deterministic:
@@ -3799,7 +3867,7 @@ def check_mesh_inference(dev, gen, vol, vol_d):
     from transfer_em_tpu_torch.serve import (ModelService, NumpyVolume,
                                              register_volume)
 
-    mesh = make_mesh(devices=[dev] * 2)
+    mesh = make_mesh(devices=_cards(2))
     start, size = PAR_REQUEST
     n_chunk = plan_tiles(start, size, 40, 17).num_tiles
     chunk_b = tile_batch(n_chunk, PAR_B, 2) // 2  # tiles a device a step
@@ -3817,23 +3885,29 @@ def check_mesh_inference(dev, gen, vol, vol_d):
                                            MS_X, MS_Y, mode=mode,
                                            batch_size=b, mesh=m, device=dev)
 
-    runs = {"predict_tiled": (tiled, math.prod(size), PAR_B, chunk_b),
-            "device": (volume("device"), math.prod(VOL_SIZE), PAR_B, PAR_B),
-            "stream": (volume("stream"), math.prod(VOL_SIZE), PAR_B, PAR_B)}
+    # (run, voxels, batch meshed, batch unmeshed, the path it counts for)
+    runs = {"predict_tiled": (tiled, math.prod(size), PAR_B, chunk_b,
+                              "tile"),
+            "device": (volume("device"), math.prod(VOL_SIZE), PAR_B, PAR_B,
+                       "volume"),
+            "stream": (volume("stream"), math.prod(VOL_SIZE), PAR_B, PAR_B,
+                       "volume")}
     rows, outs = {}, {}
     for det in (False, True):
         ctx = cudnn_deterministic() if det else contextlib.nullcontext()
         with ctx:
-            for name, (run, nvox, b_mesh, b_single) in runs.items():
+            for name, (run, nvox, b_mesh, b_single, path) in runs.items():
                 row = rows.setdefault(name, {"batch_a_device": b_single})
                 for tag, m, b in (("single", None, b_single),
                                   ("mesh", mesh, b_mesh)):
                     key = tag + ("_deterministic" if det else "")
-                    run(m, b)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    outs[name, tag] = np.asarray(run(m, b))
-                    row[key + "_s"] = time.perf_counter() - t0
+                    with (MESHED.window(path) if m is not None
+                          else contextlib.nullcontext()):
+                        run(m, b)
+                        _sync_all()
+                        t0 = time.perf_counter()
+                        outs[name, tag] = np.asarray(run(m, b))
+                        row[key + "_s"] = time.perf_counter() - t0
                     row[key + "_mvox_per_s"] = nvox / row[key + "_s"] / 1e6
                 if det:
                     row["bit_equal"] = bool(np.array_equal(
@@ -3853,19 +3927,24 @@ def check_mesh_inference(dev, gen, vol, vol_d):
                                    mesh=m, max_batch=mb, device=dev)
                 svc.start()
                 try:
-                    for rep in range(2):  # the first loads the model
-                        dest = os.path.join(tmp, f"out_{tag}{rep}")
-                        cfg = {"location": "smoke/par", "start": list(start),
-                               "glbstart": [0, 0, 0], "size": list(size),
-                               "model_name": "par:v1", "dest": dest}
-                        req = urllib.request.Request(
-                            svc.url + "/", data=json.dumps(cfg).encode(),
-                            headers={"Content-type": "application/json"})
-                        t0 = time.perf_counter()
-                        body = urllib.request.urlopen(req, timeout=600).read()
-                        wall = time.perf_counter() - t0
-                        if body != b"success":
-                            fail("parallel", f"ModelService {tag}: {body!r}")
+                    with (MESHED.window("tile") if m is not None
+                          else contextlib.nullcontext()):
+                        for rep in range(2):  # the first loads the model
+                            dest = os.path.join(tmp, f"out_{tag}{rep}")
+                            cfg = {"location": "smoke/par",
+                                   "start": list(start),
+                                   "glbstart": [0, 0, 0], "size": list(size),
+                                   "model_name": "par:v1", "dest": dest}
+                            req = urllib.request.Request(
+                                svc.url + "/", data=json.dumps(cfg).encode(),
+                                headers={"Content-type": "application/json"})
+                            t0 = time.perf_counter()
+                            body = urllib.request.urlopen(
+                                req, timeout=600).read()
+                            wall = time.perf_counter() - t0
+                            if body != b"success":
+                                fail("parallel",
+                                     f"ModelService {tag}: {body!r}")
                 finally:
                     svc.stop()
                 blocks[tag] = {n: gzip.decompress(open(os.path.join(
@@ -3881,13 +3960,14 @@ def check_mesh_inference(dev, gen, vol, vol_d):
 
 
 def parallel_worker(rank, port, outdir):
-    """One of two processes on the one card, joined over gloo (NCCL
-    refuses two ranks on one device): one DP step on this process's 8 rows
-    of the global B=16 batch (dropout off), a 2-shard halo ring across the
-    process boundary (this process's shard against the generator on its
-    slab of the padded volume), this process's launch counts; rank 0 also
-    writes the reduced gradients for the parent to hold against its
-    single-process step."""
+    """One process of the two-process part (``_workers()``: two on one card
+    over gloo, else one a card over NCCL): one DP step on this process's
+    rows of the global B=16 batch (dropout off), a halo ring of one 40-deep
+    shard a process across the process boundaries (this process's shard
+    against the generator on its slab of the padded volume); the launch
+    counts of the DP steps and of the ring, each read just after them;
+    rank 0 also writes the reduced gradients for the parent to hold against
+    its single-process step."""
     import torch.distributed as dist
 
     from transfer_em_tpu_torch.config import CycleGANConfig
@@ -3902,20 +3982,23 @@ def parallel_worker(rank, port, outdir):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    dev = torch.device("cuda", 0)
-    initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout_s=300)
+    nproc, backend = _workers()
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    initialize(f"127.0.0.1:{port}", nproc, rank, backend=backend,
+               timeout_s=300)
     mesh = make_mesh(devices=[dev])
-    res = {"rank": rank, "backend": dist.get_backend(),
-           "mesh": repr(mesh)}
+    res = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "mesh": repr(mesh), "launches": {}}
     cfg = CycleGANConfig()
     state = create_state(cfg, seed=1, device=dev)
     redraw(state, 2)
     x, y = smooth_batches(DP_B, 0.3, 13, dev)
-    rows = slice(rank * DP_B // 2, (rank + 1) * DP_B // 2)
+    per = DP_B // nproc
+    rows = slice(rank * per, (rank + 1) * per)
     shard_state(state, mesh)
-    reset_counts()
     step = make_dp_train_step(cfg, mesh, deterministic=True)
     xs, ys = host_local_batch(x[rows], mesh), host_local_batch(y[rows], mesh)
+    reset_counts()
     t0 = time.perf_counter()
     res["losses"] = step(state, xs, ys, 7).tolist()
     res["dp_first_step_s"] = time.perf_counter() - t0
@@ -3926,14 +4009,18 @@ def parallel_worker(rank, port, outdir):
     t0 = time.perf_counter()
     step(state, xs, ys, 8).tolist()
     res["dp_second_step_s"] = time.perf_counter() - t0
+    res["launches"]["dp"] = read_counts()
     gen = seeded_generator(3, dev)
-    vol = _standardized(smooth_volume(80, seed=43, dev=dev)[:, :74, :74],
+    depth = 40 * nproc
+    vol = _standardized(smooth_volume(depth, seed=43, dev=dev)[:, :74, :74],
                         dev)
-    smesh = make_mesh(devices=[dev], data=1, space=2)
+    smesh = make_mesh(devices=[dev], data=1, space=nproc)
+    reset_counts()
     t0 = time.perf_counter()
-    out = halo_predict_fn(gen, smesh, 17, 80)(None, vol)
+    out = halo_predict_fn(gen, smesh, 17, depth)(None, vol)
     torch.cuda.synchronize()
     res["halo_s"] = time.perf_counter() - t0
+    res["launches"]["halo"] = read_counts()
     padded = F.pad(vol, (0, 0, 0, 0, 0, 0, 17, 17))
     res["halo_shards"] = []
     with torch.inference_mode():
@@ -3943,7 +4030,6 @@ def parallel_worker(rank, port, outdir):
                 "z": [lo, s.index[0].stop],
                 "bit_equal": bool(torch.equal(
                     s.data, gen(padded[None, lo:lo + 74])[0]))})
-    res["launches"] = read_counts()
     barrier("parallel_worker_done")
     with open(os.path.join(outdir, f"worker_{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -3951,29 +4037,31 @@ def parallel_worker(rank, port, outdir):
 
 
 def check_two_processes(dev):
-    """Two processes of this script on the one card (gloo): their DP step
-    against the single-process step from the same state and batches (the
-    losses within rtol 1e-4, rank 0's reduced gradients within GRAD_TOL),
-    both ranks' losses equal, each halo shard bit-equal, each worker's
-    launch counts."""
+    """The processes of ``_workers()`` (this script, ``--parallel-worker``):
+    their DP step against the single-process step from the same state and
+    batches (the losses within rtol 1e-4, rank 0's reduced gradients within
+    GRAD_TOL), every rank's losses equal, each halo shard bit-equal, and in
+    every worker the DP steps and the ring each launching conv3 and
+    LeakyReLU."""
     import copy
 
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.train import build_step_fn, create_state
 
+    nproc, backend = _workers()
     with tempfile.TemporaryDirectory() as tmp:
         port = str(_free_port())
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--parallel-worker",
              str(rank), port, tmp], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+            stderr=subprocess.STDOUT, text=True) for rank in range(nproc)]
         logs = []
         try:
             for p in procs:
                 logs.append(p.communicate(timeout=300)[0])
         finally:
-            for p in procs:  # a failed or hung pair must not outlive us
+            for p in procs:  # a failed or hung group must not outlive us
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
@@ -3983,7 +4071,7 @@ def check_two_processes(dev):
             fail("parallel", "a worker process failed", codes=codes,
                  logs=[lg[-3000:] for lg in logs])
         workers = [json.load(open(os.path.join(tmp, f"worker_{r}.json")))
-                   for r in (0, 1)]
+                   for r in range(nproc)]
         grads = torch.load(os.path.join(tmp, "grads.pt"))
     cfg = CycleGANConfig()
     state = create_state(cfg, seed=1, device=dev)
@@ -3999,17 +4087,20 @@ def check_two_processes(dev):
         errs[t] = max(float((grads[t][n] - p.grad.cpu()).abs().max()
                             / p.grad.cpu().abs().max().clamp_min(1e-30))
                       for n, p in getattr(single, t).named_parameters())
-    rec = {"wall_s": wall, "workers": workers,
+    rec = {"processes": nproc, "wall_s": wall, "workers": workers,
            "loss_max_rel_err": float(np.max(np.abs(got - want)
                                             / np.abs(want))),
-           "ranks_equal": workers[0]["losses"] == workers[1]["losses"],
+           "ranks_equal": all(w["losses"] == workers[0]["losses"]
+                              for w in workers),
            "grad_max_err_over_own_max": errs}
     rec["ok"] = (rec["loss_max_rel_err"] <= 1e-4 and rec["ranks_equal"]
                  and all(v <= GRAD_TOL for v in errs.values())
                  and all(s["bit_equal"] for w in workers
                          for s in w["halo_shards"])
-                 and all(w["backend"] == "gloo" for w in workers)
-                 and all(w["launches"]["conv3"] > 0 for w in workers))
+                 and all(w["backend"] == backend for w in workers)
+                 and all(w["launches"][p][k] > 0 for w in workers
+                         for p in ("dp", "halo")
+                         for k in PATH_KERNELS[p]))
     return rec
 
 
@@ -4041,9 +4132,10 @@ def check_nccl(dev):
         backend = dist.get_backend()
         mesh = make_mesh()
         shard_state(state, mesh)
-        got = make_dp_train_step(cfg, mesh, deterministic=True)(
-            state, x, y, 7)
-        torch.cuda.synchronize()
+        with MESHED.window("dp"):
+            got = make_dp_train_step(cfg, mesh, deterministic=True)(
+                state, x, y, 7)
+            torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
     rel = float(((got - want).abs() / want.abs()).max())
@@ -4052,35 +4144,109 @@ def check_nccl(dev):
             "ok": backend == "nccl" and rel <= 1e-4}
 
 
+def check_scaling(dev):
+    """With two or more cards: predict_volume(mode="device") at the volume
+    phase's 360^3 request (B=128 a card) and the DP step (dropout on) at
+    16 tiles a card, each on 1, 2 and every card (one position a card):
+    Mvox/s and tiles/s (the median of three timed calls or of steps 2-4);
+    under cudnn.deterministic the every-card volume bit-equal to the
+    one-card one."""
+    import statistics
+
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.infer import predict_volume
+    from transfer_em_tpu_torch.parallel import (make_dp_train_step,
+                                                make_mesh, shard_state)
+    from transfer_em_tpu_torch.train import create_state, make_train_step
+
+    n = torch.cuda.device_count()
+    ks = sorted({1, 2, n})
+    gen = seeded_generator(3, dev)
+    vol = torch.from_numpy(smooth_volume(VOL_SIDE, 31, dev)).to(dev)
+
+    def volume(k):
+        mesh = make_mesh(devices=_cards(k)) if k > 1 else None
+        return predict_volume(vol, gen, VOL_START, VOL_SIZE, MS_X, MS_Y,
+                              mode="device", batch_size=VOL_B, mesh=mesh,
+                              device=dev, as_numpy=False)
+
+    rec = {"cards": n, "mvox_per_s": {}, "dp_step_s": {},
+           "dp_tiles_per_s": {}, "dp_tiles_a_card": SCALE_TILES}
+    for k in ks:
+        volume(k)
+        times = []
+        for _ in range(3):
+            _sync_all()
+            t0 = time.perf_counter()
+            volume(k)
+            _sync_all()
+            times.append(time.perf_counter() - t0)
+        rec["mvox_per_s"][k] = (math.prod(VOL_SIZE)
+                                / statistics.median(times) / 1e6)
+    with cudnn_deterministic():
+        rec["volume_bit_equal"] = bool(torch.equal(volume(1), volume(n)))
+    del vol
+    cfg = CycleGANConfig()
+    for k in ks:
+        state = create_state(cfg, seed=1, device=dev)
+        redraw(state, 2)
+        x, y = smooth_batches(SCALE_TILES * k, 0.3, 13, dev)
+        if k == 1:
+            step = make_train_step(cfg, dev)
+        else:
+            mesh = make_mesh(devices=_cards(k))
+            shard_state(state, mesh)
+            step = make_dp_train_step(cfg, mesh)
+        times = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            step(state, x, y, i).cpu()
+            times.append(time.perf_counter() - t0)
+        rec["dp_step_s"][k] = statistics.median(times[1:])
+        rec["dp_tiles_per_s"][k] = SCALE_TILES * k / rec["dp_step_s"][k]
+        del state, step
+        torch.cuda.empty_cache()
+    rec["ok"] = rec["volume_bit_equal"]
+    return rec
+
+
 def check_parallel(dev, smi):
-    """Phase 14: every mesh= of the port on meshes of this card repeated,
-    halo_predict, the DP step and EM2EM.to_mesh, two gloo processes on the
-    card and one NCCL rank.  The launch counts are zeroed just before the
-    single-process part (the meshed runs and their unmeshed references)
-    and read just after it; each worker process counts its own."""
+    """Phase 14: every mesh= of the port on ``_cards(k)`` meshes (this card
+    repeated, or one position a card), halo_predict, the DP step and
+    EM2EM.to_mesh, the worker processes and one NCCL rank; with two or
+    more cards, the scaling timings too.  The launch counts are those of
+    the meshed calls alone (``MESHED``'s windows, per path); each worker
+    process counts its own."""
     t_phase = time.perf_counter()
+    MESHED.paths.clear()
     gen = seeded_generator(3, dev)
     vol = smooth_volume(VOL_SIDE, seed=31, dev=dev)
     vol_d = torch.from_numpy(vol).to(dev)
-    reset_counts()
     inference = check_mesh_inference(dev, gen, vol, vol_d)
     halo = check_halo(dev)
     dp = check_dp(dev)
     to_mesh = check_to_mesh(dev)
-    launches = read_counts()
     del vol_d
     torch.cuda.empty_cache()
     two = check_two_processes(dev)
     nccl = check_nccl(dev)
-    rec = {"phase": "parallel", "card": smi, "inference": inference,
+    scaling = (check_scaling(dev) if torch.cuda.device_count() > 1
+               else None)
+    by_path = {p: dict(c) for p, c in MESHED.paths.items()}
+    launches = {k: sum(c[k] for c in by_path.values())
+                for k in next(iter(by_path.values()))}
+    rec = {"phase": "parallel", "card": smi,
+           "cards": torch.cuda.device_count(), "inference": inference,
            "halo": halo, "dp": dp, "to_mesh": to_mesh,
-           "two_processes": two, "nccl": nccl, "launches": launches,
+           "two_processes": two, "nccl": nccl, "scaling": scaling,
+           "launches": launches, "launches_by_path": by_path,
            "seconds": time.perf_counter() - t_phase}
     rec["ok"] = (all(r["bit_equal"] for r in inference.values())
                  and all(r["shards_bit_equal"] and r["jax_init_within_bar"]
                          for r in halo.values())
                  and dp["ok"] and to_mesh["ok"] and two["ok"] and nccl["ok"]
-                 and all(launches[k] > 0 for k in counters()))
+                 and (scaling is None or scaling["ok"])
+                 and MESHED.ok())
     emit(rec)
     return rec
 
@@ -4094,8 +4260,12 @@ def main():
                     help="directory for the JSON lines and the build log")
     ap.add_argument("--parallel-worker", nargs=3, default=None,
                     metavar=("RANK", "PORT", "DIR"),
-                    help="run as one of the parallel phase's two processes "
-                         "(the phase starts them itself)")
+                    help="run as one of the parallel phase's worker "
+                         "processes (the phase starts them itself)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build the kernels and run the parallel phase "
+                         "alone (on two or more cards with its scaling "
+                         "timings); prints no kernels line")
     args = ap.parse_args()
     OUT_DIR = args.out
     if not torch.cuda.is_available():
@@ -4125,6 +4295,17 @@ def main():
     emit({"phase": "build", "seconds": built["seconds"],
           "sources": [os.path.relpath(p, ROOT) for p in kernels.sources()],
           "ok": True})
+    if args.parallel_only:
+        par = check_parallel(dev, smi)
+        _write_log()
+        for line in subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.splitlines():
+            print(line, flush=True)
+        if not par["ok"]:
+            fail("parallel", "the parallel phase failed a check")
+        return
 
     gen = torch.Generator(device=dev).manual_seed(0)
     conv = check_conv3(dev, gen)
@@ -4308,6 +4489,9 @@ def main():
         line["int8_launches"] = int8["launches"][line["name"]]
     for line in lines:
         line["parallel_launches"] = par["launches"][line["name"]]
+        line["parallel_launches_by_path"] = {
+            path: c[line["name"]]
+            for path, c in par["launches_by_path"].items()}
     for p in paths:
         p["parallel_launches"] = par["launches"][
             "conv3_" + p["name"].split(".")[1]]

@@ -10,6 +10,8 @@ asserts one proof:
 * ``host_local_batch`` assembles the global batch from each process's rows;
 * one DP step (dropout on) gives every process the same losses, equal to
   the single-process step on the global batch: 2x1, 2x2 and 4x1;
+* ``shard_state`` gives every process rank 0's step and Adam counts too, so
+  a process that starts from another step takes the same DP step;
 * ``host_sharded_seed`` ROI streams are disjoint between processes and
   reproducible;
 * a meshed ``EM2EM``'s checkpoint (written by rank 0) restores bit-equal on
@@ -94,6 +96,25 @@ def _dp():
     loss = make_dp_train_step(cfg, mesh)(state, x, y, 1)
     result["loss"] = loss.tolist()
     result["stem_sum"] = float(state.gg.stem.kernel.abs().sum())
+
+if "skew" in PROOFS:
+    @guard("skew")
+    def _skew():
+        # rank 1 starts from another state: other weights, step and Adam
+        # counts (a process that restored another checkpoint, or none)
+        state = create_state(cfg, 0 if pid == 0 else 99, device="cpu")
+        if pid != 0:
+            state.step = 5
+            for t in ("gg", "gf", "dx", "dy"):
+                getattr(state, "opt_" + t).count = 5
+        shard_state(state, mesh)
+        result["skew_after_shard"] = [state.step] + [
+            getattr(state, "opt_" + t).count for t in ("gg", "gf", "dx", "dy")]
+        loss = make_dp_train_step(cfg, mesh)(state, x, y, 1)
+        result["skew_loss"] = loss.tolist()
+        result["skew_stem_sum"] = float(state.gg.stem.kernel.abs().sum())
+        result["skew_counts"] = [state.step] + [
+            getattr(state, "opt_" + t).count for t in ("gg", "gf", "dx", "dy")]
 
 @guard("corners")
 def _corners():
@@ -247,7 +268,7 @@ def _run_group(tmpdir, ndev, proofs, nproc=2, timeout=600):
 def mh(tmp_path_factory):
     """2 processes x 1 position each: the full proof set."""
     return _run_group(str(tmp_path_factory.mktemp("mh_2x1")), 1,
-                      "hlb,dp,corners,ckpt,halo,stream")
+                      "hlb,dp,skew,corners,ckpt,halo,stream")
 
 
 @pytest.fixture(scope="module")
@@ -313,6 +334,23 @@ def test_mh_host_local_batch(mh):
 
 def test_mh_dp_parity(mh):
     _check_dp(mh)
+
+
+def test_mh_shard_state_aligns_steps(mh):
+    _no_error(mh, "skew")
+    for pid in mh:
+        assert mh[pid]["skew_after_shard"] == [0] * 5, mh[pid]
+        assert mh[pid]["skew_counts"] == [1] * 5, mh[pid]
+        assert mh[pid]["skew_stem_sum"] == mh[0]["skew_stem_sum"]
+        np.testing.assert_allclose(mh[pid]["skew_loss"], mh[0]["skew_loss"],
+                                   rtol=1e-6, atol=1e-7)
+    rng = np.random.default_rng(7)
+    gx = (0.3 * rng.normal(size=(8, 74, 74, 1))).astype(np.float32)
+    gy = (0.3 * rng.normal(size=(8, 74, 74, 1))).astype(np.float32)
+    loss, stem = _single_step_loss(gx, gy, 1)
+    np.testing.assert_allclose(mh[0]["skew_loss"], loss, rtol=2e-4,
+                               atol=1e-5)
+    assert mh[0]["skew_stem_sum"] == pytest.approx(stem, rel=1e-4)
 
 
 def test_mh_corner_streams_disjoint_reproducible(mh):

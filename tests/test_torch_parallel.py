@@ -69,7 +69,7 @@ from transfer_em_tpu_torch.parallel import (batch_sharding,
                                             shard_state, space_sharding)
 from transfer_em_tpu_torch.parallel.halo import (_padded_extent,
                                                  halo_predict_fn)
-from transfer_em_tpu_torch.parallel.mesh import Mesh
+from transfer_em_tpu_torch.parallel.mesh import Mesh, replicas
 from transfer_em_tpu_torch.serve import (ModelService, NumpyVolume,
                                          register_volume)
 from transfer_em_tpu_torch.shapes import generator_shapes
@@ -155,6 +155,28 @@ def test_shardings_split_and_copy():
     assert torch.equal(sp.gather(CPU), vol)
     with pytest.raises(ValueError, match="divisible"):
         batch_sharding(mesh, x[:6])
+
+
+def test_replicas_made_once_and_refreshed_on_change():
+    """mesh.replicas: the module itself on its own device, one copy a
+    other device made once, its parameters copied in place only after the
+    module's changed (the version counter conv3's pack cache keys on)."""
+    net = torch.nn.Linear(3, 2)
+    meta = torch.device("meta")
+    home, a, b = replicas(net, [CPU, meta, meta])
+    assert home is net and a is b and a.weight.device == meta
+    assert replicas(net, [meta])[0] is a and a.weight._version == 0
+    with torch.no_grad():
+        net.weight.add_(1.0)
+    assert replicas(net, [meta])[0] is a and a.weight._version == 1
+    assert replicas(net, [meta])[0].weight._version == 1
+    other = torch.nn.Linear(3, 2)
+    with torch.inference_mode():  # a copy made here stays refreshable
+        c, = replicas(other, [meta])
+    assert not c.weight.is_inference()
+    with torch.no_grad():
+        other.weight.add_(1.0)
+    assert replicas(other, [meta])[0].weight._version == 1
 
 
 # -- halo_predict -------------------------------------------------------------

@@ -17,11 +17,12 @@ The index tensors are built once, on the device: the batch loop launches
 no per-tile work and never waits for the card.
 
 With ``mesh=`` the tile batches are dealt out over the mesh's 'data' axis:
-each device runs its share of the batches on a replica of the generator
-and stitches them into a zero-initialised partial output of its own, and
-the partials combine by an elementwise max on the caller's device (the JAX
-package's ``pmax``; tiles are disjoint, and a padding tile repeats the last
-one, so the max is exact).
+each device runs its share of the batches on a replica of the generator,
+and each batch's result is written into the one output on the caller's
+device.  The JAX package, one program a device, stitches a partial output
+a device and combines them by ``pmax``; one process driving every device
+needs no partials (tiles are disjoint, and a padding tile repeats the last
+one, so its duplicate write carries the same voxels).
 
 Out-of-bounds halos read zeros, as ``gather_blocks`` gives the host path:
 the volume is zero-padded by exactly enough for every tile slice to lie in
@@ -40,9 +41,10 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
+from ..parallel.mesh import replicas
 from .tiling import (_DEVICE_LOCK, TilePlan, check_3d_generator,
                      check_generator, data_sharding, meanstd_tuple,
-                     plan_tiles, replicas, tile_batch)
+                     plan_tiles, tile_batch)
 
 
 def volume_on(vol_zyx, dev: torch.device) -> torch.Tensor:
@@ -105,8 +107,8 @@ def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
     request.  infer/stream.py runs each chunk through this at its whole
     request's batch, so the chunking changes no voxel.  ``devices``: deal
     the batches out over these (contiguous runs of equal length, the last
-    padded by repeats of the last tile), each stitching its own partial,
-    combined by max on ``dev``."""
+    padded by repeats of the last tile), each on its replica of ``gen``;
+    every batch's result is stitched into the one output on ``dev``."""
     s, od = plan.insize, plan.outdimsize
     sx, sy, sz = plan.size
     T = plan.num_tiles
@@ -145,30 +147,29 @@ def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
     pz, py, px = plan.padded_size
     nz, ny = pz // od, py // od
     first = corners[0]
+    t = torch.arange(n * per * batch, device=dev).clamp_(max=T - 1)
+    cells = (t % nz, t // nz % ny, t // (nz * ny))
+    out = torch.zeros(plan.padded_size, dtype=torch.uint8, device=dev)
+    out_tiles = out.view(pz // od, od, py // od, od, px // od,
+                         od).permute(0, 2, 4, 1, 3, 5)
     shards = []
     for d, g in zip(devices, replicas(gen, devices)):
-        t = torch.arange(n * per * batch, device=d).clamp_(max=T - 1)
-        v = vol.to(d)
-        out = torch.zeros(plan.padded_size, dtype=torch.uint8, device=d)
         shards.append((
-            g, (t % nz, t // nz % ny, t // (nz * ny)),
-            v[first[0]:, first[1]:, first[2]:]
-            .unfold(0, s, od).unfold(1, s, od).unfold(2, s, od),
-            out, out.view(pz // od, od, py // od, od, px // od, od)
-            .permute(0, 2, 4, 1, 3, 5)))
+            g, tuple(c.to(d) for c in cells),
+            vol.to(d)[first[0]:, first[1]:, first[2]:]
+            .unfold(0, s, od).unfold(1, s, od).unfold(2, s, od)))
 
     ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
     with _DEVICE_LOCK, torch.inference_mode():
         # step k of every device before step k + 1 of any, so the devices
-        # run together; device j takes batches [j per, (j + 1) per)
+        # run together; device j takes batches [j per, (j + 1) per) and
+        # its results land in the one output on dev
         for k in range(per):
-            for j, (g, (gz, gy, gx), windows, _, out_tiles) in enumerate(
-                    shards):
+            for j, (g, (gz, gy, gx), windows) in enumerate(shards):
                 i = (j * per + k) * batch
-                idx = (gz[i:i + batch], gy[i:i + batch], gx[i:i + batch])
-                y = g(preprocess_u8(windows[idx], ms_x))
-                out_tiles[idx] = postprocess_to_u8(y, ms_y, plan.tpad)
-        out = shards[0][3].to(dev)
-        for shard in shards[1:]:
-            out = torch.maximum(out, shard[3].to(dev))
+                y = g(preprocess_u8(windows[gz[i:i + batch], gy[i:i + batch],
+                                            gx[i:i + batch]], ms_x))
+                out_tiles[cells[0][i:i + batch], cells[1][i:i + batch],
+                          cells[2][i:i + batch]] = postprocess_to_u8(
+                              y, ms_y, plan.tpad).to(dev)
     return out[:sz, :sy, :sx]

@@ -20,7 +20,6 @@ the multi-card path for sources streamed from the host or remote storage.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import copy
 import dataclasses
 import math
 import threading
@@ -37,6 +36,7 @@ from ..data.sources import (CloudRunFetcher, _parallel_fetch,
 from ..device import resolve_device
 from ..native import scatter_blocks
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
+from ..parallel.mesh import replicas
 from ..shapes import tile_plan_outdimsize
 
 _DEVICE_LOCK = threading.Lock()
@@ -133,18 +133,6 @@ def data_sharding(mesh, who: str = "tiled inference") -> List[torch.device]:
     return mesh.axis_devices("data")
 
 
-def replicas(gen: nn.Module, devices: Sequence[torch.device]
-             ) -> List[nn.Module]:
-    """``gen`` on each of ``devices``: itself where it already lives, else
-    one copy of its parameters per device."""
-    home = next(gen.parameters()).device
-    made = {home: gen}
-    for d in devices:
-        if d not in made:
-            made[d] = copy.deepcopy(gen).to(d)
-    return [made[d] for d in devices]
-
-
 def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
                    device="cuda", sharding: Optional[Sequence] = None
                    ) -> Callable[[np.ndarray], np.ndarray]:
@@ -159,13 +147,13 @@ def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
     ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
     tpad = int(tpad)
     devices = list(sharding) if sharding is not None else [dev]
-    gens = replicas(gen, devices)
 
     def step(tiles_u8: np.ndarray) -> np.ndarray:
         arr = np.ascontiguousarray(tiles_u8, np.uint8)
         if len(arr) % len(devices):
             raise ValueError(f"batch {len(arr)} does not split over "
                              f"{len(devices)} devices")
+        gens = replicas(gen, devices)  # refreshed if gen's weights changed
         with _DEVICE_LOCK, torch.inference_mode():
             # every part is launched before any is read back, so the
             # devices run together

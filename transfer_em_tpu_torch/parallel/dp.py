@@ -8,11 +8,13 @@ same step is written out by hand:
 
 1. every mesh position takes its rows of the global batch (``batch_sharding``:
    the batch is split over EVERY mesh axis) and runs ``cyclegan_losses`` on
-   a replica of the four networks on its device, the replica's parameters
-   copied from the state's first;
+   the four networks on its device: the state's own on the first device,
+   elsewhere one replica a device (``mesh.replicas``: copied once,
+   refreshed in place after each update);
 2. each position's loss is weighted by its share of the global batch and
    back-propagated, so the gradients add up to the global batch's mean;
-3. the replicas' gradients are summed onto the state's networks, then, one
+3. the replicas' gradients are summed onto the state's networks (positions
+   that share a device accumulate theirs in its copy), then, one
    flattened buffer per network, all-reduced across processes
    (``torch.distributed``);
 4. the four Keras Adams step once, on the state's networks.
@@ -35,8 +37,6 @@ the sharded batch does.
 
 from __future__ import annotations
 
-import copy
-import weakref
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -47,7 +47,7 @@ from ..shapes import generator_shapes
 from ..train.cgan import _dropout_generators, cyclegan_losses
 from ..train.state import CycleGANState, make_optimizer
 from .distributed import all_reduce_sum, broadcast0
-from .mesh import Mesh, ShardedTensor, batch_sharding, host_rows
+from .mesh import Mesh, ShardedTensor, batch_sharding, host_rows, replicas
 
 TREES = ("gg", "gf", "dx", "dy")
 
@@ -79,8 +79,10 @@ def _unflat(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> None:
 
 def shard_state(state: CycleGANState, mesh: Mesh) -> CycleGANState:
     """The state on this process's first mesh device (networks and Adam
-    moments moved in place), with rank 0's parameters and moments on every
-    process; returns ``state``."""
+    moments moved in place), with rank 0's parameters, moments, Adam counts
+    and step on every process (the counts set Keras-Adam's step size and
+    the step seeds the dropout masks: a process that restored another
+    checkpoint, or none, would otherwise drift apart); returns ``state``."""
     dev = first_local_device(mesh)
     with torch.no_grad():
         for t in TREES:
@@ -91,6 +93,12 @@ def shard_state(state: CycleGANState, mesh: Mesh) -> CycleGANState:
             group = (list(net.parameters()) + list(opt.mu.values())
                      + list(opt.nu.values()))
             _unflat(broadcast0(_flat(group)), group)
+        counts = broadcast0(torch.tensor(
+            [state.step] + [getattr(state, "opt_" + t).count for t in TREES],
+            dtype=torch.int64, device=dev)).tolist()
+    state.step = counts[0]
+    for t, c in zip(TREES, counts[1:]):
+        getattr(state, "opt_" + t).count = c
     return state
 
 
@@ -106,40 +114,16 @@ def host_local_batch(batch, mesh: Mesh) -> ShardedTensor:
     return host_rows(mesh, batch)
 
 
-class _Replicas:
-    """Per state, the networks of this process's other mesh positions:
-    deep copies on their devices, made once and refreshed from the state's
-    networks before every step (an in-place copy, so conv3 repacks their
-    weights; a restore into the state reaches them the same way)."""
-
-    def __init__(self):
-        self._by_state = weakref.WeakKeyDictionary()
-
-    def get(self, state: CycleGANState, devices: Sequence[torch.device]):
-        key = state.gg
-        reps = self._by_state.get(key)
-        if reps is None or [r[0] for r in reps] != list(devices):
-            reps = [(d, [self._copy(net, d) for net in _nets(state)])
-                    for d in devices]
-            self._by_state[key] = reps
-        with torch.no_grad():
-            for _, nets in reps:
-                for net, src in zip(nets, _nets(state)):
-                    for p, q in zip(net.parameters(), src.parameters()):
-                        p.copy_(q)
-        return reps
-
-    @staticmethod
-    def _copy(net: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
-        prior = getattr(net, "disc_prior", None)
-        if prior is not None:
-            at = {v.device for v in getattr(prior, "params", {}).values()}
-            if at and at != {dev}:
-                raise ValueError(
-                    f"disc_y's prior lives on {sorted(map(str, at))}; a "
-                    f"replica on {dev} cannot run it (build the mesh over "
-                    "the prior's device)")
-        return copy.deepcopy(net).to(dev)
+def _check_prior(state: CycleGANState, devices: Sequence[torch.device]):
+    """disc_y's frozen prior holds its own tensors, which a module copy does
+    not move: every replica must share its device."""
+    at = {v.device for net in _nets(state) for v in getattr(
+        getattr(net, "disc_prior", None), "params", {}).values()}
+    if at and not at >= set(devices):
+        raise ValueError(
+            f"disc_y's prior lives on {sorted(map(str, at))}; a replica on "
+            f"{sorted(map(str, set(devices) - at))} cannot run it (build the "
+            "mesh over the prior's device)")
 
 
 def _dropout_draws(gens, micro: int, lo: int, hi: int, dev: torch.device):
@@ -175,7 +159,6 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
     opt = make_optimizer(config.learning_rate, config.adam_beta1)
     dev0 = first_local_device(mesh)
     positions = mesh.local_positions()
-    replicas = _Replicas()
 
     def sharded(x) -> ShardedTensor:
         return x if isinstance(x, ShardedTensor) else batch_sharding(mesh, x)
@@ -194,12 +177,18 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
         if owned != positions or [s.position for s in
                                   ys.addressable_shards] != positions:
             raise ValueError("the batches are not split over this mesh")
-        others = replicas.get(state, [s.device for s in
-                                      xs.addressable_shards[1:]])
-        nets_by_shard = [_nets(state)] + [nets for _, nets in others]
-        for nets in nets_by_shard:
-            for net in nets:
-                net.zero_grad(set_to_none=True)
+        devices = [s.device for s in xs.addressable_shards]
+        _check_prior(state, devices)
+        # one copy of each network a device (the state's own on dev0):
+        # shards on one device accumulate their gradients in it
+        by_net = [replicas(net, devices) for net in _nets(state)]
+        nets_by_shard = [list(nets) for nets in zip(*by_net)]
+        copies = [[r for r in reps if r is not net]
+                  for net, reps in zip(_nets(state), by_net)]
+        copies = [list({id(r): r for r in c}.values()) for c in copies]
+        for net, c in zip(_nets(state), copies):
+            for m in [net] + c:
+                m.zero_grad(set_to_none=True)
         loss = torch.zeros(7, device=dev0)
         for sx, sy, nets in zip(xs.addressable_shards, ys.addressable_shards,
                                 nets_by_shard):
@@ -222,13 +211,13 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
                 (combined * w).backward()
                 loss += (lv * w).to(dev0)
         with torch.no_grad():
-            for k, net in enumerate(_nets(state)):
+            for net, c in zip(_nets(state), copies):
                 params = list(net.parameters())
                 grads = []
                 for j, p in enumerate(params):
                     g = p.grad if p.grad is not None else torch.zeros_like(p)
-                    for nets in nets_by_shard[1:]:
-                        q = list(nets[k].parameters())[j]
+                    for rep in c:
+                        q = list(rep.parameters())[j]
                         if q.grad is not None:
                             g = g + q.grad.to(dev0)
                     grads.append(g)

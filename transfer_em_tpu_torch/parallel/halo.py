@@ -10,10 +10,15 @@ planes move by device copies between the shards of one process, and by
 ``torch.distributed`` point-to-point sends across processes (staged through
 pinned host memory under gloo, whose sends take no CUDA tensor).
 
-Semantics: ``halo_predict(vol)`` == ``generator(zpad(vol, buffer))`` with
-the output's z extent equal to vol's (y and x shrink by 2*buffer unless
-sharded too); edge shards see zeros beyond the volume, as the reference's
-ZeroPadding in training (cgan.py:160).  Each shard's slab keeps the global
+Semantics: each shard's output equals the generator on its extended block
+of ``zpad(vol, buffer)`` (the block plus ``buffer`` voxels a side along
+each split axis), as the tiled path's output equals the generator on each
+tile; the output's split extents equal vol's (the others shrink by
+2*buffer).  Edge shards see zeros beyond the volume, as the reference's
+ZeroPadding in training (cgan.py:160).  The shards together are not one
+generator pass over the whole padded volume: the transposed convs' TF-SAME
+edges make a slab's last planes differ from the whole pass's (ROADMAP.md
+§C has the gap measured).  Each shard's slab keeps the global
 stride-4 pooling phase: slab % 4 == 0 and slab + 2*buffer a valid dimsize.
 
 The exchange goes one axis at a time, z then y then x; each later exchange
@@ -29,6 +34,7 @@ eager PyTorch traces nothing, so there is nothing to memoise.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -40,7 +46,8 @@ from torch.func import functional_call
 
 from ..shapes import is_valid_dimsize
 from .distributed import exchange
-from .mesh import SPACE_AXIS, Mesh, Shard, ShardedTensor, process_rank
+from .mesh import (SPACE_AXIS, Mesh, Shard, ShardedTensor, process_rank,
+                   replicas)
 
 
 def _vol_spec(batched: bool, data_axis: Optional[str],
@@ -109,15 +116,24 @@ def _check_extra_axis(mesh: Mesh, axis: str, extent: Optional[int],
     return n_dev
 
 
-def _as_apply(gen_apply, params):
-    """(apply(params, batch), params): a generator module is applied through
-    ``functional_call`` with its own parameters unless ``params`` is given."""
+def _appliers(gen_apply, params, devices) -> Dict[torch.device, Callable]:
+    """One ``apply(batch)`` a device.  A generator module with no ``params``
+    runs as its replicas (``mesh.replicas``: copied once a device, refreshed
+    when its parameters change); otherwise ``gen_apply(params, batch)`` (a
+    module through ``functional_call``) with ``params`` copied to each
+    device for this call."""
+    if isinstance(gen_apply, nn.Module) and params is None:
+        return dict(zip(devices, replicas(gen_apply, devices)))
+    apply = gen_apply
     if isinstance(gen_apply, nn.Module):
         module = gen_apply
-        if params is None:
-            params = dict(module.named_parameters())
-        return (lambda p, b: functional_call(module, p, (b,))), params
-    return gen_apply, params
+        apply = lambda p, b: functional_call(module, p, (b,))  # noqa: E731
+    out = {}
+    for d in devices:
+        if d not in out:
+            out[d] = functools.partial(
+                apply, {k: v.to(d) for k, v in params.items()})
+    return out
 
 
 def halo_predict_fn(gen_apply: Callable, mesh: Mesh, buffer: int,
@@ -215,7 +231,6 @@ def halo_predict_fn(gen_apply: Callable, mesh: Mesh, buffer: int,
                                         mesh.devices.shape))
 
     def f(params, vol) -> ShardedTensor:
-        apply, params = _as_apply(gen_apply, params)
         vol = torch.as_tensor(vol)
         mine = [p for p in owners if int(mesh.processes.flat[p]) == rank]
         blocks: Dict[int, torch.Tensor] = {
@@ -227,19 +242,16 @@ def halo_predict_fn(gen_apply: Callable, mesh: Mesh, buffer: int,
             dim = lead + i
             blocks = _exchange_axis(blocks, mesh, owners, axis, dim, buffer,
                                     neighbour, tag)
-        # one copy of the parameters per device, made outside inference
-        # mode so conv3's weight-pack cache keeps them
-        reps = {}
-        for p in mine:
-            dev = mesh.devices.flat[p]
-            if dev not in reps:
-                reps[dev] = {k: v.to(dev) for k, v in params.items()}
+        # made outside inference mode, so conv3's weight-pack cache keeps
+        # the copies' packs
+        apply = _appliers(gen_apply, params,
+                          [mesh.devices.flat[p] for p in mine])
         shards = []
         with torch.inference_mode():
             for p in mine:
                 dev, ext = mesh.devices.flat[p], blocks[p]
-                out = (apply(reps[dev], ext) if batched
-                       else apply(reps[dev], ext[None])[0])
+                out = (apply[dev](ext) if batched
+                       else apply[dev](ext[None])[0])
                 shards.append(Shard(_out_index(block_index(p, vol.shape),
                                                spec, out.shape), out, p))
         shape = tuple(n if axis is not None else m for n, m, axis in

@@ -28,7 +28,9 @@ does.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -126,6 +128,40 @@ def _indexed(d: torch.device) -> torch.device:
     if d.type == "cuda" and d.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+_REPLICAS: "weakref.WeakKeyDictionary[torch.nn.Module, dict]" = (
+    weakref.WeakKeyDictionary())
+
+
+def replicas(module: torch.nn.Module, devices: Sequence[torch.device]
+             ) -> List[torch.nn.Module]:
+    """``module`` on each of ``devices``, one entry a device: the module
+    itself on the device its parameters live on; elsewhere one copy a
+    device, made on first use and kept for the module's life.  A copy's
+    parameters are refreshed in place from the module's when these changed
+    since (their version counters moved: an optimizer step, a restore), so
+    conv3 repacks a copy's weights then and only then; parameters made in
+    inference mode keep no version counter and refresh on every call."""
+    home = next(module.parameters()).device
+    src = list(module.parameters())
+    versions = [object() if p.is_inference() else p._version for p in src]
+    made = _REPLICAS.setdefault(module, {})
+    out = []
+    for d in devices:
+        if d == home:
+            out.append(module)
+            continue
+        if d not in made:
+            with torch.inference_mode(False):  # a copy refreshable anywhere
+                made[d] = [copy.deepcopy(module).to(d), versions]
+        elif made[d][1] != versions:
+            with torch.no_grad():
+                for p, q in zip(made[d][0].parameters(), src):
+                    p.copy_(q)
+            made[d][1] = versions
+        out.append(made[d][0])
+    return out
 
 
 def make_mesh(n_devices: Optional[int] = None,
