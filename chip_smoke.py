@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/H100 port (transfer_em_tpu_torch).
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--int8-only | --parallel-only]
 
 ``--out DIR`` also writes every JSON line (chip_smoke.jsonl) and the
 compilers' output with ptxas register counts (chip_smoke_build.log) to DIR.
@@ -157,14 +157,20 @@ each printing one JSON line:
             most 1e-3 of the voxels of the plain versions.  Every kernel,
             conv3 and LeakyReLU on bf16 among them, must launch.
 12. int8    the int8 serving opt-in (UNetGenerator(int8_conv=True)) and
-            the phase-decomposed transposed conv: conv_int8 against its
-            plain version (the exact integer conv in float64) at every
-            conv of the int8 generator, on the codes a forward gives it,
-            3D and 2D, wf=8 at B=128 and wf=1 (64-256 channels) at B=4:
-            int32 accumulators and dequantized outputs bit-equal, times
-            beside the bound (int8 operations at 1,979 TOPS or bytes);
-            the port's int8 convs (k3 with its epilogue, k4 stride-2,
-            transposed; f32 and bf16 out; N(0, 1) and tie-rich inputs)
+            the phase-decomposed transposed conv: at every conv of the
+            int8 generator, 3D and 2D, wf=8 at B=128 and wf=1 (64-256
+            channels) at B=4, the quantize kernel against its plain
+            version on the activation a forward gives it (codes and
+            scale bit-equal) and conv_int8 against its plain version (the
+            exact integer conv in float64) on the codes (int32
+            accumulators and dequantized outputs bit-equal), times beside
+            the bounds (bytes, or int8 operations at 1,979 TOPS); three
+            planted faults of the quantize kernel (built with
+            -DTEM_QUANT_FAULT: roundf, a reciprocal product, the max of
+            half the tensor) each breaking its equality on those
+            activations or two tie-rich ones; the port's int8 convs (k3
+            with its epilogue, k4 stride-2, transposed, one with an odd
+            Cout; f32 and bf16 out; N(0, 1) and tie-rich inputs)
             bit-equal to an independent float64 reference, and each of
             three planted faults (roundf quantization, one weight scale
             per tensor, a dropped tap) breaking that equality; the int8
@@ -178,9 +184,12 @@ each printing one JSON line:
             bf16 of the same weights at wf=8 B=128, wf=1 B=4 and B=16:
             ms a batch, Mvox/s, peak memory, within one level on at most
             1e-3 of the voxels of the int8 step through the plain
-            versions, int8 against f32 (read), one profiled batch.
-            conv_int8, preprocess, postprocess and LeakyReLU must launch,
-            conv3 must not.
+            versions, int8 against f32 (read), one profiled batch in
+            which no PyTorch op quantizes or pads an activation.
+            quantize_int8, conv_int8, preprocess, postprocess and
+            LeakyReLU must launch, conv3 must not.  ``--int8-only``
+            builds the kernels and runs this phase alone (its two
+            entries of the kernels line).
 14. parallel  data and halo parallelism (run after int8) on meshes whose
             positions take the visible cards in turn (``_cards``:
             ``[cuda:0] * k`` on one card): under cudnn.deterministic,
@@ -199,7 +208,10 @@ each printing one JSON line:
             reduced gradient within GRAD_TOL; dropout on, losses rtol
             1e-4; a second DP step packs each card's weights once;
             EM2EM(74, wf=8).to_mesh trains 4 steps at B=16 and its
-            checkpoint restores bit-equal into an unmeshed model; worker
+            checkpoint restores bit-equal into an unmeshed model;
+            EM2EM(74, is3d=False, wf=8, disc_prior=p).to_mesh, each
+            disc_y replica's prior on its own device, 2 steps against
+            the unmeshed model (losses rtol 1e-4, gradients GRAD_TOL); worker
             processes of this script (``--parallel-worker``): two on one
             card over gloo, else one a card over NCCL, a DP step on their
             rows against the single-process step and a halo ring across
@@ -218,7 +230,8 @@ each printing one JSON line:
    from the em2em phase, ``serve_ng_launches`` from the serve_ng phase,
    ``twod_launches`` from the twod phase's quick start,
    ``train_bf16_launches`` from the bf16 quick start, ``int8_launches``
-   from the int8 tile step (``launches`` for conv_int8), ``twod`` the 2D
+   from the int8 tile step (``launches`` for conv_int8 and
+   quantize_int8), ``twod`` the 2D
    shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
    at the train step's shapes, ``slab_shapes`` from the volume phase's
    kernel checks, ``parallel_launches`` from phase 14's meshed calls,
@@ -764,6 +777,7 @@ def plain_versions(noise=0.0, seed=5):
     swaps = [(blocks, "conv3", conv3),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
              (quant, "conv_int8", cuda_int8.conv_int8_plain),
+             (quant, "quantize_int8", quant.quantize_int8_plain),
              *[(m, n, f) for m in (tiling, device_stitch, slab)
                for n, f in (("preprocess_u8", ck.preprocess_u8_plain),
                             ("postprocess_to_u8", ck.postprocess_u8_plain))]]
@@ -862,10 +876,12 @@ def counters():
 
 
 def reset_counts():
-    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8
+    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8, quant
     for c in counters().values():
         c.launches = 0
     cuda_int8.conv_int8.launches = 0
+    quant.quantize_int8.launches = 0
+    quant.int8_weights.packs = 0
     cuda_conv.conv3.launches_tc = cuda_conv.conv3.launches_direct = 0
     cuda_conv.conv3.launches_bf16 = 0
     counters()["leaky_relu"].launches_bf16 = 0
@@ -875,11 +891,13 @@ def reset_counts():
 def read_counts():
     """Launches per kernel, conv3 also per path (tc, direct), conv3's and
     LeakyReLU's on bfloat16 operands, and the weight packs (plain torch,
-    not a kernel launch); conv_int8's, which only the int8 path launches,
-    beside them."""
-    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8
+    not a kernel launch); conv_int8's and quantize_int8's, which only the
+    int8 path launches, and the int8 weights made, beside them."""
+    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8, quant
     out = {k: c.launches for k, c in counters().items()}
     out["conv_int8"] = cuda_int8.conv_int8.launches
+    out["quantize_int8"] = quant.quantize_int8.launches
+    out["int8_weight_packs"] = quant.int8_weights.packs
     out["conv3_tc"] = cuda_conv.conv3.launches_tc
     out["conv3_direct"] = cuda_conv.conv3.launches_direct
     out["conv3_bf16"] = cuda_conv.conv3.launches_bf16
@@ -3157,47 +3175,96 @@ INT8_VOL = 192  # side of the seeded volume the tiles come from
 
 @contextlib.contextmanager
 def recorded_int8():
-    """Record the operands of every conv_int8 call under the block (codes,
-    scales, out dtype, epilogue), in call order."""
+    """Record every int8 conv of the block in call order: its kernel's
+    shape and kind (the int8_weights call), its activation and the codes'
+    layout (the quantize_int8 call), then the conv_int8 call's operands
+    (codes, weight codes, scales, out dtype, epilogue, and the packed
+    operand and phases), one dict a conv."""
     from transfer_em_tpu_torch.ops import quant
 
-    calls, f = [], quant.conv_int8
+    calls, fw = [], quant.int8_weights
+    fq, fc = quant.quantize_int8, quant.conv_int8
 
-    def rec(qx, qk, sx, sk, out_dtype=torch.float32, leaky=None):
-        calls.append((qx, qk, sx, sk, out_dtype, leaky))
-        return f(qx, qk, sx, sk, out_dtype, leaky)
+    def rec_w(kernel, layout, transpose=False):
+        calls.append({"kernel": tuple(kernel.shape), "transpose": transpose})
+        return fw(kernel, layout, transpose)
 
-    quant.conv_int8 = rec
+    def rec_q(x, layout):
+        calls[-1].update(x=x, layout=layout)
+        return fq(x, layout)
+
+    def rec_c(qx, qk, sx, sk, out_dtype=torch.float32, leaky=None, **kw):
+        calls[-1]["conv"] = (qx, qk, sx, sk, out_dtype, leaky)
+        calls[-1]["kw"] = kw
+        return fc(qx, qk, sx, sk, out_dtype, leaky, **kw)
+
+    quant.int8_weights, quant.quantize_int8, quant.conv_int8 = (rec_w, rec_q,
+                                                                rec_c)
     try:
         yield calls
     finally:
-        quant.conv_int8 = f
+        quant.int8_weights, quant.quantize_int8, quant.conv_int8 = fw, fq, fc
 
 
-def _int8_work(layer, call):
-    """(operations, bytes) of one conv_int8 call: the JAX function's
-    multiply-adds x 2 (a phase conv's zero taps not counted), each operand
-    read once and the output written once."""
-    qx, qk, _, sk, out_dtype, _ = call
-    n = qx.dim() - 2
-    taps = math.prod(qk.shape[:n])
+def _int8_work(rec):
+    """(operations, bytes) of one int8 conv as the JAX function defines it,
+    from its own operands (``recorded_int8``'s record), not the codes'
+    layout: each output's multiply-adds x 2, i.e. its kernel's taps (the
+    k4 stride-2 transposed conv's 2^n of 4^n) x the activation's channels;
+    each activation value read once as one int8 code, the kernel's codes
+    and its O scales read once, the output written once."""
+    x, k = rec["x"], rec["kernel"]
+    qx, qk, _, _, out_dtype, _ = rec["conv"]
+    n = x.dim() - 2
+    # the output's elements: the unit conv's voxels x its outputs (a phase
+    # conv's 2^n * Cout at S^n voxels are the (2S)^n * Cout of the output)
     out_sp = [a - b + 1 for a, b in zip(qx.shape[1:-1], qk.shape[:n])]
-    m = qx.shape[0] * math.prod(out_sp)
-    o = qk.shape[-1]
-    macs = m * taps * qk.shape[-2] * o
-    if layer.endswith(".up"):
-        macs = macs * 2 ** n // 3 ** n
+    outs = qx.shape[0] * math.prod(out_sp) * qk.shape[-1]
+    taps = 2 ** n if rec["transpose"] else math.prod(k[:n])
     es = torch.empty((), dtype=out_dtype).element_size()
-    nbytes = qx.numel() + qk.numel() + 4 * sk.numel() + m * o * es
-    return 2 * macs, nbytes
+    nbytes = x.numel() + math.prod(k) + 4 * k[-1] + outs * es
+    return 2 * outs * taps * x.shape[-1], nbytes
+
+
+def _quant_work(x):
+    """(operations, bytes) of one quantize_int8 call as the function
+    defines it: the activation read once, one code a value and the scale
+    written once (the layout's padding and copies not counted); an abs, a
+    max and a division a value (float32 on the CUDA cores)."""
+    return 3 * x.numel(), x.numel() * x.element_size() + x.numel() + 4
+
+
+def _quant_case(x, layout):
+    """quantize_int8 against its plain version on one activation: codes and
+    scale bit-equal; times of the kernel and the plain version (events),
+    the bound."""
+    from transfer_em_tpu_torch.ops import quant
+
+    q, sx = quant.quantize_int8_cuda(x, layout)
+    q_ref, sx_ref = quant.quantize_int8_plain(x, layout)
+    torch.cuda.synchronize()
+    ops, nbytes = _quant_work(x)
+    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    ms = cuda_ms(lambda: quant.quantize_int8_cuda(x, layout))
+    return {"x": list(x.shape), "dtype": str(x.dtype).replace("torch.", ""),
+            "codes": list(q.shape), "layout": layout._asdict(),
+            "equal": bool(torch.equal(q, q_ref) and torch.equal(sx, sx_ref)),
+            "codes_differing": int((q != q_ref).sum()),
+            "max_abs_err": float((q.int() - q_ref.int()).abs().max()),
+            "ms": ms, "plain_ms": cuda_ms(
+                lambda: quant.quantize_int8_plain(x, layout), reps=2),
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+            "gb_per_s": nbytes / ms / 1e6}
 
 
 def _int8_layer_checks(dev, rank, wf, bsz):
-    """conv_int8 against its plain version at every layer of the int8
-    generator (rank, wf, B), on the codes a forward of a seeded generator
-    over a seeded batch gives it: the int32 accumulators and the
-    dequantized output (its dtype and epilogue) bit-equal, times of the
-    kernel (events) and the plain version, the bound."""
+    """The int8 site's two kernels against their plain versions at every
+    layer of the int8 generator (rank, wf, B), on the activations and codes
+    a forward of a seeded generator over a seeded batch gives them:
+    quantize_int8's codes and scale, conv_int8's int32 accumulators and
+    dequantized output (its dtype, epilogue and interleaving), each
+    bit-equal; times of the kernels (events) and the plain versions, the
+    bounds."""
     from transfer_em_tpu_torch.ops import cuda_int8
 
     gen = seeded_generator(60 + wf, dev, is3d=rank == 3, wf=wf,
@@ -3206,35 +3273,106 @@ def _int8_layer_checks(dev, rank, wf, bsz):
         -1, 1, (bsz,) + (74,) * rank + (1,)).astype(np.float32)).to(dev)
     with torch.inference_mode(), recorded_int8() as calls:
         gen(x)
-    rows = []
-    for layer, call in zip(INT8_LAYERS, calls):
+    rows, quant_rows = [], []
+    for layer, rec in zip(INT8_LAYERS, calls):
+        quant_rows.append({"layer": layer, **_quant_case(rec["x"],
+                                                         rec["layout"])})
+        call, kw = rec["conv"], rec["kw"]
         qx, qk, sx, sk, od, leaky = call
-        acc = cuda_int8.conv_int8(qx, qk, sx, sk, torch.int32)
-        acc_ref = cuda_int8.conv_int8_plain(qx, qk, sx, sk, torch.int32)
-        y = cuda_int8.conv_int8(*call)
-        y_ref = cuda_int8.conv_int8_plain(*call)
+        acc = cuda_int8.conv_int8(qx, qk, sx, sk, torch.int32, **kw)
+        acc_ref = cuda_int8.conv_int8_plain(qx, qk, sx, sk, torch.int32,
+                                            **kw)
+        y = cuda_int8.conv_int8(*call, **kw)
+        y_ref = cuda_int8.conv_int8_plain(*call, **kw)
         torch.cuda.synchronize()
-        ops, nbytes = _int8_work(layer, call)
+        ops, nbytes = _int8_work(rec)
         b_ms, b_by = bound(nbytes, ops, None, peak=INT8_TOPS)
-        ms = cuda_ms(lambda: cuda_int8.conv_int8(*call))
+        ms = cuda_ms(lambda: cuda_int8.conv_int8(*call, **kw))
+        plan = kw["packed"].plan
         rows.append({
             "layer": layer, "x": list(qx.shape), "kernel": list(qk.shape),
             "out_dtype": str(od).replace("torch.", ""),
-            "epilogue": leaky is not None,
+            "epilogue": leaky is not None, "phases": kw.get("phases", False),
+            "plan": plan._asdict(),
             "acc_equal": bool(torch.equal(acc, acc_ref)),
             "out_equal": bool(torch.equal(y, y_ref)),
             "max_abs_err": float((y.float() - y_ref.float()).abs().max()),
             "acc_max_abs": int(acc_ref.abs().max()),
             "ms": ms, "plain_ms": cuda_ms(
-                lambda: cuda_int8.conv_int8_plain(*call), reps=2),
+                lambda: cuda_int8.conv_int8_plain(*call, **kw), reps=2),
             "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
             "bytes": nbytes, "tops": ops / ms / 1e9})
         del acc, acc_ref, y, y_ref
+    inputs = [(c["x"], c["layout"]) for c in calls]
     del calls
     torch.cuda.empty_cache()
     return {"rank": rank, "wf": wf, "batch": bsz, "layers": rows,
+            "quantize": quant_rows, "inputs": inputs,
             "ok": len(rows) == len(INT8_LAYERS)
-            and all(r["acc_equal"] and r["out_equal"] for r in rows)}
+            and all(r["acc_equal"] and r["out_equal"] for r in rows)
+            and all(r["equal"] for r in quant_rows)}
+
+
+QUANT_FAULTS = {"roundf": 1, "reciprocal": 2, "partial_max": 3}
+
+
+_FAULT_LIBS = {}
+
+
+def _quant_fault_lib(name):
+    """The quantize kernel built with planted fault ``name`` (QUANT_FAULTS),
+    once a run."""
+    from transfer_em_tpu_torch import kernels
+
+    if name not in _FAULT_LIBS:
+        _FAULT_LIBS[name] = kernels.build_variant(
+            "quant_int8.cu", f"quant_fault_{name}",
+            [f"TEM_QUANT_FAULT={QUANT_FAULTS[name]}"])
+    return _FAULT_LIBS[name]
+
+
+def _quant_fault_checks(dev, inputs):
+    """Three planted faults of the quantize kernel, each built from
+    csrc/quant_int8.cu with -DTEM_QUANT_FAULT (roundf rounding, a multiply
+    by the scale's reciprocal, the max over the first half of the tensor):
+    on the wf=8 B=128 3D layers' activations and two tie-rich ones (every
+    a / scale an exact half; the max at the first and at the last element),
+    each fault must make some codes or scales differ from the plain
+    version's.  Then one NaN in the tie-rich input: the kernel's scale must
+    be NaN, as the plain version's is (the max carries it)."""
+    from transfer_em_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(64)
+    ties = _tie_rich((B, 24, 24, 24, 32), gen, dev)
+    last = ties.clone()
+    last.view(-1)[0] = 1.5
+    last.view(-1)[-1] = -127.0
+    layout = quant.conv_layout(ties.shape, (3, 3, 3, 32, 32), 1, "VALID")
+    cases = list(inputs) + [(ties, layout), (last, layout)]
+    refs = [quant.quantize_int8_plain(x, lay) for x, lay in cases]
+    out = {}
+    for name in QUANT_FAULTS:
+        lib = _quant_fault_lib(name)
+        broken = []
+        for i, ((x, lay), (q_ref, s_ref)) in enumerate(zip(cases, refs)):
+            q, sx = quant.quantize_int8_cuda(x, lay, lib=lib)
+            if not (torch.equal(q, q_ref) and torch.equal(sx, s_ref)):
+                broken.append(i)
+        out[name] = {"cases_broken": len(broken), "of": len(cases),
+                     "first": broken[:4]}
+    del refs, cases
+    nan = ties.clone()
+    nan.view(-1)[nan.numel() // 3] = float("nan")
+    q, sx = quant.quantize_int8_cuda(nan, layout)
+    q_ref, s_ref = quant.quantize_int8_plain(nan, layout)
+    nan_case = {"scale_nan": bool(torch.isnan(sx).all()),
+                "plain_scale_nan": bool(torch.isnan(s_ref).all()),
+                "codes_equal": bool(torch.equal(q, q_ref))}
+    del nan, q, q_ref, ties, last
+    torch.cuda.empty_cache()
+    return {"faults": out, "nan": nan_case,
+            "ok": all(f["cases_broken"] > 0 for f in out.values())
+            and nan_case["scale_nan"] and nan_case["plain_scale_nan"]}
 
 
 def _int8_reference(x, w, kind, out_dtype, leaky=None):
@@ -3279,21 +3417,19 @@ def _tie_rich(shape, gen, dev):
 
 @contextlib.contextmanager
 def int8_fault(kind):
-    """A planted fault in the port's int8 conv: ``roundf`` quantizes with
-    round half away from zero; ``weight_per_tensor`` takes one weight scale
-    for all output channels; ``dropped_tap`` zeroes the kernel's first
-    tap."""
+    """A planted fault in the port's int8 conv: ``roundf`` quantizes the
+    activations with round half away from zero (the quantize kernel built
+    so); ``weight_per_tensor`` takes one weight scale for all output
+    channels; ``dropped_tap`` zeroes the kernel's first tap (and repacks
+    it)."""
     from transfer_em_tpu_torch.ops import quant
 
     saved_q, saved_c = quant.quantize_sym, quant.conv_int8
+    saved_a = quant.quantize_int8
 
-    def q_roundf(a, axes):
-        a = a.float()
-        amax = a.abs().amax(dim=tuple(axes), keepdim=True)
-        s = torch.clamp(amax, min=1e-12) / amax.new_full((), 127.0)
-        t = a / s
-        r = torch.sign(t) * torch.floor(t.abs() + 0.5)
-        return torch.clamp(r, -127, 127).to(torch.int8), s
+    def a_roundf(x, layout):
+        return quant.quantize_int8_cuda(x, layout,
+                                        lib=_quant_fault_lib("roundf"))
 
     def q_per_tensor(a, axes):
         if a.dim() - 1 in axes:  # activations
@@ -3301,13 +3437,15 @@ def int8_fault(kind):
         q, s = saved_q(a, tuple(range(a.dim())))
         return q, s.expand(*([1] * (a.dim() - 1)), a.shape[-1])
 
-    def c_dropped(qx, qk, sx, sk, out_dtype=torch.float32, leaky=None):
+    def c_dropped(qx, qk, sx, sk, out_dtype=torch.float32, leaky=None,
+                  **kw):
         qk = qk.clone()
         qk[(0,) * (qk.dim() - 2)] = 0
-        return saved_c(qx, qk, sx, sk, out_dtype, leaky)
+        return saved_c(qx, qk, sx, sk, out_dtype, leaky,
+                       phases=kw.get("phases", False))
 
     if kind == "roundf":
-        quant.quantize_sym = q_roundf
+        quant.quantize_int8 = a_roundf
     elif kind == "weight_per_tensor":
         quant.quantize_sym = q_per_tensor
     else:
@@ -3316,40 +3454,46 @@ def int8_fault(kind):
         yield
     finally:
         quant.quantize_sym, quant.conv_int8 = saved_q, saved_c
+        quant.quantize_int8 = saved_a
 
 
 INT8_FAULTS = ("roundf", "weight_per_tensor", "dropped_tap")
 
 
 def _int8_conv_checks(dev, gen):
-    """The port's int8 convs (quantize, rearrange, kernel, dequantize)
-    against _int8_reference at the wf=8 layer kinds (B=16, f32 and bf16 out,
-    3D and 2D): a k3 conv with its epilogue, a k4 stride-2 down conv, a
-    transposed conv, each on N(0, 1) activations and on tie-rich ones;
-    bit-equal.  Each planted fault must break the equality of at least one
-    of them."""
+    """The port's int8 convs (the quantize kernel, the weights, conv_int8
+    with its epilogue) against _int8_reference at the wf=8 layer kinds
+    (B=16, f32 and bf16 out, 3D and 2D): a k3 conv with its epilogue, a k4
+    stride-2 down conv, a transposed conv (and one with an odd Cout, whose
+    phases do not pair channels), each on N(0, 1) activations, on
+    tie-rich ones and on a strided (not contiguous) view; bit-equal.  Each planted fault must break the
+    equality of at least one of them.  Each call takes a fresh copy of the
+    weights, so that the weight cache remakes them (under a fault too)."""
     from transfer_em_tpu_torch.ops import quant
     from transfer_em_tpu_torch.ops.cuda_kernels import slope_in
 
     cases = []
     for rank in (3, 2):
         for kind, side, c, o in (("k3", 24, 32, 16), ("down", 34, 8, 8),
-                                 ("up", 13, 32, 16)):
+                                 ("up", 13, 32, 16), ("up", 9, 8, 3)):
             k = {"k3": 3, "down": 4, "up": 4}[kind]
             w = torch.randn((k,) * rank + (c, o), generator=gen, device=dev)
             shape = (16,) + (side,) * rank + (c,)
-            for data in ("normal", "ties"):
-                x = (torch.randn(shape, generator=gen, device=dev)
-                     if data == "normal" else _tie_rich(shape, gen, dev))
+            for data in ("normal", "ties", "strided"):
+                x = (_tie_rich(shape, gen, dev) if data == "ties"
+                     else torch.randn(shape, generator=gen, device=dev))
+                if data == "strided":  # the same shape, not contiguous
+                    x = x.transpose(1, 2).contiguous().transpose(1, 2)
                 for od in (torch.float32, torch.bfloat16):
                     cases.append((rank, kind, data, od, x, w))
 
     def run(rank, kind, data, od, x, w):
         leaky = slope_in(od) if kind == "k3" else None
         if kind == "up":
-            got = quant.conv_transpose_nd_int8(x, w, out_dtype=od)
+            got = quant.conv_transpose_nd_int8(x, w.clone(), out_dtype=od)
         else:
-            got = quant.conv_nd_int8(x, w, stride=2 if kind == "down" else 1,
+            got = quant.conv_nd_int8(x, w.clone(),
+                                     stride=2 if kind == "down" else 1,
                                      out_dtype=od, leaky=leaky)
         return torch.equal(got, _int8_reference(x, w, kind, od, leaky))
 
@@ -3430,6 +3574,8 @@ def _int8_step_case(dev, vol, wf, bsz, counted):
         if name == "int8":
             if counted:
                 rec["profile"] = profile_round(lambda: step(tiles))
+                rec["aten_on_activations"] = _aten_counts(
+                    lambda: step(tiles), QUANT_ATEN_OPS)
             with plain_versions():
                 ref = step(tiles)
             rec[name]["u8_max_diff"], rec[name]["u8_frac_differing"] = \
@@ -3442,8 +3588,33 @@ def _int8_step_case(dev, vol, wf, bsz, counted):
     i8 = rec["int8"]
     rec["ok"] = bool(i8["u8_max_diff"] <= 1 and i8["u8_frac_differing"]
                      <= 1e-3 and outs["int8"].shape == (bsz, 36, 36, 36)
-                     and i8["launches"]["conv_int8"] > 0)
+                     and i8["launches"]["conv_int8"] > 0
+                     and i8["launches"]["quantize_int8"] > 0
+                     and not any(rec.get("aten_on_activations",
+                                         {}).values()))
     return rec
+
+
+# PyTorch ops that quantized or rearranged the activations before the
+# quantize kernel: none may run in an int8 tile step on the card
+QUANT_ATEN_OPS = ("aten::abs", "aten::div", "aten::round", "aten::clamp",
+                  "aten::amax", "aten::constant_pad_nd")
+
+
+def _aten_counts(run, names):
+    """How often each of the PyTorch ops ``names`` ran in ``run()`` (host
+    side of torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.key in counts:
+            counts[e.key] += e.count
+    return counts
 
 
 def _phase_conv_cases(dev, gen):
@@ -3519,6 +3690,9 @@ def check_int8(dev, smi):
     gen = torch.Generator(device=dev).manual_seed(60)
     rec = {"phase": "int8", "card": smi, "not_run": {}}
     rec["layers"] = [_int8_layer_checks(dev, *c) for c in INT8_CHECKS]
+    inputs = [c.pop("inputs") for c in rec["layers"]][0]  # 3D wf=8 B=128
+    rec["quant_faults"] = _quant_fault_checks(dev, inputs)
+    del inputs
     rec["convs"] = _int8_conv_checks(dev, gen)
     rec["golden"] = _int8_goldens(dev)
     rec["phase_conv"] = _phase_conv_cases(dev, gen)
@@ -3541,21 +3715,24 @@ def check_int8(dev, smi):
     rec["phase_s"] = time.perf_counter() - t_phase
     rec["ok"] = bool(
         all(c["ok"] for c in rec["layers"]) and rec["convs"]["ok"]
+        and rec["quant_faults"]["ok"]
         and all(g["psnr_db"] >= 40 and g["card_vs_cpu_max_abs"] <= 1e-5
                 for g in rec["golden"].values())
         and rec["phase_conv"]["ok"]
         and rec.get("tf_interop", {"ok": True})["ok"]
         and all(s["ok"] for s in rec["steps"])
-        and all(launches[k] > 0 for k in ("conv_int8", "preprocess_u8",
-                                          "postprocess_u8", "leaky_relu"))
+        and all(launches[k] > 0 for k in ("conv_int8", "quantize_int8",
+                                          "preprocess_u8", "postprocess_u8",
+                                          "leaky_relu"))
         and launches["conv3"] == 0)
     emit(rec)
     return rec
 
 
-def _int8_sums(rows):
-    """Times and bound of a generator's conv_int8 calls, summed."""
-    t_ops = sum(r["ops"] for r in rows) / INT8_TOPS * 1e3
+def _int8_sums(rows, peak=INT8_TOPS):
+    """Times and bound of a generator's conv_int8 (or quantize_int8) calls,
+    summed."""
+    t_ops = sum(r.get("ops", 0) for r in rows) / peak * 1e3
     t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
     return {"ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -3565,17 +3742,18 @@ def _int8_sums(rows):
             "library_ms": None}
 
 
-def int8_kernel_line(int8):
-    """The ``kernels`` line's conv_int8 entry: times summed over the 12
-    convs of one int8 tile batch (3D, wf=8, B=128, float32 out), launches
-    from the int8 phase's main path (the counted tile step)."""
+def int8_kernel_lines(int8):
+    """The ``kernels`` line's conv_int8 and quantize_int8 entries: times
+    summed over the 12 convs (12 activations) of one int8 tile batch (3D,
+    wf=8, B=128, float32 out), launches from the int8 phase's main path
+    (the counted tile step)."""
     by = {(c["rank"], c["wf"]): c for c in int8["layers"]}
     main = by[(3, 8)]
     layers = [{k: r[k] for k in ("layer", "x", "kernel", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "tops")}
               for r in main["layers"]]
     checks = [r for c in int8["layers"] for r in c["layers"]]
-    return {"name": "conv_int8", "route": "cuda",
+    conv = {"name": "conv_int8", "route": "cuda",
             "source": "transfer_em_tpu_torch/csrc/conv_int8.cu",
             "replaces": "transfer_em_tpu/ops/quant.py:65 (not a Pallas "
                         "kernel: the XLA int8 conv, lax.conv_general_dilated "
@@ -3592,6 +3770,30 @@ def int8_kernel_line(int8):
             "wf1_b4": _int8_sums(by[(3, 1)]["layers"]),
             "twod_b128": _int8_sums(by[(2, 8)]["layers"]),
             "twod_wf1_b4": _int8_sums(by[(2, 1)]["layers"])}
+    f32 = PEAK_FLOPS[torch.float32]
+    qrows = [r for c in int8["layers"] for r in c["quantize"]]
+    quant = {"name": "quantize_int8", "route": "cuda",
+             "source": "transfer_em_tpu_torch/csrc/quant_int8.cu",
+             "replaces": "transfer_em_tpu/ops/quant.py:43 (not a Pallas "
+                         "kernel: the XLA quantization quantize_sym :43-53, "
+                         "called at :64 and :88; the redesign of the "
+                         "conv_int8 site)",
+             "launches": int8["launches"]["quantize_int8"],
+             **_int8_sums(main["quantize"], peak=f32),
+             "per": "the 12 activations of one B=128 int8 tile batch (3D, "
+                    "wf=8, float32); library_ms null: no single PyTorch "
+                    "call quantizes into the conv's layout",
+             "checks": len(qrows),
+             "passed": sum(r["equal"] for r in qrows),
+             "layers": [{k: r[k] for k in ("layer", "x", "codes", "ms",
+                                           "plain_ms", "bound_ms",
+                                           "gb_per_s")}
+                        for r in main["quantize"]],
+             "faults": int8["quant_faults"]["faults"],
+             "wf1_b4": _int8_sums(by[(3, 1)]["quantize"], peak=f32),
+             "twod_b128": _int8_sums(by[(2, 8)]["quantize"], peak=f32),
+             "twod_wf1_b4": _int8_sums(by[(2, 1)]["quantize"], peak=f32)}
+    return [conv, quant]
 
 
 # -- phase 14: data and halo parallelism ----------------------------------------
@@ -3848,6 +4050,58 @@ def check_to_mesh(dev):
             "restored_unmeshed_bit_equal": equal,
             "ok": (equal and epoch["steps"] == 4
                    and all(math.isfinite(v) for v in losses))}
+
+
+def check_to_mesh_prior(dev):
+    """EM2EM(74, is3d=False, wf=8, disc_prior=p).to_mesh(_cards(2))
+    against the same model unmeshed, both redrawn as check_dp's state:
+    disc_y's copy on each position's device runs a prior of its own there
+    (``mesh.replicas``).  Two steps at
+    B=16 (dropout on, the global masks): the 7 losses within rtol 1e-4 and,
+    after the first, every gradient within GRAD_TOL of its own largest
+    |g|."""
+    from transfer_em_tpu_torch.parallel import make_mesh
+    from transfer_em_tpu_torch.parallel.mesh import replicas
+    from transfer_em_tpu_torch.train import EM2EM
+    from transfer_em_tpu_torch.train.cgan import _tap_prior
+
+    def prior():
+        return _tap_prior(seeded_generator(65, dev, is3d=False), "down1")
+
+    devices = _cards(2)
+    rec = {"batch": DP_B, "devices": [str(d) for d in devices], "steps": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(is3d=False, wf=8, checkpoint_root=tmp, device=dev, seed=0)
+        one = EM2EM(74, "prior_one", disc_prior=prior(), **kw)
+        dp = EM2EM(74, "prior_dp", disc_prior=prior(), **kw)
+        for m in (one, dp):  # O(1) gradients in every network
+            redraw(m.state, 2)
+        dp.to_mesh(make_mesh(devices=devices))
+        for i in range(2):
+            x, y = smooth_batches(DP_B, 0.3, 40 + i, dev, ndim=2)
+            want = one.train_step(x, y).cpu().numpy()
+            with MESHED.window("dp"):
+                got = dp.train_step(x, y).cpu().numpy()
+            row = {"losses": got.tolist(), "single_losses": want.tolist(),
+                   "loss_max_rel_err": float(np.max(
+                       np.abs(got - want) / np.abs(want)))}
+            if i == 0:
+                row["grad_max_err_over_own_max"] = _worst(
+                    _grad_errors(dp.state, one.state))
+            rec["steps"].append(row)
+        reps = replicas(dp.state.dy, devices)
+        rec["prior_devices"] = [
+            str(next(iter(r.disc_prior.params.values())).device)
+            for r in reps]
+        rec["prior_on_own_device"] = all(
+            next(iter(r.disc_prior.params.values())).device == d
+            for r, d in zip(reps, devices))
+    rec["ok"] = bool(
+        rec["prior_on_own_device"]
+        and all(r["loss_max_rel_err"] <= 1e-4 for r in rec["steps"])
+        and all(v <= GRAD_TOL for v in
+                rec["steps"][0]["grad_max_err_over_own_max"].values()))
+    return rec
 
 
 def check_mesh_inference(dev, gen, vol, vol_d):
@@ -4226,6 +4480,7 @@ def check_parallel(dev, smi):
     halo = check_halo(dev)
     dp = check_dp(dev)
     to_mesh = check_to_mesh(dev)
+    to_mesh_prior = check_to_mesh_prior(dev)
     del vol_d
     torch.cuda.empty_cache()
     two = check_two_processes(dev)
@@ -4238,13 +4493,15 @@ def check_parallel(dev, smi):
     rec = {"phase": "parallel", "card": smi,
            "cards": torch.cuda.device_count(), "inference": inference,
            "halo": halo, "dp": dp, "to_mesh": to_mesh,
+           "to_mesh_prior": to_mesh_prior,
            "two_processes": two, "nccl": nccl, "scaling": scaling,
            "launches": launches, "launches_by_path": by_path,
            "seconds": time.perf_counter() - t_phase}
     rec["ok"] = (all(r["bit_equal"] for r in inference.values())
                  and all(r["shards_bit_equal"] and r["jax_init_within_bar"]
                          for r in halo.values())
-                 and dp["ok"] and to_mesh["ok"] and two["ok"] and nccl["ok"]
+                 and dp["ok"] and to_mesh["ok"] and to_mesh_prior["ok"]
+                 and two["ok"] and nccl["ok"]
                  and (scaling is None or scaling["ok"])
                  and MESHED.ok())
     emit(rec)
@@ -4266,6 +4523,9 @@ def main():
                     help="build the kernels and run the parallel phase "
                          "alone (on two or more cards with its scaling "
                          "timings); prints no kernels line")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="build the kernels and run the int8 phase alone; "
+                         "prints the int8 entries of the kernels line")
     args = ap.parse_args()
     OUT_DIR = args.out
     if not torch.cuda.is_available():
@@ -4305,6 +4565,14 @@ def main():
             print(line, flush=True)
         if not par["ok"]:
             fail("parallel", "the parallel phase failed a check")
+        return
+    if args.int8_only:
+        int8 = check_int8(dev, smi)
+        _write_log()
+        print(smi, flush=True)
+        emit({"kernels": int8_kernel_lines(int8)})
+        if not int8["ok"]:
+            fail("int8", "the int8 phase failed a check")
         return
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4479,14 +4747,15 @@ def main():
             {k: r[k] for k in slab_keys if k in r}
             for r in volume["slab_kernels"]
             if r["kernel"] == line["name"]]
-    lines.append(int8_kernel_line(int8))
-    for key, src in (("train_launches", lt), ("em2em_launches", le),
-                     ("volume_launches", lv),
-                     ("serve_ng_launches", ln), ("twod_launches", l2),
-                     ("train_bf16_launches", lb)):
-        lines[-1][key] = src["conv_int8"]
-    for line in lines[:-1]:
+    for line in lines:
         line["int8_launches"] = int8["launches"][line["name"]]
+    for line in int8_kernel_lines(int8):
+        for key, src in (("train_launches", lt), ("em2em_launches", le),
+                         ("volume_launches", lv),
+                         ("serve_ng_launches", ln), ("twod_launches", l2),
+                         ("train_bf16_launches", lb)):
+            line[key] = src[line["name"]]
+        lines.append(line)
     for line in lines:
         line["parallel_launches"] = par["launches"][line["name"]]
         line["parallel_launches_by_path"] = {

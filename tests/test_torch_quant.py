@@ -10,7 +10,8 @@ held bit-equal to JAX's (tolerance 0), in float32 and bfloat16.  The phase
 conv in float sums in another order than the dilated conv: rtol 1e-5.
 The kernel's packed weights and its table of input offsets are walked here
 as the kernel walks them (the arithmetic itself runs only on the card,
-chip_smoke.py ``int8``)."""
+chip_smoke.py ``int8``); tests/test_torch_quant_kernels.py holds the
+quantize pass's layouts and the weight cache."""
 
 import os
 
@@ -28,7 +29,8 @@ from transfer_em_tpu_torch.models import UNetGenerator
 from transfer_em_tpu_torch.models.convert import (params_from_tf_order,
                                                   params_to_jax)
 from transfer_em_tpu_torch.ops import cuda_int8, quant
-from transfer_em_tpu_torch.ops.convs import conv_transpose_nd
+from transfer_em_tpu_torch.ops.convs import (conv_transpose_nd,
+                                             interleave_phases)
 from transfer_em_tpu_torch.ops.cuda_kernels import postprocess_u8_plain
 
 torch.set_num_threads(1)
@@ -220,63 +222,119 @@ def test_conv_int8_plain_is_exact_at_the_widest_reduction():
         y.numpy(), (want.astype(np.float32) * scale).astype(np.float32))
 
 
-def _kernel_walk(qx, qk):
-    """The int32 accumulators as csrc/conv_int8.cu computes them: channels
-    padded to whole 4-byte words, the packed weights (pack_int8_weights),
-    each K word's input offset from the kernel's table (-1 past K), A
-    gathered row by row from each output voxel's base offset, summed over
-    the padded K."""
-    x5, k5 = qx.numpy().astype(np.int64), qk
-    c = x5.shape[-1]
-    if c % 4:
-        x5 = np.pad(x5, [(0, 0)] * 4 + [(0, 4 - c % 4)])
-        k5 = torch.nn.functional.pad(k5, (0, 0, 0, 4 - c % 4))
-    wt = cuda_int8.pack_int8_weights(k5).numpy().astype(np.int64)
-    opad, kpad = wt.shape
-    bsz, d, h, w, cp = x5.shape
+def walk_plan(qk, nc, p, cb, vs=None):
+    """A block plan (``cuda_int8.Int8Plan``) for :func:`kernel_walk`:
+    ``nc`` outputs of ``p`` planes a block, ``cb`` bytes a channel block at
+    voxel pitch ``vs`` (``cb`` if None); the copy unit and shared memory,
+    which the walk does not read, left 4 and 0."""
+    k5 = qk if qk.dim() == 5 else qk.unsqueeze(0)
+    ksteps = -(-int(np.prod(k5.shape[:3])) * cb // 32)
+    return cuda_int8.Int8Plan(nc, p, cb, vs or cb, 4, ksteps, 0)
+
+
+def kernel_walk(qx, qk, plan, phases=False):
+    """The int32 accumulators as csrc/conv_int8.cu computes them for block
+    plan ``plan`` (:func:`walk_plan`), from codes in the conv's layout (C %
+    4 == 0): per tile (an 8x8 patch of ``p`` output planes, one O chunk),
+    per channel block the input patch with its halo staged as in shared
+    memory (10 rows a plane, 10 voxels a row at pitch ``vs``, rows of
+    ``10 * vs`` bytes rounded up to 16, zero past the volume and C), each K
+    word's offset from
+    the kernel's table (-1 past the taps), A gathered for each of the
+    warpgroup's 64 rows a plane from its voxel's base offset, B from the
+    packed operand (pack_int8_weights), then stored where the epilogue
+    stores it (interleaved with ``phases``)."""
+    x5 = qx.numpy().astype(np.int64)
+    k5 = qk
+    if x5.ndim == 4:
+        x5, k5 = x5[:, None], qk.unsqueeze(0)
+    bsz, d, h, w, c = x5.shape
     kd, kh, kw, _, o = k5.shape
-    cw = cp // 4
-    koff = np.full(kpad // 4, -1, np.int64)
-    for word in range(kd * kh * kw * cw):
-        tap, c4 = divmod(word, cw)
-        td, rest = divmod(tap, kh * kw)
-        th, tw = divmod(rest, kw)
-        koff[word] = ((td * h + th) * w + tw) * cp + c4 * 4
-    flat = x5.reshape(-1)
-    do, ho, wo = d - kd + 1, h - kh + 1, w - kw + 1
-    acc = np.zeros((bsz, do, ho, wo, opad), np.int64)
+    wp, plan = cuda_int8.pack_int8_weights(qk, plan)
+    nc, p, cb, vs = plan.nc, plan.p, plan.cb, plan.vs
+    wp = wp.numpy().astype(np.int64)
+    n_ch, n_cb, ksteps = wp.shape[:3]
+    # B[chunk][cbi][ks][n][kb], n = group * 8 + row, kb = half * 16 + byte
+    b_op = wp.transpose(0, 1, 2, 3, 5, 4, 6).reshape(n_ch, n_cb, ksteps, nc,
+                                                      32)
+    rp = -(-10 * vs // 16) * 16  # bytes a brick row, 10 rows a plane
+    off = np.full(ksteps * 8, -1, np.int64)
+    for j in range(ksteps * 8):
+        tap, cw = divmod(j, cb // 4)
+        if tap < kd * kh * kw:
+            td, rest = divmod(tap, kh * kw)
+            th, tw = divmod(rest, kw)
+            off[j] = (td * 10 + th) * rp + tw * vs + cw * 4
+    od_, oh_, ow_ = d - kd + 1, h - kh + 1, w - kw + 1
+    acc = np.zeros((bsz, od_, oh_, ow_, n_ch * nc), np.int64)
+    rows = np.arange(64)
+    warp, half, g = rows // 16, (rows % 16) // 8, rows % 8
     for b in range(bsz):
-        for i in range(do):
-            for j in range(ho):
-                for m in range(wo):
-                    base = (((b * d + i) * h + j) * w + m) * cp
-                    a = np.zeros(kpad, np.int64)
-                    for word, off in enumerate(koff):
-                        if off >= 0:
-                            a[4 * word:4 * word + 4] = flat[base + off:
-                                                            base + off + 4]
-                    acc[b, i, j, m] = wt @ a
-    return acc[..., :o]
+        for d0 in range(0, od_, p):
+            for h0 in range(0, oh_, 8):
+                for w0 in range(0, ow_, 8):
+                    blk = np.zeros((p, 64, n_ch * nc), np.int64)
+                    for cbi in range(n_cb):
+                        patch = np.zeros((p + 2, 10, rp), np.int64)
+                        src = x5[b, d0:d0 + p + kd - 1, h0:h0 + 8 + kh - 1,
+                                 w0:w0 + 8 + kw - 1, cbi * cb:(cbi + 1) * cb]
+                        vox = patch[:, :, :10 * vs].reshape(p + 2, 10, 10, vs)
+                        vox[:src.shape[0], :src.shape[1], :src.shape[2],
+                            :src.shape[3]] = src
+                        flat = patch.reshape(-1)
+                        for pl in range(p):
+                            base = ((pl * 10 + 2 * warp + half) * rp
+                                    + g * vs)
+                            a = np.zeros((64, ksteps * 32), np.int64)
+                            for j, o_ in enumerate(off):
+                                if o_ >= 0:
+                                    for e in range(4):
+                                        a[:, 4 * j + e] = flat[base + o_ + e]
+                            for ch in range(n_ch):
+                                bw = b_op[ch, cbi].transpose(1, 0, 2).reshape(
+                                    nc, ksteps * 32)
+                                blk[pl, :, ch * nc:(ch + 1) * nc] += a @ bw.T
+                    for pl in range(p):
+                        for m in range(64):
+                            i, j, k = (d0 + pl, h0 + 2 * warp[m] + half[m],
+                                       w0 + g[m])
+                            if i < od_ and j < oh_ and k < ow_:
+                                acc[b, i, j, k] = blk[pl, m]
+    acc = acc[..., :o]
+    if qx.dim() == 4:
+        acc = acc[:, 0]
+    if phases:
+        acc = interleave_phases(torch.from_numpy(acc)).numpy()
+    return acc
+
+
+# the plans (nc, p, cb) the kernel makes for these shapes
+WALK_PLANS = {8: (8, 8, 4), 20: (32, 4, 8), 70: (64, 2, 8)}
 
 
 @pytest.mark.parametrize("shape,k,o", [((2, 3, 4, 5, 1), (3, 3, 3), 8),
                                        ((1, 4, 3, 6, 6), (2, 2, 2), 20),
                                        ((2, 1, 5, 5, 8), (1, 3, 3), 70)])
 def test_kernel_layout_walk_matches_plain(shape, k, o):
-    """The packed weights (O to 8/16/32/64n, K to 32n, zeros past C, K and
-    O) and the offset table walked as the kernel walks them give the plain
-    version's accumulators: the stem (C=1 padded to 4), a space-to-depth k2
-    conv, a 2D conv as D=1 with O past 64."""
+    """The packed weights (zeros past the taps, C and O; O in chunks of
+    the wgmma N) and the offset table walked as the kernel walks them, on
+    codes in the conv's layout, give the plain version's accumulators: the
+    stem (C=1, its kw taps packed in the channel word), a space-to-depth
+    k2 conv (C=6 padded to 8), a 2D-like conv as D=1 with O past 64."""
     rng = np.random.default_rng(6)
     qx = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
     qk = torch.from_numpy(rng.integers(-127, 128, k + (shape[-1], o),
                                        dtype=np.int8))
-    wt = cuda_int8.pack_int8_weights(qk)
-    assert wt.shape[0] in (8, 16, 32) or wt.shape[0] % 64 == 0
-    assert wt.shape[1] % 32 == 0
     want = cuda_int8.conv_int8_plain(qx, qk, torch.ones(1), torch.ones(o),
                                      torch.int32).numpy()
-    np.testing.assert_array_equal(_kernel_walk(qx, qk), want)
+    layout = quant.conv_layout(qx.shape, qk.shape, 1, "VALID")
+    codes = quant.arrange(qx, layout)
+    ukern, _ = quant._unit_kernel(qk, torch.ones(o), layout, False)
+    assert codes.shape[-1] % 4 == 0 and ukern.shape[-2] == codes.shape[-1]
+    assert (layout.wtaps, ukern.shape[:3]) == (
+        (3, (3, 3, 1)) if shape[-1] == 1 else (1, k))
+    plan = walk_plan(ukern, *WALK_PLANS[o])
+    np.testing.assert_array_equal(kernel_walk(codes, ukern, plan), want)
 
 
 def test_space_to_depth_pairs_with_kernel_to_depth():

@@ -45,8 +45,9 @@ _SIGNATURES = {
     "tem_postprocess_u8": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f,
                            _vp],
     "tem_leaky_relu": [_vp, _vp, _i, _ll, _f, _vp],
-    "tem_conv_int8": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
-                      _i, _i, _i, _i, _i, _i, _f, _vp],
+    "tem_conv_int8": [_vp] * 5 + [_i] * 13 + [_f, _vp],
+    "tem_conv_int8_plan": [_i] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    "tem_quantize_int8": [_vp, _i, _vp, _vp] + [_i] * 15 + [_vp],
 }
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -147,10 +148,34 @@ def ensure_built(ptxas_verbose: bool = False) -> dict:
     return {"seconds": seconds, "log": log, "library": LIB_PATH}
 
 
-def launch(name: str, *args, device: torch.device) -> None:
-    """Call C entry ``name`` on the current stream of ``device``; raise on a
-    non-zero cudaError_t.  Does not synchronise."""
-    lib = library()
+def build_variant(source: str, tag: str, defines=()) -> ctypes.CDLL:
+    """``csrc/<source>`` compiled alone with ``-D`` ``defines`` into
+    ``_build/libtem_<tag>.so`` and loaded, its C entries typed as the
+    library's (chip_smoke.py builds planted faults of a kernel so).  Not
+    part of the kernel library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"libtem_{tag}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, *[f"-D{d}" for d in defines], "-shared",
+           "-o", out, os.path.join(CSRC_DIR, source)]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} ({tag}):\n{res.stdout}")
+    lib = ctypes.CDLL(out)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args, device: torch.device,
+           lib: Optional[ctypes.CDLL] = None) -> None:
+    """Call C entry ``name`` (of the kernel library, or of ``lib``) on the
+    current stream of ``device``; raise on a non-zero cudaError_t.  Does
+    not synchronise."""
+    lib = library() if lib is None else lib
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
     # switching devices costs microseconds; only a foreign device needs it
@@ -163,7 +188,7 @@ def launch(name: str, *args, device: torch.device) -> None:
         stream = torch._C._cuda_getCurrentRawStream(index)
         code = getattr(lib, name)(*args, stream)
     if code != 0:
-        msg = lib.tem_error_string(code).decode()
+        msg = library().tem_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
 
 

@@ -5,8 +5,9 @@ Not a port of a Pallas kernel: the JAX package's int8 serving path
 ``lax.conv_general_dilated(..., preferred_element_type=int32)``, and
 PyTorch has no int8 conv on CUDA (``F.conv3d`` refuses int8).
 
-:func:`conv_int8` is one stride-1 VALID conv of int8 codes, channels last,
-with per-axis kernel extents of 1 to 3, rank 5 (3D) or rank 4 (2D, run as
+:func:`conv_int8` is one stride-1 VALID conv of int8 codes, channels last
+(C a multiple of 4, as ``ops/quant.quantize_int8`` writes them), with
+per-axis kernel extents of 1 to 3, rank 5 (3D) or rank 4 (2D, run as
 D = 1), summed exactly in int32 and then, by ``out_dtype``:
 
 * ``torch.int32``: the accumulators themselves (the kernel's check);
@@ -15,9 +16,9 @@ D = 1), summed exactly in int32 and then, by ``out_dtype``:
   in f32, rounded to ``out_dtype``, then the optional fused
   LeakyReLU(``leaky``) on that rounded value.
 
-``ops/quant.py`` reduces every conv of the int8 generator to it (k4
-stride-2 VALID by space-to-depth, the SAME transposed conv by its phase
-decomposition).
+With ``phases`` the 2^n * Cout outputs of a phase conv (the transposed
+conv's decomposition, ``ops/convs.py`` :func:`phase_kernel`) are stored
+interleaved, (B, *2S, Cout), as :func:`interleave_phases` orders them.
 
 :func:`conv_int8_plain` is the same function in plain PyTorch: the integer
 conv in float64, which is exact here (the widest reduction of the
@@ -25,19 +26,25 @@ generator, 27 * 256 taps at wf=1, sums at most 6,912 * 127^2 ~ 1.1e8 in
 magnitude: above float32's 2^24, far below float64's 2^53).  The wrapper
 takes it for tensors on the CPU only; a CUDA tensor launches the kernel
 (``conv_int8.launches`` counts the launches) or raises.
+
+The kernel's B operand is packed by :func:`pack_int8_weights`, once per
+parameter (``ops/quant.int8_weights``), for the block shape the kernel
+makes from the weights' shape alone (:func:`int8_plan` asks it).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .convs import interleave_phases
 
 OUT_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-_MMA_K = 32  # mma.sync m16n8k32: int8 K per step
 
 
 def _as_3d(qx: torch.Tensor, qk: torch.Tensor):
@@ -51,7 +58,7 @@ def _as_3d(qx: torch.Tensor, qk: torch.Tensor):
 
 
 def _check(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
-           sk: torch.Tensor, out_dtype: torch.dtype) -> None:
+           sk: torch.Tensor, out_dtype: torch.dtype, phases: bool) -> None:
     if qx.dtype != torch.int8 or qk.dtype != torch.int8:
         raise TypeError(f"conv_int8: int8 codes expected, got {qx.dtype} x "
                         f"{qk.dtype}")
@@ -70,6 +77,9 @@ def _check(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
     if sx.numel() != 1 or sk.numel() != qk.shape[-1]:
         raise ValueError(f"conv_int8: scales of {sx.numel()} and "
                          f"{sk.numel()} values for {qk.shape[-1]} outputs")
+    if phases and qk.shape[-1] % 2 ** (qx.dim() - 2):
+        raise ValueError(f"conv_int8: {qk.shape[-1]} outputs are not "
+                         f"{2 ** (qx.dim() - 2)} phases")
 
 
 def dequantize(acc: torch.Tensor, sx: torch.Tensor, sk: torch.Tensor,
@@ -87,67 +97,169 @@ def dequantize(acc: torch.Tensor, sx: torch.Tensor, sk: torch.Tensor,
 
 def conv_int8_plain(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
                     sk: torch.Tensor, out_dtype: torch.dtype = torch.float32,
-                    leaky: Optional[float] = None) -> torch.Tensor:
+                    leaky: Optional[float] = None, *, packed=None,
+                    phases: bool = False) -> torch.Tensor:
     """The kernel's function: the exact integer conv (in float64), then
-    :func:`dequantize` (or the int32 accumulators)."""
-    _check(qx, qk, sx, sk, out_dtype)
+    :func:`dequantize` (or the int32 accumulators), interleaved with
+    ``phases``.  ``packed`` (the kernel's operand) is not read."""
+    del packed
+    _check(qx, qk, sx, sk, out_dtype, phases)
     x5, k5 = _as_3d(qx, qk)
     acc = F.conv3d(x5.to(torch.float64).permute(0, 4, 1, 2, 3),
                    k5.to(torch.float64).permute(4, 3, 0, 1, 2))
     acc = acc.permute(0, 2, 3, 4, 1).to(torch.int32)
     if qx.dim() == 4:
         acc = acc.squeeze(1)
-    if out_dtype == torch.int32:
-        return acc.contiguous()
-    return dequantize(acc, sx, sk, out_dtype, leaky).contiguous()
+    y = (acc if out_dtype == torch.int32
+         else dequantize(acc, sx, sk, out_dtype, leaky))
+    return (interleave_phases(y) if phases else y).contiguous()
 
 
-def pack_int8_weights(qk: torch.Tensor) -> torch.Tensor:
-    """(kd, kh, kw, C, O) int8, C % 4 == 0 -> the kernel's B operand
-    wt[n][k] (Opad, Kpad), k = tap * C + c, zero-padded: K to a multiple of
-    32, O to 8, 16, 32 or a multiple of 64."""
-    o = qk.shape[-1]
-    k = qk[..., 0].numel()
-    opad = next((p for p in (8, 16, 32) if o <= p), -(-o // 64) * 64)
-    kpad = -(-k // _MMA_K) * _MMA_K
-    wt = torch.zeros((opad, kpad), dtype=torch.int8, device=qk.device)
-    wt[:o, :k] = qk.reshape(k, o).t()
-    return wt
+# -- the kernel's block shape and packed weights -------------------------------
+
+class Int8Plan(NamedTuple):
+    """A block's shape for one conv, as ``csrc/conv_int8.cu`` make_plan
+    makes it: ``nc`` output channels (the wgmma N: 8, 16, 32 or 64) of
+    ``p`` consecutive 8x8 output planes, the input channels ``cb`` bytes at
+    a time (the voxel's pitch in shared memory ``vs``, copies of ``unit``
+    bytes), ``ksteps`` k-steps of 32 bytes a channel block, ``smem`` bytes
+    of shared memory.  The packing reads ``nc``, ``cb`` and ``ksteps``."""
+    nc: int
+    p: int
+    cb: int
+    vs: int
+    unit: int
+    ksteps: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(kd: int, kh: int, kw: int, c: int, o: int,
+              is3d: bool) -> Int8Plan:
+    """The plan the kernel makes for a (kd, kh, kw, c, o) kernel (c % 4 ==
+    0), asked of the kernel library (``tem_conv_int8_plan``), which the
+    conv's launch makes again from the same shapes."""
+    out = (ctypes.c_int * 7)()
+    code = kernels.library().tem_conv_int8_plan(kd, kh, kw, c, o,
+                                                3 if is3d else 2, out)
+    if code != 0:
+        raise ValueError(f"int8_plan: no plan for a ({kd}, {kh}, {kw}, {c}, "
+                         f"{o}) kernel (channels whole words, extents 1-3)")
+    return Int8Plan(*out)
+
+
+class Int8Pack(NamedTuple):
+    """:func:`pack_int8_weights`' result: the operand and its plan."""
+    wp: torch.Tensor
+    plan: Int8Plan
+
+
+def _pack_index(kd: int, kh: int, kw: int, c: int, o: int, plan: Int8Plan,
+               device=None):
+    """For each byte of the packed operand, laid out (O chunk, channel
+    block, k-step, 8-channel group, K half, row, byte) =
+    (ceil(o/nc), ceil(c/cb), ksteps, nc/8, 2, 8, 16): the (tap, channel,
+    output) it holds and whether it lies inside the kernel (else zero).
+    K word j = k-step * 8 + half * 4 + byte / 4 of a channel block holds
+    tap j / (cb/4), channels block * cb + (j % (cb/4)) * 4 + byte % 4."""
+    taps, cwn = kd * kh * kw, plan.cb // 4
+    n_cb, n_ch = -(-c // plan.cb), -(-o // plan.nc)
+    shape = (n_ch, n_cb, plan.ksteps, plan.nc // 8, 2, 8, 16)
+
+    def ax(i):
+        v = torch.arange(shape[i], device=device)
+        return v.reshape([-1 if j == i else 1 for j in range(len(shape))])
+
+    chunk, cbi, ks, grp, half, row, byte = (ax(i) for i in range(7))
+    j = ks * 8 + half * 4 + byte // 4
+    tap = j // cwn
+    ch = cbi * plan.cb + (j % cwn) * 4 + byte % 4
+    out = chunk * plan.nc + grp * 8 + row
+    inside = (tap < taps) & (ch < c) & (out < o)
+    return (torch.broadcast_to(tap, shape), torch.broadcast_to(ch, shape),
+            torch.broadcast_to(out, shape), torch.broadcast_to(inside, shape))
+
+
+def pack_int8_weights(qk: torch.Tensor,
+                      plan: Optional[Int8Plan] = None) -> Int8Pack:
+    """([kd,] kh, kw, C, O) int8 codes, C % 4 == 0 -> the kernel's B
+    operand for :func:`int8_plan`'s block shape (or ``plan``, which the CPU
+    tests walk without the kernel library): per O chunk and channel
+    block, the k-steps in wgmma's K-major, unswizzled layout (core matrices
+    of 8 outputs x 16 bytes of K; 128 B between the two K halves, 256 B
+    between groups of 8 outputs), zero past the kernel's taps, C and O."""
+    is3d = qk.dim() == 5
+    k5 = qk if is3d else qk.unsqueeze(0)
+    kd, kh, kw, c, o = k5.shape
+    if plan is None:
+        plan = int8_plan(kd, kh, kw, c, o, is3d)
+    tap, ch, out, inside = _pack_index(kd, kh, kw, c, o, plan, qk.device)
+    flat = k5.reshape(-1)
+    src = ((tap * c + ch) * o + out).clamp(max=flat.numel() - 1)
+    wp = torch.where(inside, flat[src],
+                     torch.zeros((), dtype=torch.int8, device=qk.device))
+    return Int8Pack(wp.contiguous(), plan)
 
 
 def conv_int8(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
               sk: torch.Tensor, out_dtype: torch.dtype = torch.float32,
-              leaky: Optional[float] = None) -> torch.Tensor:
+              leaky: Optional[float] = None, *,
+              packed: Optional[Int8Pack] = None,
+              phases: bool = False) -> torch.Tensor:
     """(B, [D,] H, W, C) int8 * ([kd,] kh, kw, C, O) int8 -> (B, [D',] H',
     W', O) in ``out_dtype`` (module docstring).  ``sx``: the activations'
     scale (one float32 value), ``sk``: the weights' per-output scales (O
     float32 values), both on the codes' device; read there by the kernel,
-    so nothing waits for the host."""
+    so nothing waits for the host.  ``packed``: ``qk``'s operand from
+    :func:`pack_int8_weights` (packed here when None)."""
     if qx.device.type == "cpu":
-        return conv_int8_plain(qx, qk, sx, sk, out_dtype, leaky)
-    _check(qx, qk, sx, sk, out_dtype)
+        return conv_int8_plain(qx, qk, sx, sk, out_dtype, leaky,
+                               phases=phases)
+    y = conv_int8_cuda(qx, qk, sx, sk, out_dtype, leaky, packed=packed,
+                       phases=phases)
+    _counted.launches += 1
+    return y
+
+
+def conv_int8_cuda(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
+                   sk: torch.Tensor, out_dtype: torch.dtype = torch.float32,
+                   leaky: Optional[float] = None, *,
+                   packed: Optional[Int8Pack] = None,
+                   phases: bool = False) -> torch.Tensor:
+    """The launch of :func:`conv_int8` on CUDA tensors, uncounted."""
+    _check(qx, qk, sx, sk, out_dtype, phases)
     kernels.check_cuda_tensor(qx, "conv_int8 x", (torch.int8,))
-    x5, k5 = _as_3d(qx, qk.to(qx.device))
-    c = x5.shape[-1]
-    if c % 4:  # whole 4-byte words of channels; zero codes add nothing
-        x5 = F.pad(x5, (0, 4 - c % 4))
-        k5 = F.pad(k5, (0, 0, 0, 4 - c % 4))
-    x5 = x5.contiguous()
-    wt = pack_int8_weights(k5)
-    sx = sx.reshape(1).to(device=qx.device, dtype=torch.float32).contiguous()
-    sk = sk.reshape(-1).to(device=qx.device, dtype=torch.float32).contiguous()
-    bsz, d, h, w, cp = x5.shape
+    if qx.shape[-1] % 4:
+        raise ValueError(f"conv_int8: {qx.shape[-1]} channels are not whole "
+                         "4-byte words (quantize_int8 pads them)")
+    x5, k5 = _as_3d(qx, qk)
+    if packed is None:
+        packed = pack_int8_weights(qk.to(qx.device))
+    wp, plan = packed
+    kernels.check_cuda_tensor(wp, "conv_int8 packed", (torch.int8,))
+    if plan != int8_plan(*k5.shape, qx.dim() == 5):
+        raise ValueError(f"conv_int8: weights packed for {plan}, not the "
+                         "kernel's plan")
+    sx = sx.reshape(1).to(device=qx.device, dtype=torch.float32)
+    sk = sk.reshape(-1).to(device=qx.device, dtype=torch.float32)
+    bsz, d, h, w, c = x5.shape
     kd, kh, kw, _, o = k5.shape
-    y = torch.empty((bsz, d - kd + 1, h - kh + 1, w - kw + 1, o),
-                    dtype=out_dtype, device=qx.device)
+    sp = (d - kd + 1, h - kh + 1, w - kw + 1)
+    n = qx.dim() - 2
+    nph = 2 ** n if phases else 0
+    if phases:
+        cout = o // nph
+        out_shape = ((bsz,) + tuple(2 * s for s in sp[3 - n:]) + (cout,))
+    else:
+        out_shape = (bsz,) + sp[3 - n:] + (o,)
+    y = torch.empty(out_shape, dtype=out_dtype, device=qx.device)
     act = int(leaky is not None and out_dtype != torch.int32)
-    kernels.launch("tem_conv_int8", x5.data_ptr(), wt.data_ptr(),
+    kernels.launch("tem_conv_int8", x5.data_ptr(), wp.data_ptr(),
                    y.data_ptr(), sx.data_ptr(), sk.data_ptr(),
-                   OUT_MODES[out_dtype], bsz, d, h, w, cp, kd, kh, kw, o,
-                   wt.shape[0], wt.shape[1], act,
-                   float(leaky) if act else 0.0, device=qx.device)
-    conv_int8.launches += 1
-    return y.squeeze(1) if qx.dim() == 4 else y
+                   OUT_MODES[out_dtype], n, bsz, d, h, w, c, kd, kh, kw, o,
+                   nph, act, float(leaky) if act else 0.0, device=qx.device)
+    return y
 
 
 conv_int8.launches = 0
+_counted = conv_int8  # the counter, wherever the name is rebound

@@ -6,11 +6,23 @@ batch, weights per output channel, both symmetric (no zero points), an
 int8 x int8 -> int32 conv, dequantized straight into the requested dtype.
 ``UNetGenerator(int8_conv=True)`` routes every conv through here.
 
-Quantization and the dequant scale stay PyTorch ops (in JAX they are XLA
-ops, not Pallas).  The integer conv is the hand-written kernel of
-``ops/cuda_int8.py``, a stride-1 VALID conv with kernel extents <= 3; the
-JAX package's convs reduce to it exactly, since integer sums do not depend
-on their order:
+A conv here is two hand-written kernels on CUDA tensors:
+
+1. :func:`quantize_int8` (``csrc/quant_int8.cu``): the activations' abs-max
+   over the whole tensor, then each code written straight into the layout
+   the conv reads (:class:`Layout`): zero padding (SAME, the transposed
+   conv's pad by 1), the stride-2 convs' cut and space-to-depth, the
+   channels zero-padded to whole 4-byte words, and for a one-channel input
+   (the stem) the kw taps packed into the channel word.  The scale stays
+   on the device.  Its plain version, :func:`quantize_int8_plain`, is the
+   composition of :func:`quantize_sym` and the rearrangements
+   (:func:`arrange`), which is what the CPU runs.
+2. ``ops/cuda_int8.conv_int8``: a stride-1 VALID conv of the codes with
+   kernel extents <= 3, dequantized (and for the transposed conv
+   interleaved) in its epilogue.
+
+The JAX package's convs reduce to that stride-1 conv exactly, since
+integer sums do not depend on their order:
 
 * a stride-s VALID conv (the k4 stride-2 down convs): the kernel padded to
   a multiple of s per axis, input and kernel space-to-depth by s, then a
@@ -20,7 +32,15 @@ on their order:
   (``ops/convs.py`` :func:`phase_kernel`), one k3 conv over the codes
   padded by 1 with 2^n * Cout outputs, each dequantized by its Cout's scale,
   then interleaved.  Each phase tap is one weight code, so the codes are
-  those JAX quantizes from its flipped kernel (a flip moves no channel).
+  those JAX quantizes from its flipped kernel (a flip moves no channel);
+* a one-channel input with kw <= 4 (the stem): codes[.., w, j] = q[.., w +
+  j] and the kernel's kw taps moved into its channel axis, a conv with one
+  kw tap and 4 channels: a third of the stem's K words.
+
+The weights' codes, scales and the kernel's packed operand are made once
+per parameter (:func:`int8_weights`, cached on the parameter's memory, view
+and version), which JAX redoes per call: the codes are the same function
+of the weights.
 
 Since the activation scale spans the whole batch (padded tiles included),
 an int8 tile's output depends on its batch-mates: the tile-grid modes'
@@ -29,16 +49,19 @@ bit-equality across batch shapes does not carry over to int8.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .convs import interleave_phases, phase_kernel
-from .cuda_int8 import conv_int8
+from .. import kernels
+from .convs import phase_kernel
+from .cuda_int8 import conv_int8, pack_int8_weights
 
 __all__ = ["quantize_sym", "conv_nd_int8", "conv_transpose_nd_int8",
-           "space_to_depth", "kernel_to_depth"]
+           "space_to_depth", "kernel_to_depth", "Layout", "conv_layout",
+           "arrange", "quantize_int8", "quantize_int8_plain",
+           "quantize_int8_cuda", "int8_weights"]
 
 
 def quantize_sym(a: torch.Tensor, axes: Sequence[int]
@@ -86,31 +109,228 @@ def kernel_to_depth(k: torch.Tensor, s: int) -> torch.Tensor:
         (kk // s,) * n + (s ** n * c, o))
 
 
-def _same_pads(k: int) -> Tuple[int, int]:
-    """``lax``'s SAME padding at stride 1: (k-1)//2 low, the rest high."""
-    return (k - 1) // 2, k - 1 - (k - 1) // 2
+def _words(c: int) -> int:
+    """c rounded up to whole 4-byte words of int8 codes."""
+    return -(-c // 4) * 4
 
 
-def _strided_to_unit(qx: torch.Tensor, qk: torch.Tensor, s: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A stride-s VALID conv of codes as a stride-1 one (module docstring):
-    the kernel zero-padded to k' = s * ceil(k/s), the input cut (or
-    zero-padded) to s * (out - 1) + k' per axis, both space-to-depth."""
-    n = qx.dim() - 2
-    k = qk.shape[0]
-    kp = -(-k // s) * s
-    if kp != k:
-        qk = F.pad(qk, (0, 0, 0, 0) + (0, kp - k) * n)
-    outs = [(d - k) // s + 1 for d in qx.shape[1:-1]]
-    if min(outs) < 1:
-        raise ValueError(f"input {tuple(qx.shape)} smaller than the kernel")
-    need = [s * (o - 1) + kp for o in outs]
-    qx = qx[(slice(None),) + tuple(slice(0, min(m, d)) for m, d in
-                                   zip(need, qx.shape[1:-1]))]
-    grow = [m - d for m, d in zip(need, qx.shape[1:-1])]
-    if any(grow):
-        qx = F.pad(qx, (0, 0) + sum(((0, g) for g in reversed(grow)), ()))
-    return space_to_depth(qx, s), kernel_to_depth(qk, s)
+class Layout(NamedTuple):
+    """Where :func:`quantize_int8` writes the codes of a (B, *S, C) input:
+    each spatial axis zero-padded by ``lo`` before and cut or zero-padded
+    after to ``size``, then space-to-depth by ``stride`` (channel index
+    (p_1, .., p_n, c)), then, with ``wtaps`` > 1 (C = 1 only), the last
+    axis's ``wtaps`` consecutive values as the channels of one voxel
+    (codes[.., w, j] = q[.., w + j], the axis ``wtaps`` - 1 shorter), then
+    the channels zero-padded to ``channels`` (a multiple of 4)."""
+    lo: Tuple[int, ...]
+    size: Tuple[int, ...]
+    stride: int
+    wtaps: int
+    channels: int
+
+    def shape(self, x_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The codes' shape for an input of ``x_shape``."""
+        sp = [d // self.stride for d in self.size]
+        sp[-1] -= self.wtaps - 1
+        return (x_shape[0], *sp, self.channels)
+
+
+def conv_layout(x_shape: Sequence[int], k_shape: Sequence[int], stride: int,
+                padding: str, transpose: bool = False) -> Layout:
+    """The codes' layout for a conv of an (B, *S, C) input by a ((k_i,)*n,
+    C, O) kernel (module docstring): VALID or SAME at stride 1, VALID at
+    stride s, or the stride-2 transposed conv (``transpose``)."""
+    n = len(x_shape) - 2
+    sp, c = tuple(x_shape[1:-1]), x_shape[-1]
+    ks = tuple(k_shape[:n])
+    if transpose:
+        return Layout((1,) * n, tuple(d + 2 for d in sp), 1, 1, _words(c))
+    if stride != 1:
+        kp = [-(-k // stride) * stride for k in ks]
+        outs = [(d - k) // stride + 1 for d, k in zip(sp, ks)]
+        if min(outs) < 1:
+            raise ValueError(f"input {tuple(x_shape)} smaller than the "
+                             f"kernel {tuple(k_shape)}")
+        size = tuple(stride * (o - 1) + k for o, k in zip(outs, kp))
+        return Layout((0,) * n, size, stride, 1, _words(stride ** n * c))
+    if padding == "SAME":
+        lo = tuple((k - 1) // 2 for k in ks)
+        size = tuple(d + k - 1 for d, k in zip(sp, ks))
+    else:
+        lo, size = (0,) * n, sp
+    if c == 1 and 1 < ks[-1] <= 4:
+        return Layout(lo, size, 1, ks[-1], 4)
+    return Layout(lo, size, 1, 1, _words(c))
+
+
+def arrange(q: torch.Tensor, layout: Layout) -> torch.Tensor:
+    """Codes (B, *S, C) into ``layout`` (:class:`Layout`), in plain
+    PyTorch."""
+    n = q.dim() - 2
+    pads = ()
+    for lo, size, d in zip(reversed(layout.lo), reversed(layout.size),
+                           reversed(q.shape[1:-1])):
+        pads += (lo, size - lo - d)  # a negative pad cuts
+    q = F.pad(q, (0, 0) + pads)
+    if layout.stride != 1:
+        q = space_to_depth(q, layout.stride)
+    if layout.wtaps > 1:
+        w = q.shape[-2] - layout.wtaps + 1
+        q = torch.cat([q.narrow(n, j, w) for j in range(layout.wtaps)],
+                      dim=-1)
+    return F.pad(q, (0, layout.channels - q.shape[-1])).contiguous()
+
+
+def quantize_int8_plain(x: torch.Tensor, layout: Layout
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_int8`'s function in plain PyTorch: per-tensor
+    :func:`quantize_sym`, then :func:`arrange`."""
+    q, scale = quantize_sym(x, tuple(range(x.dim())))
+    return arrange(q, layout), scale
+
+
+def quantize_int8(x: torch.Tensor, layout: Layout
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, *S, C) float32 or bfloat16, channels last -> (codes int8 in
+    ``layout``, scale float32 of shape (1,)*x.dim()): JAX's
+    ``quantize_sym`` over the whole tensor, written where the conv reads it.
+    A CPU tensor takes :func:`quantize_int8_plain`; a CUDA tensor launches
+    ``csrc/quant_int8.cu`` (``quantize_int8.launches`` counts the
+    launches) or raises."""
+    if x.device.type == "cpu":
+        return quantize_int8_plain(x, layout)
+    out = quantize_int8_cuda(x, layout)
+    _counted.launches += 1
+    return out
+
+
+def quantize_int8_cuda(x: torch.Tensor, layout: Layout, lib=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of :func:`quantize_int8` on a CUDA tensor (the kernel
+    library's, or ``lib``'s ``tem_quantize_int8``), uncounted.  A strided
+    ``x`` is read through a contiguous copy (the generator's never is)."""
+    x = x.contiguous()
+    kernels.check_cuda_tensor(x, "quantize_int8 x",
+                              (torch.float32, torch.bfloat16))
+    n = x.dim() - 2
+    if n not in (2, 3) or len(layout.lo) != n:
+        raise ValueError(f"quantize_int8: input {tuple(x.shape)} does not "
+                         f"match layout {layout}")
+    if layout.wtaps > 1 and (x.shape[-1] != 1 or layout.stride != 1):
+        raise ValueError("quantize_int8: kw taps are packed for a "
+                         "one-channel stride-1 input only")
+    shape = layout.shape(x.shape)
+    q = torch.empty(shape, dtype=torch.int8, device=x.device)
+    scratch = torch.empty(2, dtype=torch.float32, device=x.device)
+    sp = (1,) * (3 - n) + tuple(x.shape[1:-1])
+    qsp = (1,) * (3 - n) + tuple(shape[1:-1])
+    lo = (0,) * (3 - n) + tuple(layout.lo)
+    kernels.launch("tem_quantize_int8", x.data_ptr(),
+                   kernels.DTYPE_CODES[x.dtype], q.data_ptr(),
+                   scratch.data_ptr(), x.shape[0], *sp, x.shape[-1], *qsp,
+                   shape[-1], *lo, layout.stride, n, layout.wtaps,
+                   device=x.device, lib=lib)
+    return q, scratch[1:].view((1,) * x.dim())
+
+
+quantize_int8.launches = 0
+_counted = quantize_int8  # the counter, wherever the name is rebound
+
+
+# -- the weights, once per parameter ------------------------------------------
+
+class Int8Weights(NamedTuple):
+    """A kernel's int8 form for one conv layout: ``codes`` the stride-1
+    conv's (kd, kh, kw, channels, O') codes (rank 4 in 2D), ``scales`` its
+    O' output scales, ``packed`` the CUDA kernel's operand (None on the
+    CPU)."""
+    codes: torch.Tensor
+    scales: torch.Tensor
+    packed: Optional[object]
+
+
+def _unit_kernel(qk: torch.Tensor, sk: torch.Tensor, layout: Layout,
+                 transpose: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight codes and per-output scales of the stride-1 conv that
+    ``layout``'s codes go through (module docstring)."""
+    n = qk.dim() - 2
+    sk = sk.reshape(-1)
+    if transpose:
+        qk, sk = phase_kernel(qk), sk.repeat(2 ** n)
+    elif layout.stride != 1:
+        s, k = layout.stride, qk.shape[0]
+        kp = -(-k // s) * s
+        if kp != k:
+            qk = F.pad(qk, (0, 0, 0, 0) + (0, kp - k) * n)
+        qk = kernel_to_depth(qk, s)
+    elif layout.wtaps > 1:  # (.., kw, 1, O) -> (.., 1, kw, O)
+        qk = qk.movedim(n - 1, n)
+    return F.pad(qk, (0, 0, 0, layout.channels - qk.shape[-2])), sk
+
+
+def _make_weights(kernel: torch.Tensor, layout: Layout,
+                  transpose: bool) -> Int8Weights:
+    n = kernel.dim() - 2
+    qk, sk = quantize_sym(kernel.detach(), tuple(range(n + 1)))
+    codes, sk = _unit_kernel(qk, sk, layout, transpose)
+    codes, sk = codes.contiguous(), sk.contiguous()
+    packed = (pack_int8_weights(codes) if kernel.device.type == "cuda"
+              else None)
+    return Int8Weights(codes, sk, packed)
+
+
+def int8_weights(kernel: torch.Tensor, layout: Layout,
+                 transpose: bool = False) -> Int8Weights:
+    """The kernel's :class:`Int8Weights` for ``layout``, made once and
+    cached on the kernel's STORAGE, keyed by its view (offset, shape,
+    strides, dtype) and the layout, and stamped with its version counter,
+    as ``ops/cuda_conv.packed_weights`` caches conv3's packs:
+
+    * an in-place update (an optimizer step, ``load_state_dict`` copying
+      into the parameter) bumps the version, so the next call remakes it;
+    * a parameter swapped for another tensor (``load_state_dict(sd,
+      assign=True)``) has other memory, so it misses even at an equal
+      version count;
+    * a tensor made in inference mode keeps no version counter and is
+      remade on every call.
+
+    ``int8_weights.packs`` counts the makes."""
+    if kernel.is_inference():
+        _made.packs += 1
+        return _make_weights(kernel, layout, transpose)
+    storage = kernel.untyped_storage()
+    key = (kernel.storage_offset(), tuple(kernel.shape), kernel.stride(),
+           kernel.dtype, layout.stride, layout.wtaps, layout.channels,
+           transpose)
+    cache = getattr(storage, "_int8_weights", None)
+    if cache is None:
+        cache = storage._int8_weights = {}
+    hit = cache.get(key)
+    if hit is not None and hit[0] == kernel._version:
+        return hit[1]
+    made = _make_weights(kernel, layout, transpose)
+    _made.packs += 1
+    cache[key] = (kernel._version, made)
+    return made
+
+
+int8_weights.packs = 0
+_made = int8_weights  # the counter, wherever the name is rebound
+
+
+# -- the convs ----------------------------------------------------------------
+
+def _check_ranks(x: torch.Tensor, kernel: torch.Tensor) -> int:
+    n = x.dim() - 2
+    if n not in (2, 3) or kernel.dim() != x.dim():
+        raise ValueError(f"expected NHWC x HWIO or NDHWC x DHWIO; got x "
+                         f"{tuple(x.shape)}, kernel {tuple(kernel.shape)}")
+    return n
+
+
+def _on(kernel: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The kernel on ``device``, itself (so its cache holds) when there."""
+    return kernel if kernel.device == device else kernel.to(device)
 
 
 def conv_nd_int8(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
@@ -122,22 +342,16 @@ def conv_nd_int8(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     :func:`..convs.conv_nd` and as the JAX package's ``conv_nd_int8``;
     ``leaky`` fuses a LeakyReLU on the dequantized value (rounded to
     ``out_dtype`` first) into the kernel's epilogue."""
-    n = x.dim() - 2
-    if n not in (2, 3) or kernel.dim() != x.dim():
-        raise ValueError(f"expected NHWC x HWIO or NDHWC x DHWIO; got x "
-                         f"{tuple(x.shape)}, kernel {tuple(kernel.shape)}")
-    qx, sx = quantize_sym(x, tuple(range(x.dim())))
-    qk, sk = quantize_sym(kernel.to(x.device), tuple(range(n + 1)))
-    if padding == "SAME":
-        if stride != 1:
-            raise ValueError("SAME padding is supported at stride 1 only")
-        qx = F.pad(qx, (0, 0) + sum((_same_pads(k) for k in
-                                     reversed(kernel.shape[:n])), ()))
-    elif padding != "VALID":
+    _check_ranks(x, kernel)
+    if padding not in ("VALID", "SAME"):
         raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
-    if stride != 1:
-        qx, qk = _strided_to_unit(qx, qk, stride)
-    return conv_int8(qx, qk, sx, sk, out_dtype or torch.float32, leaky)
+    if padding == "SAME" and stride != 1:
+        raise ValueError("SAME padding is supported at stride 1 only")
+    layout = conv_layout(x.shape, kernel.shape, stride, padding)
+    w = int8_weights(_on(kernel, x.device), layout)
+    qx, sx = quantize_int8(x, layout)
+    return conv_int8(qx, w.codes, sx, w.scales, out_dtype or torch.float32,
+                     leaky, packed=w.packed)
 
 
 def conv_transpose_nd_int8(x: torch.Tensor, kernel: torch.Tensor, *,
@@ -148,17 +362,13 @@ def conv_transpose_nd_int8(x: torch.Tensor, kernel: torch.Tensor, *,
     (4.., Cin, Cout) -> (B, *2S, Cout) in ``out_dtype`` (default float32).
     The JAX package writes it as an input-dilated conv on its flipped
     kernel's codes; here it is the phase decomposition of the same codes
-    (module docstring)."""
-    n = x.dim() - 2
-    if n not in (2, 3) or kernel.dim() != x.dim():
-        raise ValueError(f"expected NHWC x HWIO or NDHWC x DHWIO; got x "
-                         f"{tuple(x.shape)}, kernel {tuple(kernel.shape)}")
+    (module docstring), interleaved by the conv's epilogue."""
+    _check_ranks(x, kernel)
     if stride != 2 or kernel.shape[0] != 4:
         raise ValueError("conv_transpose_nd_int8 supports k=4, stride=2 "
                          "(the generator's up convs)")
-    qx, sx = quantize_sym(x, tuple(range(x.dim())))
-    qk, sk = quantize_sym(kernel.to(x.device), tuple(range(n + 1)))
-    qxp = F.pad(qx, (0, 0) + (1, 1) * n)
-    y = conv_int8(qxp, phase_kernel(qk), sx, sk.reshape(-1).repeat(2 ** n),
-                  out_dtype or torch.float32)
-    return interleave_phases(y).contiguous()
+    layout = conv_layout(x.shape, kernel.shape, 1, "VALID", transpose=True)
+    w = int8_weights(_on(kernel, x.device), layout, transpose=True)
+    qx, sx = quantize_int8(x, layout)
+    return conv_int8(qx, w.codes, sx, w.scales, out_dtype or torch.float32,
+                     packed=w.packed, phases=True)

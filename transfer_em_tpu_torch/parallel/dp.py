@@ -47,7 +47,8 @@ from ..shapes import generator_shapes
 from ..train.cgan import _dropout_generators, cyclegan_losses
 from ..train.state import CycleGANState, make_optimizer
 from .distributed import all_reduce_sum, broadcast0
-from .mesh import Mesh, ShardedTensor, batch_sharding, host_rows, replicas
+from .mesh import (Mesh, ShardedTensor, batch_sharding, host_rows,
+                   place_priors, replicas)
 
 TREES = ("gg", "gf", "dx", "dy")
 
@@ -87,6 +88,7 @@ def shard_state(state: CycleGANState, mesh: Mesh) -> CycleGANState:
     with torch.no_grad():
         for t in TREES:
             net = getattr(state, t).to(dev)
+            place_priors(net, dev)  # disc_y's prior beside it
             opt = getattr(state, "opt_" + t)
             opt.mu = {k: v.to(dev) for k, v in opt.mu.items()}
             opt.nu = {k: v.to(dev) for k, v in opt.nu.items()}
@@ -114,18 +116,6 @@ def host_local_batch(batch, mesh: Mesh) -> ShardedTensor:
     return host_rows(mesh, batch)
 
 
-def _check_prior(state: CycleGANState, devices: Sequence[torch.device]):
-    """disc_y's frozen prior holds its own tensors, which a module copy does
-    not move: every replica must share its device."""
-    at = {v.device for net in _nets(state) for v in getattr(
-        getattr(net, "disc_prior", None), "params", {}).values()}
-    if at and not at >= set(devices):
-        raise ValueError(
-            f"disc_y's prior lives on {sorted(map(str, at))}; a replica on "
-            f"{sorted(map(str, set(devices) - at))} cannot run it (build the "
-            "mesh over the prior's device)")
-
-
 def _dropout_draws(gens, micro: int, lo: int, hi: int, dev: torch.device):
     """The six applications' generators as row draws of positions
     [lo, hi) of a ``micro``-row microbatch: applications 0 and 1 run on the
@@ -148,8 +138,9 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
     ``shard_batch`` / ``host_local_batch``.  The global batch must divide
     over the mesh's positions and by ``config.accum_steps``.  ``state`` is
     the one ``shard_state`` placed.  ``disc_prior`` (JAX's signature) rides
-    in the state's disc_y; ``donate`` has no meaning in eager PyTorch;
-    ``deterministic`` turns dropout off (tests)."""
+    in the state's disc_y, and each replica of disc_y runs a copy of it on
+    its own device (``mesh.replicas``); ``donate`` has no meaning in eager
+    PyTorch; ``deterministic`` turns dropout off (tests)."""
     del disc_prior, donate
     accum = int(config.accum_steps)
     if accum < 1:
@@ -178,7 +169,6 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
                                   ys.addressable_shards] != positions:
             raise ValueError("the batches are not split over this mesh")
         devices = [s.device for s in xs.addressable_shards]
-        _check_prior(state, devices)
         # one copy of each network a device (the state's own on dev0):
         # shards on one device accumulate their gradients in it
         by_net = [replicas(net, devices) for net in _nets(state)]

@@ -134,33 +134,81 @@ _REPLICAS: "weakref.WeakKeyDictionary[torch.nn.Module, dict]" = (
     weakref.WeakKeyDictionary())
 
 
+def _stamp(tensors: Sequence[torch.Tensor]) -> list:
+    """What a copy was made from: each tensor's identity (a weak
+    reference), memory and version counter.  The version alone misses a
+    parameter swapped for another at an equal count
+    (``load_state_dict(sd, assign=True)``); inference tensors keep no
+    version counter and never match."""
+    return [(weakref.ref(t), t.data_ptr(),
+             None if t.is_inference() else t._version) for t in tensors]
+
+
+def _matches(stamp: list, tensors: Sequence[torch.Tensor]) -> bool:
+    return len(stamp) == len(tensors) and all(
+        ref() is t and ptr == t.data_ptr() and v is not None
+        and v == t._version for (ref, ptr, v), t in zip(stamp, tensors))
+
+
+def _priors(module: torch.nn.Module) -> List[Tuple[torch.nn.Module, object]]:
+    """The relocatable frozen priors a module holds (a discriminator's
+    ``disc_prior`` from ``train.cgan._tap_prior``: a callable with its own
+    ``params`` and ``on(device)``), each with the submodule holding it."""
+    return [(m, m.disc_prior) for m in module.modules()
+            if hasattr(getattr(m, "disc_prior", None), "on")]
+
+
+def _prior_tensors(module: torch.nn.Module) -> List[torch.Tensor]:
+    return [t for _, p in _priors(module) for t in p.params.values()]
+
+
+def place_priors(module: torch.nn.Module, device: torch.device) -> None:
+    """Give ``module``'s frozen priors their own tensors on ``device``: a
+    prior holds a generator that is no submodule, so ``.to`` and a module
+    copy leave it where it was."""
+    for m, prior in _priors(module):
+        m.disc_prior = prior.on(device)
+
+
 def replicas(module: torch.nn.Module, devices: Sequence[torch.device]
              ) -> List[torch.nn.Module]:
     """``module`` on each of ``devices``, one entry a device: the module
     itself on the device its parameters live on; elsewhere one copy a
     device, made on first use and kept for the module's life.  A copy's
     parameters are refreshed in place from the module's when these changed
-    since (their version counters moved: an optimizer step, a restore), so
-    conv3 repacks a copy's weights then and only then; parameters made in
-    inference mode keep no version counter and refresh on every call."""
+    since (another tensor, other memory or a moved version counter: an
+    optimizer step, a restore, ``load_state_dict(assign=True)``), so conv3
+    repacks a copy's weights then and only then; parameters made in
+    inference mode refresh on every call.  A frozen prior (a
+    discriminator's ``disc_prior``) is rebuilt on the copy's device when
+    the copy is made and whenever the module's prior changed."""
     home = next(module.parameters()).device
     src = list(module.parameters())
-    versions = [object() if p.is_inference() else p._version for p in src]
+    prior_src = _prior_tensors(module)
     made = _REPLICAS.setdefault(module, {})
     out = []
     for d in devices:
         if d == home:
             out.append(module)
             continue
-        if d not in made:
+        entry = made.get(d)
+        if entry is None:
             with torch.inference_mode(False):  # a copy refreshable anywhere
-                made[d] = [copy.deepcopy(module).to(d), versions]
-        elif made[d][1] != versions:
-            with torch.no_grad():
-                for p, q in zip(made[d][0].parameters(), src):
-                    p.copy_(q)
-            made[d][1] = versions
-        out.append(made[d][0])
+                copy_ = copy.deepcopy(module).to(d)
+                place_priors(copy_, d)
+            entry = made[d] = [copy_, _stamp(src), _stamp(prior_src)]
+        else:
+            if not _matches(entry[1], src):
+                with torch.no_grad():
+                    for p, q in zip(entry[0].parameters(), src):
+                        p.copy_(q)
+                entry[1] = _stamp(src)
+            if not _matches(entry[2], prior_src):
+                for (m, _), (_, prior) in zip(_priors(entry[0]),
+                                              _priors(module)):
+                    m.disc_prior = prior.on(d)
+                entry[2] = _stamp(prior_src)
+        out.append(entry[0])
     return out
 
 

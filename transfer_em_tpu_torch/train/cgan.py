@@ -46,6 +46,7 @@ and ``make_scan_train_step(mesh=)`` train data-parallel over a device mesh
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
@@ -109,8 +110,19 @@ def _tap_prior(gen: UNetGenerator, last_layer: str) -> Callable:
             handle.remove()
         return out[0]
 
+    def on(device) -> Callable:
+        """This prior with tensors of its own on ``device`` (itself where
+        they already are): a data-parallel replica of disc_y runs its
+        prior on its own device (parallel/mesh.py ``replicas``)."""
+        device = torch.device(device)
+        if next(gen.parameters()).device == device:
+            return prior
+        with torch.no_grad():
+            return _tap_prior(copy.deepcopy(gen).to(device), last_layer)
+
     prior.channels = int(kernels[-1].shape[-1])
     prior.params = {k: v.detach() for k, v in gen.named_parameters()}
+    prior.on = on
     return prior
 
 
