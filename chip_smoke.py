@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/H100 port (transfer_em_tpu_torch).
 
-    python3 chip_smoke.py [--out DIR] [--int8-only | --parallel-only]
+    python3 chip_smoke.py [--out DIR] [--int8-only | --parallel-only |
+                                       --examples-only]
 
 ``--out DIR`` also writes every JSON line (chip_smoke.jsonl) and the
 compilers' output with ptxas register counts (chip_smoke_build.log) to DIR.
@@ -26,7 +27,8 @@ each printing one JSON line:
             calls' also from a CUDA graph replay (device time without the
             launches' host cost).  Then conv3 and LeakyReLU, checked only,
             at the train step's second-round batch (64 tiles), for both
-            networks.
+            networks, and every kernel on a strided view (a crop) against
+            its plain version on the same view (``kernel_strided``).
 4. golden   the port's generator (kernels on) against the frozen TF output
             tests/goldens/gen_3d.npz, f32 and bf16, and the 3D
             discriminator against tests/goldens/disc_3d.npz: PSNR >= 40 dB.
@@ -224,6 +226,28 @@ each printing one JSON line:
             LeakyReLU; each worker's DP steps and ring the same two.
             ``--parallel-only`` builds the kernels and runs this phase
             alone (no kernels line).
+15. examples  the user recipes of examples/torch/ on the card, each in a
+            temporary directory at wf=8 (cloudrun_test_3d keeps its
+            wf=32) with few epochs: run_local_predict (a seeded EM2EM's
+            checkpoint -> save_model -> load_generator -> predict_tiled
+            at 72^3, within one level on at most 1e-3 of the voxels of
+            the same recipe with device="cpu"), simple_training_2d (2
+            epochs), generator_training_3d (two smoothed 256^3 volumes
+            behind an in-process DataService, 1 epoch of 8 tiles at B=4,
+            bfloat16), streaming_training_3d_local (2 epochs of 16
+            tiles), cloudrun_test_3d (its overlap-stitching assert),
+            run_cloud_predict_service and multichip_inference (every
+            visible card, or this card four times over: the DP step, DP
+            tiled inference equal to one device, halo inference within
+            the JAX recipe's bar); migrate_tf_assets (TF interop, held
+            on the CPU) is listed as not run.  The counts are zeroed just
+            before each recipe's main and read just after it: the 3D
+            inference recipes and multichip_inference must launch all
+            four kernels, the 3D training recipes conv3 and LeakyReLU,
+            simple_training_2d LeakyReLU.  One line a recipe (wall
+            seconds of its main, launches, ok), the recipes' own prints
+            under --out as examples_<name>.log.  ``--examples-only``
+            builds the kernels and runs this phase alone.
 13. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
@@ -235,7 +259,9 @@ each printing one JSON line:
    shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
    at the train step's shapes, ``slab_shapes`` from the volume phase's
    kernel checks, ``parallel_launches`` from phase 14's meshed calls,
-   ``parallel_launches_by_path`` split by path), then the ``ok`` line.  Any failed check exits non-zero
+   ``parallel_launches_by_path`` split by path, ``examples_launches``
+   from phase 15's recipes, ``examples_launches_by_recipe`` split by
+   recipe), then the ``ok`` line.  Any failed check exits non-zero
    before the last line.
 """
 
@@ -493,6 +519,45 @@ def check_conv3(dev, gen):
                 t.pop("bound_ms_cuda_core")
         agg[str(dtype).replace("torch.", "")] = tot
     return agg
+
+
+def check_strided(dev, gen):
+    """Each kernel's wrapper on a strided view (a crop, as a caller slicing
+    a padded volume hands the generator), against its plain version on the
+    same view: conv3 (tensor-core and direct paths, with the epilogue)
+    within 1e-4 max(1, |ref|), the elementwise three bit-equal."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    def crop(t):  # drop one plane a face of the first two spatial axes
+        return t[:, 1:-1, 1:-1]
+
+    cases = {}
+    for c, o in ((8, 16), (1, 8)):
+        x = crop(torch.randn((2, 20, 20, 18, c), generator=gen, device=dev))
+        w = torch.randn((3, 3, 3, c, o), generator=gen, device=dev) / (
+            27 * c) ** 0.5
+        got = cuda_conv.conv3(x, w, 0.3)
+        ref = cuda_conv.conv3_plain(x, w, 0.3)
+        err = (got - ref).abs().max().item()
+        cases[f"conv3.{cuda_conv.conv3_path(c, o)}"] = {
+            "max_abs_err": err,
+            "ok": err <= 1e-4 * max(1.0, ref.abs().max().item())}
+    u8 = crop(torch.randint(0, 256, (2, 20, 20, 20), generator=gen,
+                            device=dev, dtype=torch.uint8))
+    y = crop(torch.randn((2, 20, 20, 20, 1), generator=gen, device=dev))
+    v = crop(torch.randn((2, 20, 20, 20, 8), generator=gen, device=dev))
+    for name, got, ref in (
+            ("preprocess_u8", ck.preprocess_u8(u8, MS_X),
+             ck.preprocess_u8_plain(u8, MS_X)),
+            ("postprocess_u8", ck.postprocess_u8(y, MS_Y, 2),
+             ck.postprocess_u8_plain(y, MS_Y, 2)),
+            ("leaky_relu", ck.leaky_relu(v), ck.leaky_relu_plain(v))):
+        cases[name] = {"ok": bool(torch.equal(got, ref))}
+    rec = {"phase": "kernel_strided", "cases": cases,
+           "ok": all(c["ok"] for c in cases.values())}
+    emit(rec)
+    return rec
 
 
 def check_train_shapes(dev, gen):
@@ -4508,6 +4573,199 @@ def check_parallel(dev, smi):
     return rec
 
 
+# -- phase 15: the user recipes (examples/torch/) ----------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+ALL_FOUR = ("preprocess_u8", "conv3", "leaky_relu", "postprocess_u8")
+# The kernels each recipe's path must launch: the 3D inference recipes all
+# four, the 3D training recipes conv3 and LeakyReLU, the 2D recipe LeakyReLU
+# (its convs stay on cuDNN, as JAX keeps its Pallas conv to 3D).
+EXAMPLE_KERNELS = {
+    "run_local_predict": ALL_FOUR,
+    "simple_training_2d": ("leaky_relu",),
+    "generator_training_3d": ("conv3", "leaky_relu"),
+    "streaming_training_3d_local": ("conv3", "leaky_relu"),
+    "cloudrun_test_3d": ALL_FOUR,
+    "run_cloud_predict_service": ALL_FOUR,
+    "multichip_inference": ALL_FOUR,
+}
+EX_WF = 8  # the JAX recipes' default width (cloudrun_test_3d keeps its 32)
+
+
+def load_example(name):
+    """The recipe ``examples/torch/<name>.py`` as a module of its own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_example_" + name, os.path.join(EXAMPLES_DIR, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ex_local_predict(dev, ex, counted):
+    """A seeded wf=8 EM2EM's checkpoint at step 1 (the generator's weights
+    of std 1/sqrt(fan-in), so the output spans the uint8 range), then the
+    recipe on the card (counted) and on the CPU from the same checkpoint:
+    within one level on at most 1e-3 of the voxels."""
+    from transfer_em_tpu_torch.train import EM2EM
+
+    model = EM2EM(74, "lp_smoke", wf=EX_WF, device=dev)
+    model.state.gg.load_state_dict(seeded_generator(41, dev).state_dict())
+    model.make_checkpoint(1)
+    model.wait_until_finished()
+    got = counted(lambda: ex.main(1, "lp_smoke", wf=EX_WF, device="cuda"))
+    want = ex.main(1, "lp_smoke", wf=EX_WF, device="cpu")
+    worst, share = _u8_diff(got, want)
+    return {"shape": list(got.shape),
+            "vs_cpu": {"max": worst, "share": share},
+            "range": [int(got.min()), int(got.max())],
+            "ok": (got.shape == want.shape == (72, 72, 72)
+                   and worst <= 1 and share <= 1e-3
+                   and int(got.max()) - int(got.min()) > 64)}
+
+
+def _ex_simple_2d(dev, ex, counted):
+    counted(lambda: ex.main(epochs=2, wf=EX_WF, device="cuda"))
+    with open("simple2d_metrics.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    return {"epochs_logged": len(logged),
+            "png": os.path.exists("simple2d_sample.png"),
+            "ok": len(logged) == 2 and os.path.exists("simple2d_sample.png")}
+
+
+def _ex_generator_3d(dev, ex, counted):
+    """Two smoothed 256^3 volumes behind the port's DataService on
+    127.0.0.1; 1 epoch of 8 tiles at B=4, in the recipe's bfloat16."""
+    from transfer_em_tpu_torch.serve import (DataService, NumpyVolume,
+                                             register_volume)
+
+    register_volume("ex/x", NumpyVolume(smooth_volume(256, 51, dev)))
+    register_volume("ex/y", NumpyVolume(smooth_volume(256, 52, dev)))
+    svc = DataService()
+    svc.start()
+    try:
+        model = counted(lambda: ex.main(
+            "ex/x", "ex/y", cloudrun=svc.url, epochs=1, wf=EX_WF,
+            batch_size=4, epoch_size=8, bbox=((0, 0, 0), (256, 256, 256)),
+            exp_name="gen3d_smoke", device="cuda"))
+    finally:
+        svc.stop()
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in model.state.gg.parameters())
+    return {"steps": int(model.state.step),
+            "compute_dtype": str(model.config.compute_dtype),
+            "ok": int(model.state.step) == 2 and finite}
+
+
+def _ex_streaming_3d(dev, ex, counted):
+    rmse = counted(lambda: ex.main(epochs=2, wf=EX_WF, batch_size=4,
+                                   epoch_size=16, device="cuda"))
+    return {"rmse": rmse, "ok": bool(np.isfinite(rmse))}
+
+
+def _ex_as_is(dev, ex, counted):
+    """The recipe's main at its defaults; its own asserts (the stitching's,
+    the services') are the check."""
+    counted(lambda: ex.main(device="cuda"))
+    return {"ok": True}
+
+
+def _ex_multichip(dev, ex, counted):
+    """Every visible card, or this card four times over."""
+    devices = (None if torch.cuda.device_count() > 1
+               else [torch.device("cuda", 0)] * 4)
+    losses = counted(lambda: ex.main(wf=EX_WF, steps=2,
+                                     exp_name="multichip_smoke",
+                                     device="cuda", devices=devices))
+    return {"devices": (torch.cuda.device_count() if devices is None
+                        else [str(d) for d in devices]),
+            "losses": [float(v) for v in losses],
+            "ok": bool(np.all(np.isfinite(losses)))}
+
+
+EXAMPLE_RUNS = (("run_local_predict", _ex_local_predict),
+                ("simple_training_2d", _ex_simple_2d),
+                ("generator_training_3d", _ex_generator_3d),
+                ("streaming_training_3d_local", _ex_streaming_3d),
+                ("cloudrun_test_3d", _ex_as_is),
+                ("run_cloud_predict_service", _ex_as_is),
+                ("multichip_inference", _ex_multichip))
+
+
+def run_example(dev, name, check):
+    """One recipe in a fresh temporary directory: its set-up, its main on
+    the card between reset_counts and read_counts (wall seconds around that
+    call alone), then its checks.  The recipe's own prints go to
+    ``examples_<name>.log`` under --out.  An exception fails the recipe;
+    its record carries the error."""
+    import contextlib
+    import io
+    import traceback
+
+    window = {}
+
+    def counted(run):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        window["seconds"] = time.perf_counter() - t0
+        window["launches"] = read_counts()
+        return out
+
+    rec = {"phase": "examples", "example": name}
+    cwd = os.getcwd()
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(printed):
+                rec.update(check(dev, load_example(name), counted))
+        except Exception as e:  # noqa: BLE001 — recorded, then failed
+            rec.update(ok=False, error=f"{type(e).__name__}: {e}",
+                       traceback=traceback.format_exc()[-2000:])
+        finally:
+            os.chdir(cwd)
+    _write_out(f"examples_{name}.log", printed.getvalue())
+    launches = window.get("launches", {})
+    rec["seconds"] = window.get("seconds")
+    rec["launches"] = launches
+    rec["must_launch"] = list(EXAMPLE_KERNELS[name])
+    launched = all(launches.get(k, 0) > 0 for k in EXAMPLE_KERNELS[name])
+    rec["ok"] = bool(rec.get("ok")) and launched
+    if not launched and "error" not in rec:
+        rec["error"] = "a kernel of the recipe's path did not launch"
+    emit(rec)
+    return rec
+
+
+def check_examples(dev, smi):
+    """Phase 15: every recipe of examples/torch/ on the card at wf=8 (the
+    JAX recipes' default; cloudrun_test_3d keeps its wf=32), each in a
+    temporary directory with few epochs, its kernel launches counted alone
+    and gated above zero for the kernels its path runs, its own asserts
+    holding, run_local_predict's output against the same recipe on the
+    CPU.  migrate_tf_assets, TensorFlow interop, is held on the CPU
+    (tests/test_torch_examples.py) and listed here as not run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    recipes = {name: run_example(dev, name, check)
+               for name, check in EXAMPLE_RUNS}
+    not_run = {"migrate_tf_assets": {
+        "run": False, "why": "no tensorflow on the card's machine"}}
+    rec = {"phase": "examples", "card": smi,
+           "seconds": time.perf_counter() - t_phase,
+           "recipes": {n: {k: r.get(k) for k in ("seconds", "ok", "error")}
+                       for n, r in recipes.items()},
+           "not_run": not_run,
+           "launches_by_recipe": {n: r["launches"]
+                                  for n, r in recipes.items()},
+           "ok": all(r["ok"] for r in recipes.values())}
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -4526,6 +4784,9 @@ def main():
     ap.add_argument("--int8-only", action="store_true",
                     help="build the kernels and run the int8 phase alone; "
                          "prints the int8 entries of the kernels line")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build the kernels and run the examples phase "
+                         "alone; prints its launches by recipe")
     args = ap.parse_args()
     OUT_DIR = args.out
     if not torch.cuda.is_available():
@@ -4566,6 +4827,19 @@ def main():
         if not par["ok"]:
             fail("parallel", "the parallel phase failed a check")
         return
+    if args.examples_only:
+        strided = check_strided(
+            dev, torch.Generator(device=dev).manual_seed(0))
+        ex = check_examples(dev, smi)
+        _write_log()
+        print(smi, flush=True)
+        emit({"examples": ex["launches_by_recipe"]})
+        if not strided["ok"]:
+            fail("kernel", "a kernel disagrees with its plain version on a "
+                 "strided input")
+        if not ex["ok"]:
+            fail("examples", "the examples phase failed a check")
+        return
     if args.int8_only:
         int8 = check_int8(dev, smi)
         _write_log()
@@ -4579,8 +4853,9 @@ def main():
     conv = check_conv3(dev, gen)
     elem = check_elementwise(dev, gen)
     shapes = check_train_shapes(dev, gen)
+    strided = check_strided(dev, gen)
     kernel_ok = (all(v["passed"] == v["checks"] for v in conv.values())
-                 and all(v["ok"] for v in elem.values())
+                 and all(v["ok"] for v in elem.values()) and strided["ok"]
                  and shapes["conv3_passed"] == shapes["conv3_checks"]
                  and shapes["leaky_passed"] == shapes["leaky_checks"])
     emit({"phase": "kernels_checked", "ok": kernel_ok})
@@ -4639,6 +4914,10 @@ def main():
     par = check_parallel(dev, smi)
     if not par["ok"]:
         fail("parallel", "the parallel phase failed a check")
+
+    examples = check_examples(dev, smi)
+    if not examples["ok"]:
+        fail("examples", "the examples phase failed a check")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -4764,6 +5043,15 @@ def main():
     for p in paths:
         p["parallel_launches"] = par["launches"][
             "conv3_" + p["name"].split(".")[1]]
+    by_recipe = examples["launches_by_recipe"]
+    for line in lines:
+        line["examples_launches"] = sum(c[line["name"]]
+                                        for c in by_recipe.values())
+        line["examples_launches_by_recipe"] = {
+            n: c[line["name"]] for n, c in by_recipe.items()}
+    for p in paths:
+        key = "conv3_" + p["name"].split(".")[1]
+        p["examples_launches"] = sum(c[key] for c in by_recipe.values())
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

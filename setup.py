@@ -18,12 +18,18 @@ setup(
     extras_require={
         "data": ["requests", "tensorstore", "pillow"],
         "cloud": ["google-cloud-storage", "google-api-python-client"],
+        "torch": ["torch", "numpy"],
     },
     entry_points={
         "console_scripts": [
             "tem-save-model=transfer_em_tpu.cli.save_model:main",
             "tem-data-service=transfer_em_tpu.serve.data_service:main",
             "tem-model-service=transfer_em_tpu.serve.model_service:main",
+            "tem-torch-save-model=transfer_em_tpu_torch.cli.save_model:main",
+            "tem-torch-data-service="
+            "transfer_em_tpu_torch.serve.data_service:main",
+            "tem-torch-model-service="
+            "transfer_em_tpu_torch.serve.model_service:main",
         ],
     },
 )

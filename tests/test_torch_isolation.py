@@ -15,6 +15,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transfer_em_tpu")
+# the port's recipes also leave the JAX recipes' notebook tool alone
+FORBIDDEN_IN_EXAMPLES = FORBIDDEN + ("make_notebooks", "examples")
+PORT_EXAMPLES = os.path.join(ROOT, "examples", "torch")
 
 
 def _port_sources():
@@ -22,6 +25,7 @@ def _port_sources():
                                           "**", "*.py"), recursive=True))
     files += sorted(glob.glob(os.path.join(ROOT, "tools", "*.py")))
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    files += sorted(glob.glob(os.path.join(PORT_EXAMPLES, "*.py")))
     return files
 
 
@@ -48,9 +52,11 @@ def test_port_sources_found():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_imports(path):
+    forbidden = (FORBIDDEN_IN_EXAMPLES
+                 if os.path.dirname(path) == PORT_EXAMPLES else FORBIDDEN)
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in FORBIDDEN, f"{path} imports {mod}"
+        assert top not in forbidden, f"{path} imports {mod}"
 
 
 def _entry_points(tmp_path):
@@ -268,3 +274,50 @@ assert not bad, bad
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
+
+
+def _example_mains(tmp_path):
+    """Each recipe's main as a user calls it (no ``device``), at
+    arguments that reach no remote store: local volume names and a local
+    data-service URL that is never read before the device is resolved."""
+    import importlib.util
+
+    def main(name):
+        spec = importlib.util.spec_from_file_location(
+            "isolated_" + name, os.path.join(PORT_EXAMPLES, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.main
+
+    local = "http://127.0.0.1:9"
+    return {
+        "run_local_predict": lambda: main("run_local_predict")(1),
+        "simple_training_2d": lambda: main("simple_training_2d")(
+            n_patches=8),
+        "generator_training_3d": lambda: main("generator_training_3d")(
+            "local/x", "local/y", cloudrun=local),
+        "streaming_training_3d_local": lambda: main(
+            "streaming_training_3d_local")(extent=40),
+        "cloudrun_test_3d": lambda: main("cloudrun_test_3d")(),
+        "run_cloud_predict_service": lambda: main(
+            "run_cloud_predict_service")(),
+        "multichip_inference": lambda: main("multichip_inference")(),
+        "migrate_tf_assets": lambda: main("migrate_tf_assets")(
+            workdir=str(tmp_path)),
+    }
+
+
+@pytest.mark.parametrize("name", ["run_local_predict", "simple_training_2d",
+                                  "generator_training_3d",
+                                  "streaming_training_3d_local",
+                                  "cloudrun_test_3d",
+                                  "run_cloud_predict_service",
+                                  "multichip_inference",
+                                  "migrate_tf_assets"])
+def test_examples_default_to_cuda(name, tmp_path, monkeypatch):
+    """Every recipe under examples/torch/, run without ``device`` where
+    CUDA is absent, raises instead of running on the CPU."""
+    assert not torch.cuda.is_available()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        _example_mains(tmp_path)[name]()

@@ -41,9 +41,9 @@ def generate_images(orig, pred, show: bool = True,
                     save_path: Optional[str] = None):
     """Display and/or save an input/output pair (reference debug.py:73-102).
     The first batch element: its first z-slice for a 3D (rank-5) input, the
-    image itself for a 2D (rank-4) one."""
-    import matplotlib.pyplot as plt
-
+    image itself for a 2D (rank-4) one.  Where matplotlib is not installed,
+    a save without ``show`` writes the pair side by side as a grey PNG
+    through PIL (``x * 0.5 + 0.5`` on [0, 1], as the figure shows it)."""
     orig, pred = _host(orig), _host(pred)
     if orig.ndim == 5:
         orig = orig[0, 0, :, :, 0]
@@ -51,6 +51,13 @@ def generate_images(orig, pred, show: bool = True,
     else:
         orig = orig[0, :, :, 0]
         pred = pred[0, :, :, 0]
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        if show or not save_path:
+            raise
+        _save_pair_png(orig, pred, save_path)
+        return
 
     fig = plt.figure(figsize=(12, 12))
     plt.subplot(121)
@@ -67,6 +74,20 @@ def generate_images(orig, pred, show: bool = True,
         plt.show()
     else:
         plt.close(fig)
+
+
+def _save_pair_png(orig: np.ndarray, pred: np.ndarray, path: str) -> None:
+    """Input and output images side by side (8 black columns between, the
+    shorter one top-aligned) as an 8-bit grey PNG."""
+    from PIL import Image
+
+    h = max(orig.shape[0], pred.shape[0])
+    canvas = np.full((h, orig.shape[1] + 8 + pred.shape[1]), -1.0,
+                     np.float32)
+    canvas[:orig.shape[0], :orig.shape[1]] = orig
+    canvas[:pred.shape[0], orig.shape[1] + 8:] = pred
+    grey = np.round(np.clip(canvas * 0.5 + 0.5, 0, 1) * 255).astype(np.uint8)
+    Image.fromarray(grey).save(path, format="PNG")
 
 
 __all__ = ["warp", "warp_tensor", "batch_warp", "make_warp_map", "accuracy",

@@ -10,16 +10,18 @@ from ..device import resolve_device
 from ..native import gather_blocks
 from .batcher import TileBatcher, make_tile_batcher
 from .device_stitch import device_predict_tiled
-from .export import export_generator, load_generator, save_model
+from .export import (export_generator, load_generator,
+                     predict_cube_from_saved_model, save_model)
 from .slab import slab_predict
 from .stream import predict_streaming, predict_volume_streaming
 from .tiling import (InferenceCancelled, TilePlan, default_batch_size,
-                     make_tile_step, plan_tiles, predict_tiled, scatter_tiles)
+                     make_tile_step, plan_tiles, predict_ng_cube,
+                     predict_tiled, scatter_tiles)
 
 __all__ = [
-    "export_generator", "load_generator", "save_model", "TilePlan",
-    "make_tile_step",
-    "plan_tiles", "predict_tiled", "scatter_tiles", "InferenceCancelled",
+    "export_generator", "load_generator", "predict_cube_from_saved_model",
+    "save_model", "TilePlan", "make_tile_step", "plan_tiles",
+    "predict_ng_cube", "predict_tiled", "scatter_tiles", "InferenceCancelled",
     "TileBatcher", "make_tile_batcher", "slab_predict",
     "device_predict_tiled", "predict_volume", "predict_streaming",
     "predict_volume_streaming", "choose_mode",

@@ -22,6 +22,7 @@ predicts an ng-precomputed region with an export.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Tuple
 
@@ -56,6 +57,16 @@ def export_generator(gen: torch.nn.Module, meta: ExportMeta, out_dir: str,
             f.write(write_flax_msgpack(params_to_jax(gen.state_dict())))
     with open(os.path.join(out_dir, META_FILE), "w") as f:
         f.write(meta.to_json())
+
+
+@functools.lru_cache(maxsize=16)
+def generator_module(wf: int) -> UNetGenerator:
+    """One ``UNetGenerator`` a width, the same object every call, as the
+    JAX package caches its module so that ``gen.apply`` stays one callable.
+    A torch module carries its weights: this one holds the default init on
+    the CPU and is shared by every caller; ``load_generator`` builds a
+    module of its own for each export."""
+    return UNetGenerator(wf=wf)
 
 
 def _ndarray_to_ext(x):

@@ -56,9 +56,9 @@ from ..ops.quant import conv_nd_int8, conv_transpose_nd_int8
 
 WEIGHT_STD = 0.02
 
-__all__ = ["LEAKY_SLOPE", "ConvND", "ConvActND", "ConvTransposeND",
-           "InstanceNorm", "DownBlock", "UpBlock", "dropout_half",
-           "compute_dtype_of", "leaky"]
+__all__ = ["LEAKY_SLOPE", "WEIGHT_INIT", "WEIGHT_STD", "ConvND",
+           "ConvActND", "ConvTransposeND", "InstanceNorm", "DownBlock",
+           "UpBlock", "dropout_half", "compute_dtype_of", "leaky"]
 
 DTypeLike = Union[None, str, torch.dtype]
 
@@ -84,10 +84,18 @@ def leaky(x: torch.Tensor) -> torch.Tensor:
     return leaky_relu(x, slope_in(x.dtype))
 
 
+def WEIGHT_INIT(shape, generator: Optional[torch.Generator] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, WEIGHT_STD) of ``shape``, drawn from ``generator`` (the global
+    generator when None): the JAX package's ``WEIGHT_INIT``
+    (``nn.initializers.normal(stddev=0.02)``), with a torch.Generator in
+    place of its PRNG key."""
+    w = torch.empty(shape, dtype=dtype)
+    return w.normal_(0.0, WEIGHT_STD, generator=generator)
+
+
 def _init_normal(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
-    w = torch.empty(shape, dtype=torch.float32)
-    w.normal_(0.0, WEIGHT_STD, generator=generator)
-    return nn.Parameter(w)
+    return nn.Parameter(WEIGHT_INIT(shape, generator))
 
 
 class ConvND(nn.Module):

@@ -75,6 +75,12 @@ def _get_lib() -> Optional[ctypes.CDLL]:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the compiled scatter/gather library loads (else the numpy
+    loops serve)."""
+    return _get_lib() is not None
+
+
 def _u8p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 

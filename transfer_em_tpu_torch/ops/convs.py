@@ -30,7 +30,7 @@ contiguous: there PyTorch's ``slow_conv2d``, which it picks for some shapes
 from __future__ import annotations
 
 import itertools
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +77,21 @@ def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     return _to_channels_last(y)
 
 
+def same_transpose_padding(k: int, s: int) -> Tuple[int, int]:
+    """Equivalent forward-conv padding for TF's SAME transposed conv.
+
+    TF SAME transpose (out = in * s) is the input-gradient of a SAME forward
+    strided conv; its forward-dilated equivalent pads (k-1-p_lo, k-1-p_hi)
+    where p_total = max(k - s, 0), p_lo = p_total//2, p_hi = p_total - p_lo.
+    torch's ``conv_transpose`` takes ``padding = k - 1 - pad`` for a
+    symmetric pad (k=4, s=2: (2, 2), so 1).
+    """
+    p_total = max(k - s, 0)
+    p_lo = p_total // 2
+    p_hi = p_total - p_lo
+    return (k - 1 - p_lo, k - 1 - p_hi)
+
+
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
                       stride: int = 2,
                       phase_decompose: Optional[bool] = None) -> torch.Tensor:
@@ -93,7 +108,10 @@ def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
         raise ValueError("conv_transpose_nd supports k=4, stride=2 (the "
                          "generator's up convs)")
     w = _weight(kernel.to(x.dtype).permute(n, n + 1, *range(n)))
-    y = _CONV_T[n](_to_channels_first(x), w, stride=2, padding=1)
+    k = kernel.shape[0]
+    pad, _ = same_transpose_padding(k, stride)  # symmetric at k=4, s=2
+    y = _CONV_T[n](_to_channels_first(x), w, stride=stride,
+                   padding=k - 1 - pad)
     return _to_channels_last(y)
 
 

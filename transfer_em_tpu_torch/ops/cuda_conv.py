@@ -297,7 +297,8 @@ def conv3(x: torch.Tensor, w: torch.Tensor,
     dtype (float32 or bfloat16).  w is x's dtype, or a float32 parameter
     under a bfloat16 x: the conv then runs on w rounded to bfloat16, packed
     once per parameter (:func:`packed_weights`).  ``leaky`` fuses
-    LeakyReLU(negative_slope=leaky) into the epilogue.  Every call goes
+    LeakyReLU(negative_slope=leaky) into the epilogue.  A strided x (a
+    cropped view) is read through a contiguous copy.  Every call goes
     through :class:`_Conv3`, which records the gradient where autograd
     needs one and carries the rule for ``torch.func.vmap``."""
     return _Conv3.apply(x, w, leaky)
@@ -307,6 +308,7 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
            leaky: Optional[float]) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3_plain(x, w, leaky)
+    x = x.contiguous()
     kernels.check_cuda_tensor(x, "conv3 x", tuple(kernels.DTYPE_CODES), 5)
     kernels.check_cuda_tensor(w, "conv3 w", (x.dtype, torch.float32), 5)
     bsz, d, h, wd, c = x.shape

@@ -60,9 +60,11 @@ def preprocess_u8_plain(x_u8: torch.Tensor, meanstd: MeanStd) -> torch.Tensor:
 
 
 def preprocess_u8(x_u8: torch.Tensor, meanstd: MeanStd) -> torch.Tensor:
-    """uint8 tiles -> standardized float32 with a trailing channel axis."""
+    """uint8 tiles -> standardized float32 with a trailing channel axis.
+    A strided input is read through a contiguous copy."""
     if x_u8.device.type == "cpu":
         return preprocess_u8_plain(x_u8, meanstd)
+    x_u8 = x_u8.contiguous()
     kernels.check_cuda_tensor(x_u8, "preprocess_u8", (torch.uint8,))
     a, b = preprocess_affine(meanstd)
     y = torch.empty(x_u8.shape + (1,), dtype=torch.float32,
@@ -103,9 +105,11 @@ def postprocess_u8(y: torch.Tensor, meanstd: MeanStd,
     """Model output, (B, D, H, W, 1) or (B, H, W, 1) -> uint8 tiles,
     trimming ``tpad`` voxels per face of every spatial axis.  The kernel
     reads the trimmed window in place (strided; no copy); a 2D batch runs
-    as D = 1 with no trim on that axis."""
+    as D = 1 with no trim on that axis.  A strided ``y`` is read through a
+    contiguous copy."""
     if y.device.type == "cpu":
         return postprocess_u8_plain(y, meanstd, tpad)
+    y = y.contiguous()
     kernels.check_cuda_tensor(y, "postprocess_u8", (torch.float32,))
     spatial = tuple(y.shape[1:-1])
     if (y.dim() not in (4, 5) or y.shape[-1] != 1 or tpad < 0
@@ -176,6 +180,7 @@ def leaky_relu(x: torch.Tensor,
 def _leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return leaky_relu_plain(x, negative_slope)
+    x = x.contiguous()  # a strided view is read through a copy
     kernels.check_cuda_tensor(x, "leaky_relu", tuple(kernels.DTYPE_CODES))
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     kernels.launch("tem_leaky_relu", x.data_ptr(), y.data_ptr(),

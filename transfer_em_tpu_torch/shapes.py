@@ -1,7 +1,7 @@
 """VALID-convolution shape calculus for the transfer_em U-Net family.
 
-Own copy of the parts of ``transfer_em_tpu/shapes.py`` the port needs
-(generator_shapes, is_valid_dimsize, valid_dimsizes, discriminator_shapes,
+Own copy of ``transfer_em_tpu/shapes.py`` (the defaults, kernel sizes,
+generator_shapes, is_valid_dimsize, valid_dimsizes, discriminator_shapes,
 tile_plan_outdimsize): the port imports nothing of the JAX package.  The reference hardcodes
 ``VALID_DIMS=[74]`` / ``VALID_OUT=[40]`` (transfer_em/models/generator.py:
 18-20); 74 -> 40 (buffer 17) remains the verified default.
@@ -12,9 +12,16 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
+# The verified default, matching the reference exactly.
+DEFAULT_DIMSIZE = 74
+DEFAULT_OUT = 40
+DEFAULT_BUFFER = 17
+
+# Kernel sizes used throughout the model family (reference models/utils.py:61,66).
 CONV_K = 3
 DOWN_K = 4
 DOWN_STRIDE = 2
+UP_K = 4
 UP_STRIDE = 2
 
 
