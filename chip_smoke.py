@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch/H100 port (transfer_em_tpu_torch).
 
     python3 chip_smoke.py [--out DIR] [--int8-only | --parallel-only |
-                                       --examples-only]
+                                       --examples-only | --wide-only]
 
 ``--out DIR`` also writes every JSON line (chip_smoke.jsonl) and the
 compilers' output with ptxas register counts (chip_smoke_build.log) to DIR.
@@ -248,6 +248,37 @@ each printing one JSON line:
             seconds of its main, launches, ok), the recipes' own prints
             under --out as examples_<name>.log.  ``--examples-only``
             builds the kernels and runs this phase alone.
+16. wide    the model at its full widths (wf=1, 64-256 channels), every
+            k3 shape from the wf=1 networks' own forward: conv3 in f32 and
+            bf16, with and without the epilogue, at the generator's 8 k3
+            layers (B=16, the wf=1 tile step's batch) and the
+            discriminator's 4 (B=16, the train step's first round at
+            B=8), against its plain version at phase 3's tolerances,
+            timed beside the bound and F.conv3d (+ F.leaky_relu), each
+            layer's plan printed (tensor-core channel blocks and output
+            chunks, blockIdx.y > 0; the direct kernel's O > 8 splits);
+            tensors past 2^31 elements (the stem, LeakyReLU and down1.conv
+            at B=128, f32) against their plain versions slice by slice;
+            preprocess, postprocess and LeakyReLU (f32, bf16) at the
+            B=16 tile step's shapes; one f32 train step at wf=1 (B=2,
+            dropout off) through the kernels against the plain versions
+            (as phase 7: losses rtol 1e-4, GRAD_TOL, noise floor, planted
+            faults) and one bf16 step (as phase 11's check,
+            BF16_GRAD_TOL); bench.train.measure at bench_wf1.py's first
+            three configs in bf16 (B=8, B=8 remat, B=16 accum=2) and f32
+            B=4 (steps 2-5 timed, tiles/s, peak memory, the step's FLOPs
+            and share of peak; one bf16 and one f32 step profiled);
+            EM2EM(74, wf=1) 2 steps -> checkpoint -> save_model ->
+            load_generator -> ModelService at its default batch (16), three
+            128^3 chunks within one level on at most 1e-3 of the voxels of
+            predict_tiled through the plain versions; bench.infer.measure
+            over a seeded 220^3 volume (a 180^3 request): bf16 device mode
+            at B = 8, 16, 32 and slab, then f32 device mode against the
+            plain versions (one level, 1e-3).  The counts are zeroed just
+            before each counted call and read just after, summed by path:
+            train must launch conv3 and LeakyReLU, serve and volume all
+            four kernels.  ``--wide-only`` builds the kernels and runs this
+            phase alone.
 13. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
@@ -261,7 +292,9 @@ each printing one JSON line:
    kernel checks, ``parallel_launches`` from phase 14's meshed calls,
    ``parallel_launches_by_path`` split by path, ``examples_launches``
    from phase 15's recipes, ``examples_launches_by_recipe`` split by
-   recipe), then the ``ok`` line.  Any failed check exits non-zero
+   recipe, ``wide_launches`` and ``wide_launches_by_path`` from phase 16,
+   ``wide`` the kernels' times at the wf=1 shapes), then the ``ok``
+   line.  Any failed check exits non-zero
    before the last line.
 """
 
@@ -417,9 +450,10 @@ def psnr(got, want):
 # -- phase 3: kernels against their plain versions ---------------------------
 
 def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act,
-                graph=False):
+                graph=False, extra=None):
     """One conv3 check and its times (with ``graph``, also the kernel's and
-    the library call's by CUDA graph replay); returns the record."""
+    the library call's by CUDA graph replay); returns the record, with
+    ``extra``'s keys."""
     from transfer_em_tpu_torch.ops import cuda_conv
 
     x = torch.randn(shape + (c,), generator=gen, device=dev)
@@ -461,6 +495,7 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act,
     if graph:
         rec["graph_ms"] = graph_ms(lambda: cuda_conv.conv3(x, w, leaky))
         rec["library_graph_ms"] = graph_ms(lib)
+    rec.update(extra or {})
     emit(rec)
     return rec
 
@@ -646,6 +681,27 @@ def _pre_case(x):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _post_case(y):
+    """postprocess on the (B, 40^3, 1) model output ``y`` at tpad 2 (the
+    tile step's trim, read in place: the vector path) against its plain
+    version (post_check), with its times beside the bound."""
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    rec = post_check(y, 2)
+    n_out = y.shape[0] * 36 ** 3
+    b_ms, b_by = bound(n_out * 5, 5.0 * n_out, torch.float32)
+    lib = lambda: (y[:, 2:-2, 2:-2, 2:-2, 0] * MS_Y[1] + MS_Y[0] + 1.0).mul(
+        127.5).round().clamp(0, 255).to(torch.uint8)
+    rec.update({
+        "ms": cuda_ms(lambda: ck.postprocess_u8(y, MS_Y, 2), 20),
+        "plain_ms": cuda_ms(lambda: ck.postprocess_u8_plain(y, MS_Y, 2), 20),
+        "library_ms": cuda_ms(lib, 20),
+        "graph_ms": graph_ms(lambda: ck.postprocess_u8(y, MS_Y, 2)),
+        "library_graph_ms": graph_ms(lib), "bound_ms": b_ms,
+        "bound_by": b_by})
+    return rec
+
+
 def _leaky_case(v):
     """LeakyReLU on ``v`` against its plain version (bit-identical), with
     its times beside the bound."""
@@ -682,18 +738,7 @@ def check_elementwise(dev, gen):
     # (the vector path), timed; then the scalar path (odd tpad, OW % 4 != 0)
     # and tpad 0, checked only.
     y = torch.randn((B, 40, 40, 40, 1), generator=gen, device=dev)
-    rec = post_check(y, 2)
-    n_out = B * 36 ** 3
-    b_ms, b_by = bound(n_out * 5, 5.0 * n_out, torch.float32)
-    lib = lambda: (y[:, 2:-2, 2:-2, 2:-2, 0] * MS_Y[1] + MS_Y[0] + 1.0).mul(
-        127.5).round().clamp(0, 255).to(torch.uint8)
-    rec.update({
-        "ms": cuda_ms(lambda: ck.postprocess_u8(y, MS_Y, 2), 20),
-        "plain_ms": cuda_ms(lambda: ck.postprocess_u8_plain(y, MS_Y, 2), 20),
-        "library_ms": cuda_ms(lib, 20),
-        "graph_ms": graph_ms(lambda: ck.postprocess_u8(y, MS_Y, 2)),
-        "library_graph_ms": graph_ms(lib), "bound_ms": b_ms,
-        "bound_by": b_by})
+    rec = _post_case(y)
     emit({"phase": "kernel", "kernel": "postprocess_u8", "path": "vector",
           "shape": list(y.shape), "tpad": 2, **rec})
     del y
@@ -971,6 +1016,21 @@ def read_counts():
     return out
 
 
+def post_chunk(url, location, start, size, model_name, dest):
+    """One chunk request to a ModelService at ``url``: the size^3 region
+    at ``start`` (xyz) of ``location`` through ``model_name``, its blocks
+    written to ``dest``.  Returns (body, seconds)."""
+    cfg = {"location": location, "start": list(start),
+           "glbstart": [0, 0, 0], "size": [size] * 3,
+           "model_name": model_name, "dest": dest}
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        url + "/", data=json.dumps(cfg).encode(),
+        headers={"Content-type": "application/json"})
+    body = urllib.request.urlopen(req, timeout=600).read()
+    return body, time.perf_counter() - t0
+
+
 def check_serving(dev, smi):
     from transfer_em_tpu_torch.config import ExportMeta
     from transfer_em_tpu_torch.infer import export_generator, predict_tiled
@@ -995,16 +1055,8 @@ def check_serving(dev, smi):
         svc.start()
 
         def request(i, start, tag=""):
-            cfg = {"location": "smoke/vol", "start": list(start),
-                   "glbstart": [0, 0, 0], "size": [size] * 3,
-                   "model_name": "smoke:v1",
-                   "dest": os.path.join(tmp, f"out{i}{tag}")}
-            t0 = time.perf_counter()
-            req = urllib.request.Request(
-                svc.url + "/", data=json.dumps(cfg).encode(),
-                headers={"Content-type": "application/json"})
-            body = urllib.request.urlopen(req, timeout=600).read()
-            return body, time.perf_counter() - t0
+            return post_chunk(svc.url, "smoke/vol", start, size, "smoke:v1",
+                              os.path.join(tmp, f"out{i}{tag}"))
 
         try:
             reset_counts()
@@ -1045,18 +1097,10 @@ def check_serving(dev, smi):
                     batch_size=64, device=dev)
         worst, frac = 0, 0.0
         for i, s in enumerate(starts):
-            got = np.zeros((size,) * 3, np.uint8)
-            dest = os.path.join(tmp, f"out{i}")
-            names = sorted(os.listdir(dest))
-            if len(names) != (size // 64) ** 3:
-                fail("serve", f"request {i}: {len(names)} blocks written")
-            for nm in names:
-                (x0, x1), (y0, y1), (z0, z1) = (
-                    tuple(int(v) for v in p.split("-")) for p in nm.split("_"))
-                raw = gzip.decompress(open(os.path.join(dest, nm), "rb").read())
-                got[z0 - s[2]:z1 - s[2], y0 - s[1]:y1 - s[1],
-                    x0 - s[0]:x1 - s[0]] = np.frombuffer(
-                        raw, np.uint8).reshape(z1 - z0, y1 - y0, x1 - x0)
+            got, n_blocks = read_ng_blocks(os.path.join(tmp, f"out{i}"), s,
+                                           (size,) * 3)
+            if n_blocks != (size // 64) ** 3:
+                fail("serve", f"request {i}: {n_blocks} blocks written")
             diff = np.abs(got.astype(int) - outs[i].astype(int))
             worst = max(worst, int(diff.max()))
             frac = max(frac, float((diff > 0).mean()))
@@ -1819,41 +1863,108 @@ NOISE_SEEDS = (5, 6, 7)
 FAULTS = ("dx_dropped", "mask_inverted", "slope_0.2")
 
 
-def check_train_plain(dev, kernel_rel_err):
+@contextlib.contextmanager
+def leaky_gates(gates, replay=False):
+    """The models' LeakyReLU gates (pre-activation >= 0) of every conv3
+    epilogue and standalone LeakyReLU, in call order: recorded into the
+    list ``gates``, or (``replay``) applied from it in that order in place
+    of the ones each call computes: where(gate, v, v * slope) on the
+    pre-activation v, which is the plain versions' function wherever the
+    gate agrees with v >= 0, and has the same gradient rule."""
+    from transfer_em_tpu_torch.models import blocks
+
+    conv3, leaky = blocks.conv3, blocks.leaky_relu
+    replayed = iter(gates)
+
+    def gated_conv3(x, w, slope=None):
+        if slope is None:
+            return conv3(x, w)
+        if not replay:
+            y = conv3(x, w, slope)
+            gates.append(y >= 0)
+            return y
+        v = conv3(x, w)
+        return torch.where(next(replayed), v, v * slope)
+
+    def gated_leaky(x, slope):
+        if not replay:
+            gates.append(x >= 0)
+            return leaky(x, slope)
+        return torch.where(next(replayed), x, x * slope)
+
+    blocks.conv3, blocks.leaky_relu = gated_conv3, gated_leaky
+    try:
+        yield gates
+    finally:
+        blocks.conv3, blocks.leaky_relu = conv3, leaky
+
+
+def check_train_plain(dev, kernel_rel_err, wf=8, batch=4,
+                      phase="train_check", same_gates=False):
     """One train step through the kernels and one through the plain
-    versions, on the card, from the same state and batches (wf=8, B=4,
-    dropout off): the 7-loss vectors within rtol 1e-4, every parameter's
-    gradient within GRAD_TOL of its own largest |g|; beside them the noise
-    floor and the planted faults' readings (see GRAD_TOL), and the check
-    fails unless every fault reads above GRAD_TOL in every network.
-    Batches have std 0.3 so
-    that |real - cycled| stays far from 2, where the focal CE's clip makes
-    the gradient jump; the weights are redrawn so that every network's
-    gradients are O(1)."""
+    versions, on the card, from the same state and batches (``wf``,
+    ``batch``, dropout off): the 7-loss vectors within rtol 1e-4, every
+    parameter's gradient within GRAD_TOL of its own largest |g|; beside
+    them the noise floor and the planted faults' readings (see GRAD_TOL),
+    and the check fails unless every fault reads above GRAD_TOL in every
+    network.  Batches have std 0.3 so that |real - cycled| stays far from
+    2, where the focal CE's clip makes the gradient jump; the weights are
+    redrawn so that every network's gradients are O(1).
+
+    ``same_gates``: the plain steps (the reference and the noise floor's)
+    take the kernels' step's LeakyReLU gates (:func:`leaky_gates`), so the
+    two steps differentiate one piecewise-linear function and the
+    comparison reads the arithmetic alone; the plain step on its own gates
+    is read beside it (``free_gates``: its gradient gap and how many
+    gates the two steps set differently), not gated.  A LeakyReLU input
+    within the kernels' rounding of 0 (f32 conv3 sums differ from cuDNN's
+    by up to ~6e-5 of a layer's largest output at wf=1) flips its gate, and
+    one flipped gate moves a whole output channel's weight gradient."""
     import copy
 
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.train import build_step_fn, create_state
 
-    cfg = CycleGANConfig()
+    cfg = CycleGANConfig(wf=wf)
     state = create_state(cfg, seed=1, device=dev)
     redraw(state, 2)
     fresh = copy.deepcopy(state)
     ref_state = copy.deepcopy(fresh)
-    x, y = smooth_batches(4, 0.3, 11, dev)
+    x, y = smooth_batches(batch, 0.3, 11, dev)
     step = build_step_fn(cfg, deterministic=True)
+    gates = []
+
+    def plain(**kw):  # the reference path, on the kernels' gates if asked
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(plain_versions(**kw))
+        if same_gates:
+            ctx.enter_context(leaky_gates(gates, replay=True))
+        return ctx
+
     reset_counts()
-    got = step(state, x, y, 0).cpu().numpy()
+    with leaky_gates(gates) if same_gates else contextlib.nullcontext():
+        got = step(state, x, y, 0).cpu().numpy()
     launches = read_counts()
-    with plain_versions():
+    with plain():
         want = step(ref_state, x, y, 0).cpu().numpy()
     loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
     errs = _grad_errors(state, ref_state)
+    free = None
+    if same_gates:
+        free_state, free_gates = copy.deepcopy(fresh), []
+        with plain_versions(), leaky_gates(free_gates):
+            step(free_state, x, y, 0)
+        flipped = sum(int((a != b).sum()) for a, b in zip(gates, free_gates))
+        free = {"grad_max_err_over_own_max": _worst(
+                    _grad_errors(state, free_state)),
+                "gates": sum(g.numel() for g in gates),
+                "gates_flipped": flipped}
+        del free_state, free_gates
     del state
     floor = {t: dict.fromkeys(e, 0.0) for t, e in errs.items()}
     for seed in NOISE_SEEDS:
         noisy = copy.deepcopy(fresh)
-        with plain_versions(noise=NOISE, seed=seed):
+        with plain(noise=NOISE, seed=seed):
             step(noisy, x, y, 0)
         for t, e in _grad_errors(noisy, ref_state).items():
             for n, v in e.items():
@@ -1866,19 +1977,21 @@ def check_train_plain(dev, kernel_rel_err):
             step(broken, x, y, 0)
         faults[kind] = _worst(_grad_errors(broken, ref_state))
         del broken
+    gates.clear()
     worst = {t: [{"param": n, "err": v, "noise_floor": floor[t][n]}
                  for n, v in sorted(e.items(), key=lambda kv: kv[1])[-3:]]
              for t, e in errs.items()}
     grad = _worst(errs)
     caught = {k: min(v.values()) > GRAD_TOL for k, v in faults.items()}
-    rec = {"phase": "train_check", "batch": 4, "losses": got.tolist(),
+    rec = {"phase": phase, "wf": wf, "batch": batch,
+           "same_gates": same_gates, "losses": got.tolist(),
            "plain_losses": want.tolist(), "loss_max_rel_err": loss_rel,
            "loss_rtol": 1e-4, "grad_max_err_over_own_max": grad,
            "grad_tol": GRAD_TOL, "kernel_rel_err": kernel_rel_err,
            "noise": NOISE, "noise_seeds": list(NOISE_SEEDS),
            "noise_floor": _worst(floor), "faults": faults,
            "faults_caught": caught, "worst_params": worst,
-           "launches": launches}
+           "free_gates": free, "launches": launches}
     rec["ok"] = (loss_rel <= 1e-4
                  and all(v <= GRAD_TOL for v in grad.values())
                  and all(caught.values())
@@ -2858,9 +2971,10 @@ def check_bf16_layers(dev, gen):
             "ok": all(r["ok"] for r in rows) and all(caught.values())}
 
 
-def check_train_bf16_plain(dev):
+def check_train_bf16_plain(dev, wf=8, batch=4, phase="train_bf16_check"):
     """One bf16 step through the kernels and one through the plain
-    versions from the same state and batches (wf=8, B=4, dropout off,
+    versions from the same state and batches (``wf``, ``batch``, dropout
+    off,
     weights redrawn, batches of std 0.3, as check_train_plain), under
     cudnn.deterministic: the 7 losses within BF16_LOSS_RTOL, each network's
     L2 gradient gap within BF16_GRAD_TOL, the noise floor and the planted
@@ -2871,13 +2985,13 @@ def check_train_bf16_plain(dev):
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.train import build_step_fn, create_state
 
-    cfg = CycleGANConfig(compute_dtype="bfloat16")
+    cfg = CycleGANConfig(wf=wf, compute_dtype="bfloat16")
     with cudnn_deterministic():
         state = create_state(cfg, seed=1, device=dev)
         redraw(state, 2)
         fresh = copy.deepcopy(state)
         ref_state = copy.deepcopy(fresh)
-        x, y = smooth_batches(4, 0.3, 11, dev)
+        x, y = smooth_batches(batch, 0.3, 11, dev)
         step = build_step_fn(cfg, deterministic=True)
         reset_counts()
         got = step(state, x, y, 0).cpu().numpy()
@@ -2904,7 +3018,8 @@ def check_train_bf16_plain(dev):
     loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
     caught = {k: min(faults[k].values()) > BF16_GRAD_TOL
               for k in BF16_FAULTS}
-    rec = {"phase": "train_bf16_check", "batch": 4, "losses": got.tolist(),
+    rec = {"phase": phase, "wf": wf, "batch": batch,
+           "losses": got.tolist(),
            "plain_losses": want.tolist(), "loss_max_rel_err": loss_rel,
            "loss_rtol": BF16_LOSS_RTOL, "grad_l2": grad,
            "grad_tol": BF16_GRAD_TOL, "noise": BF16_NOISE,
@@ -4766,6 +4881,438 @@ def check_examples(dev, smi):
     return rec
 
 
+# -- phase 16: the model at its full widths (wf=1) ---------------------------
+
+WIDE_WF = 1
+WIDE_B = 16        # the wf=1 tile step's batch (default_batch_size)
+WIDE_DISC_B = 16   # the discriminators' first round at bench B=8 (2 x 8)
+WIDE_CHECK_B = 2   # the wf=1 train checks' batch
+# a stem activation of 128 * 72^3 * 64 = 3.06e9 elements, past 2^31
+WIDE_BIG_B = 128
+# bench_wf1.py's first three configs in bf16, and one in f32
+WIDE_BENCH = (("bfloat16", dict(batch=8)), ("bfloat16", dict(batch=8,
+                                                             remat=True)),
+              ("bfloat16", dict(batch=16, accum=2)),
+              ("float32", dict(batch=4)))
+WIDE_PROFILED = ("bfloat16 B=8", "float32 B=4")
+WIDE_VOL_SIDE = 220            # a 180^3 request: 125 tiles
+WIDE_VOL_BATCHES = (8, 16, 32)
+WIDE_SERVE = ((0, 0, 0), (128, 64, 0), (64, 128, 128))  # of a 256^3 volume
+WIDE_PATHS = {"train": ("conv3", "leaky_relu"),
+              "serve": ("conv3", "preprocess_u8", "postprocess_u8",
+                        "leaky_relu"),
+              "volume": ("conv3", "preprocess_u8", "postprocess_u8",
+                         "leaky_relu")}
+
+
+def wide_layers():
+    """The wf=1 networks' k3 convs as (layer, input side, C, O, epilogue
+    on the main path), generator and discriminator, and the generator's
+    standalone LeakyReLUs (after its k4 down and transposed convs) as
+    one tile's shape: from the modules' own forward
+    (bench.train.conv_layers, on fake tensors)."""
+    from transfer_em_tpu_torch.bench.train import conv_layers
+    from transfer_em_tpu_torch.models import Discriminator, UNetGenerator
+
+    gen = conv_layers(lambda: UNetGenerator(wf=WIDE_WF), (1, 74, 74, 74, 1))
+    disc = conv_layers(lambda: Discriminator(wf=WIDE_WF), (1, 40, 40, 40, 1))
+
+    def k3(layers, prefix):
+        return [(prefix + r["name"], r["in_shape"][1], r["kernel"][3],
+                 r["kernel"][4], not (prefix == "" and r["name"] == "out"))
+                for r in layers if r["kind"] == "k3"]
+
+    leaky = [r["out_shape"][1:] for r in gen
+             if r["kind"] in ("k4_down", "transposed")]
+    return k3(gen, ""), k3(disc, "disc."), leaky
+
+
+def conv3_plan_record(c, o, dtype):
+    """How conv3 tiles a (C -> O) conv in ``dtype``: the tensor-core plan
+    (channel blocks, output chunks = blockIdx.y, residency) or the direct
+    kernel's channel passes and output splits."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    if cuda_conv.conv3_path(c, o) == "direct":
+        ot = next(n for n in (1, 2, 4, 8) if n >= min(o, 8))
+        return {"path": "direct", "c_passes": -(-c // 4), "ot": ot,
+                "o_splits": -(-o // ot)}
+    p = cuda_conv.conv3_plan(c, o, dtype)
+    return {"path": "tc", "cb": p.cb, "n_cb": p.n_cb, "nc": p.nc,
+            "n_chunks": p.n_chunks, "planes": p.planes,
+            "resident": p.resident, "smem_bytes": p.smem_bytes}
+
+
+def _wide_conv3(dev, gen, gen_k3, disc_k3):
+    """conv3 in f32 and bf16, with and without the epilogue, at every wf=1
+    k3 shape (the generator's ``gen_k3`` at WIDE_B tiles, the
+    discriminator's ``disc_k3`` at WIDE_DISC_B), against its plain version
+    at phase 3's tolerances, timed beside the bound and F.conv3d (+
+    F.leaky_relu), each with its plan; per dtype and network, totals over
+    the main path's own calls."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "t_bytes", "t_ops")
+    out = {}
+    for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        dname = str(dtype).replace("torch.", "")
+        for net, layers, bsz in (("gen", gen_k3, WIDE_B),
+                                 ("disc", disc_k3, WIDE_DISC_B)):
+            tot = {**dict.fromkeys(keys, 0.0), "max_abs_err": 0.0,
+                   "rel_err": 0.0, "checks": 0, "passed": 0, "layers": []}
+            for name, s, c, o, main_act in layers:
+                plan = conv3_plan_record(c, o, dtype)
+                for act in (False, True):
+                    rec = _conv3_case(
+                        dev, gen, dtype, rel_tol, name, (bsz, s, s, s), c, o,
+                        act, extra={"phase": "wide_kernel", "wf": WIDE_WF,
+                                    "plan": plan})
+                    tot["checks"] += 1
+                    tot["passed"] += int(rec["ok"])
+                    if act != main_act:
+                        continue
+                    tot["layers"].append(name)
+                    tot["ms"] += rec["kernel_ms"]
+                    for k in keys[1:]:
+                        tot[k] += rec[k]
+                    tot["max_abs_err"] = max(tot["max_abs_err"],
+                                             rec["max_abs_err"])
+                    tot["rel_err"] = max(tot["rel_err"], rec["max_abs_err"]
+                                         / max(rec["ref_max_abs"], 1e-30))
+            tot["bound_by"] = ("operations" if tot.pop("t_ops")
+                               > tot.pop("t_bytes") else "bytes")
+            out[f"{net}_{dname}"] = tot
+            torch.cuda.empty_cache()
+    return out
+
+
+def _wide_past_2_31(dev, gen):
+    """Tensors past 2^31 elements through the kernels' 64-bit offsets, f32,
+    B = WIDE_BIG_B: the stem (direct kernel, with its epilogue; 3.06e9
+    outputs), LeakyReLU on that output, and down1.conv (tensor-core
+    kernel) on it (2.81e9 outputs), each against its plain version 16
+    tiles at a time (conv3 within 1e-4 max(1, |ref|), LeakyReLU
+    bit-equal)."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops import cuda_kernels as ck
+
+    b = WIDE_BIG_B
+    res = {}
+
+    def sliced(name, got, plain, src, rel_tol):
+        err = ref_max = 0.0
+        for i in range(0, b, 16):
+            ref = plain(src[i:i + 16])
+            err = max(err, (got[i:i + 16] - ref).abs().max().item())
+            ref_max = max(ref_max, ref.abs().max().item())
+            del ref
+        tol = rel_tol * max(1.0, ref_max)
+        res[name] = {"numel": got.numel(), "max_abs_err": err, "tol": tol,
+                     "ok": err <= tol and got.numel() > 2 ** 31 - 1}
+
+    with torch.no_grad():
+        x = torch.randn((b, 74, 74, 74, 1), generator=gen, device=dev)
+        w1 = torch.randn((3, 3, 3, 1, 64), generator=gen,
+                         device=dev) / 27 ** 0.5
+        w2 = torch.randn((3, 3, 3, 64, 64), generator=gen,
+                         device=dev) / (27 * 64) ** 0.5
+        reset_counts()
+        y = cuda_conv.conv3(x, w1, 0.3)
+        sliced("conv3.direct stem", y,
+               lambda t: cuda_conv.conv3_plain(t, w1, 0.3), x, 1e-4)
+        z = ck.leaky_relu(y)
+        sliced("leaky_relu", z, ck.leaky_relu_plain, y, 0.0)
+        del z
+        u = cuda_conv.conv3(y, w2, 0.3)
+        sliced("conv3.tc down1.conv", u,
+               lambda t: cuda_conv.conv3_plain(t, w2, 0.3), y, 1e-4)
+        launches = read_counts()
+        del u, y, x
+    torch.cuda.empty_cache()
+    rec = {"phase": "wide_past_2_31", "batch": b, "cases": res,
+           "launches": {k: launches[k] for k in ("conv3_direct", "conv3_tc",
+                                                 "leaky_relu")},
+           "ok": all(c["ok"] for c in res.values())}
+    emit(rec)
+    return rec
+
+
+def _wide_elementwise(dev, gen, leaky_shapes):
+    """preprocess, postprocess and LeakyReLU (f32 and bf16, at the
+    generator's 4 standalone activations ``leaky_shapes``, summed) at the
+    wf=1 tile step's shapes (WIDE_B tiles), each against its plain
+    version, timed as in phase 3."""
+    out = {}
+    x = torch.randint(0, 256, (WIDE_B, 74, 74, 74), generator=gen,
+                      device=dev, dtype=torch.uint8)
+    out["preprocess_u8"] = _pre_case(x)
+    y = torch.randn((WIDE_B, 40, 40, 40, 1), generator=gen, device=dev)
+    out["postprocess_u8"] = _post_case(y)
+    del x, y
+    for dtype in (torch.float32, torch.bfloat16):
+        tot = {"max_abs_err": 0.0, "ok": True, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+               "graph_ms": 0.0, "library_graph_ms": 0.0, "shapes": []}
+        for shape in leaky_shapes:
+            v = torch.randn((WIDE_B,) + tuple(shape), generator=gen,
+                            device=dev).to(dtype)
+            rec = _leaky_case(v)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "graph_ms",
+                      "library_graph_ms"):
+                tot[k] += rec[k]
+            tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+            tot["ok"] = tot["ok"] and rec["ok"]
+            tot["shapes"].append(list(v.shape))
+            del v
+        out["leaky_relu_" + str(dtype).replace("torch.", "")] = tot
+    for name, rec in out.items():
+        emit({"phase": "wide_kernel", "kernel": name, "wf": WIDE_WF,
+              "batch": WIDE_B, **rec})
+    return out
+
+
+def _wide_bench_train(dev):
+    """bench.train.measure at WIDE_BENCH (5 steps, steps 2-5 timed; one
+    step of WIDE_PROFILED under torch.profiler), the counts zeroed just
+    before each config and read just after; a config that runs out of
+    memory is reported, not hidden."""
+    from transfer_em_tpu_torch.bench import train as bench_train
+
+    recs, total = [], None
+    for dtype, c in WIDE_BENCH:
+        tag = f"{dtype} {bench_train.config_tag(**c)}"
+        torch.cuda.synchronize()
+        reset_counts()
+        try:
+            rec = bench_train.measure(
+                wf=WIDE_WF, dtype=dtype, steps=5, device=dev,
+                profile=profile_train_step if tag in WIDE_PROFILED else None,
+                **c)
+        except torch.cuda.OutOfMemoryError as e:
+            rec = {"config": bench_train.config_tag(**c), "dtype": dtype,
+                   "oom": True, "error": str(e).splitlines()[0][:200]}
+        counts = read_counts()
+        rec.update(phase="wide_train", tag=tag, launches=counts)
+        if not rec.get("oom"):
+            rec["ok"] = (rec["losses_finite"] and counts["conv3"] > 0
+                         and counts["leaky_relu"] > 0
+                         and (dtype != "bfloat16"
+                              or counts["conv3_bf16"] == counts["conv3"]))
+            total = counts if total is None else {
+                k: total[k] + v for k, v in counts.items()}
+        emit(rec)
+        recs.append(rec)
+        torch.cuda.empty_cache()
+    ok = (not recs[0].get("oom")
+          and all(r.get("oom") or r["ok"] for r in recs))
+    return {"configs": recs, "launches": total, "ok": ok}
+
+
+def _wide_serve(dev, smi):
+    """The training entry point and serving at wf=1, f32: EM2EM(74, wf=1)
+    with redrawn weights takes 2 steps (B=2), a checkpoint, save_model ->
+    load_generator -> ModelService(device="cuda") on 127.0.0.1 at its
+    default batch (16 at wf=1); WIDE_SERVE's 128^3 chunks of a smoothed
+    256^3 volume, counted, then held within one level on at most 1e-3 of
+    the voxels of predict_tiled through the plain versions on this card."""
+    from transfer_em_tpu_torch.infer import (load_generator, predict_tiled,
+                                             save_model)
+    from transfer_em_tpu_torch.infer.tiling import default_batch_size
+    from transfer_em_tpu_torch.native import gather_box
+    from transfer_em_tpu_torch.serve import (ModelService, NumpyVolume,
+                                             register_volume)
+    from transfer_em_tpu_torch.train import EM2EM
+
+    size = 128
+    vol = smooth_volume(256, seed=17, dev=dev)
+    register_volume("wide/vol", NumpyVolume(vol))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = EM2EM(74, "wide", wf=WIDE_WF, checkpoint_root=tmp,
+                      device=dev)
+        redraw(model.state, 21)
+        x, y = smooth_batches(WIDE_CHECK_B, 0.3, 13, dev)
+        losses = [model.train_step(x, y).cpu().tolist() for _ in range(2)]
+        model.make_checkpoint(2)
+        model.wait_until_finished()
+        out_dir = os.path.join(tmp, "models", "wide", "v1")
+        save_model(out_dir, os.path.join(model.checkpoint_path, "2"), MS_X,
+                   MS_Y, 74, wf=WIDE_WF, device=dev)
+        gen, meta = load_generator(out_dir, device=dev)
+        same = all(torch.equal(a, b) for a, b in zip(
+            gen.state_dict().values(), model.state.gg.state_dict().values()))
+        del model
+        svc = ModelService(model_root=os.path.join(tmp, "models"),
+                           device=dev)
+        svc.start()
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = [post_chunk(svc.url, "wide/vol", s, size, "wide:v1",
+                                  os.path.join(tmp, f"out{i}"))
+                       for i, s in enumerate(WIDE_SERVE)]
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            stats = svc.cache.stats()
+        finally:
+            svc.stop()
+        for body, _ in results:
+            if body != b"success":
+                fail("wide", f"a wf=1 request answered {body!r}")
+        batch = default_batch_size(gen)
+        worst, frac, spread = 0, 0.0, 0.0
+        with plain_versions():
+            for i, s in enumerate(WIDE_SERVE):
+                want = predict_tiled(
+                    lambda c, n: gather_box(vol, c, (n,) * 3), gen, s,
+                    (size,) * 3, meta.outdimsize, meta.buffer, MS_X, MS_Y,
+                    batch_size=batch, device=dev)
+                got, n_blocks = read_ng_blocks(os.path.join(tmp, f"out{i}"),
+                                               s, (size,) * 3)
+                if n_blocks != (size // 64) ** 3:
+                    fail("wide", f"request {i}: {n_blocks} blocks written")
+                diff = np.abs(got.astype(int) - want.astype(int))
+                worst = max(worst, int(diff.max()))
+                frac = max(frac, float((diff > 0).mean()))
+                spread = max(spread, float(np.std(want)))
+    n_tiles = len(WIDE_SERVE) * (-(-size // 36)) ** 3
+    rec = {"phase": "wide_serve", "wf": meta.wf, "train_losses": losses,
+           "export_equals_model": same, "batch": batch,
+           "requests": len(WIDE_SERVE), "wall_s": wall,
+           "request_s": [r[1] for r in results],
+           "tiles_per_s": n_tiles / wall,
+           "mvox_per_s": len(WIDE_SERVE) * size ** 3 / wall / 1e6,
+           "batcher": stats.get("batcher"), "launches": launches,
+           "u8_max_diff": worst, "u8_frac_differing": frac,
+           "output_std": spread, "card": smi}
+    rec["ok"] = (meta.wf == WIDE_WF and same and batch == 16
+                 and bool(np.all(np.isfinite(losses)))
+                 and worst <= 1 and frac <= 1e-3 and spread > 2.0
+                 and all(launches[k] > 0 for k in WIDE_PATHS["serve"]))
+    emit(rec)
+    return rec
+
+
+def _wide_bench_infer(dev):
+    """bench.infer.measure at wf=1 over a seeded WIDE_VOL_SIDE^3 volume:
+    bf16 device mode at WIDE_VOL_BATCHES and slab mode (2 timed calls
+    each, the counts zeroed before and read after each call of measure);
+    then f32 device mode at B=16 against the same mode through the plain
+    versions (one level, at most 1e-3 of the voxels)."""
+    from transfer_em_tpu_torch.bench import infer as bench_infer
+    from transfer_em_tpu_torch.infer import predict_volume
+
+    vol_np = bench_infer.make_volume(WIDE_VOL_SIDE, seed=1)
+    vol = torch.from_numpy(vol_np).to(dev)
+    gen16 = bench_infer.seeded_generator(WIDE_WF, 0, "bfloat16", dev)
+    runs, total = [], None
+    for i, b in enumerate(WIDE_VOL_BATCHES):
+        torch.cuda.synchronize()
+        reset_counts()
+        rec = bench_infer.measure(
+            gen=gen16, vol=vol_np if i == 0 else vol, batch=b,
+            modes=("device", "slab") if b == 16 else ("device",), reps=2,
+            device=dev)
+        counts = read_counts()
+        rec.update(phase="wide_volume", launches=counts)
+        emit(rec)
+        runs.append(rec)
+        total = counts if total is None else {
+            k: total[k] + v for k, v in counts.items()}
+    gen32 = bench_infer.seeded_generator(WIDE_WF, 0, "float32", dev)
+    start, size = bench_infer.request(WIDE_VOL_SIDE)
+    kw = dict(mode="device", batch_size=16, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = predict_volume(vol, gen32, start, size, bench_infer.MS,
+                         bench_infer.MS, **kw)
+    counts = read_counts()
+    with plain_versions():
+        want = predict_volume(vol, gen32, start, size, bench_infer.MS,
+                              bench_infer.MS, **kw)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    check = {"phase": "wide_volume_check", "dtype": "float32", "batch": 16,
+             "u8_max_diff": int(diff.max()),
+             "u8_frac_differing": float((diff > 0).mean()),
+             "output_std": float(want.std()), "launches": counts}
+    check["ok"] = (check["u8_max_diff"] <= 1
+                   and check["u8_frac_differing"] <= 1e-3
+                   and check["output_std"] > 2.0
+                   and all(counts[k] > 0 for k in WIDE_PATHS["volume"]))
+    emit(check)
+    total = {k: total[k] + v for k, v in counts.items()}
+    ok = check["ok"] and all(
+        all(r["launches"][k] > 0 for k in WIDE_PATHS["volume"])
+        for r in runs)
+    return {"runs": runs, "check": check, "launches": total, "ok": ok}
+
+
+def check_wide(dev, smi):
+    """Phase 16: the wf=1 model (64-256 channels) on the card (see the
+    module docstring).  Returns the phase's summary, its launches by path
+    (``train``, ``serve``, ``volume``: each call counted alone) and ok."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    gen_k3, disc_k3, leaky_shapes = wide_layers()
+    conv = _wide_conv3(dev, gen, gen_k3, disc_k3)
+    big = _wide_past_2_31(dev, gen)
+    elem = _wide_elementwise(dev, gen, leaky_shapes)
+    kernels_ok = (all(v["passed"] == v["checks"] for v in conv.values())
+                  and big["ok"] and all(v["ok"] for v in elem.values()))
+    train_check = check_train_plain(
+        dev, max(conv["gen_float32"]["rel_err"],
+                 conv["disc_float32"]["rel_err"]),
+        wf=WIDE_WF, batch=WIDE_CHECK_B, phase="wide_train_check",
+        same_gates=True)
+    bf16_check = check_train_bf16_plain(dev, wf=WIDE_WF, batch=WIDE_CHECK_B,
+                                        phase="wide_train_bf16_check")
+    bench = _wide_bench_train(dev)
+    serve = _wide_serve(dev, smi)
+    volume = _wide_bench_infer(dev)
+    by_path = {"train": bench["launches"], "serve": serve["launches"],
+               "volume": volume["launches"]}
+    launches_ok = all(by_path[p] is not None
+                      and all(by_path[p][k] > 0 for k in ks)
+                      for p, ks in WIDE_PATHS.items())
+    rec = {"phase": "wide", "wf": WIDE_WF, "seconds": time.perf_counter() - t0,
+           "kernels_ok": kernels_ok, "train_check_ok": train_check["ok"],
+           "train_bf16_check_ok": bf16_check["ok"], "bench_ok": bench["ok"],
+           "serve_ok": serve["ok"], "volume_ok": volume["ok"],
+           "launches_ok": launches_ok, "launches_by_path": by_path,
+           "card": smi}
+    rec["ok"] = (kernels_ok and train_check["ok"] and bf16_check["ok"]
+                 and bench["ok"] and serve["ok"] and volume["ok"]
+                 and launches_ok)
+    emit(rec)
+    return {**rec, "conv3": conv, "elementwise": elem}
+
+
+def wide_kernel_fields(wide, name):
+    """The kernels line's ``wide_launches`` (summed over the phase's paths),
+    ``wide_launches_by_path`` and, for the four kernels, ``wide``: the
+    times at the wf=1 shapes (conv3 by network and dtype, summed over the
+    main path's layers; LeakyReLU by dtype over the 4 activations)."""
+    by_path = wide["launches_by_path"]
+    out = {"wide_launches": sum(c[name] for c in by_path.values()
+                                if c is not None),
+           "wide_launches_by_path": {p: (c[name] if c is not None else None)
+                                     for p, c in by_path.items()}}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    if name == "conv3":
+        out["wide"] = {k: {**{kk: v[kk] for kk in keys},
+                           "layers": v["layers"]}
+                       for k, v in wide["conv3"].items()}
+        out["wide"]["per"] = (f"the wf=1 k3 convs of one generator at B="
+                              f"{WIDE_B} / discriminator at B={WIDE_DISC_B}"
+                              ", summed")
+    elif name == "leaky_relu":
+        out["wide"] = {d: {k: wide["elementwise"]["leaky_relu_" + d][k]
+                           for k in keys}
+                       for d in ("float32", "bfloat16")}
+    elif name in wide["elementwise"]:
+        out["wide"] = {k: wide["elementwise"][name][k] for k in keys}
+    return out
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -4787,6 +5334,9 @@ def main():
     ap.add_argument("--examples-only", action="store_true",
                     help="build the kernels and run the examples phase "
                          "alone; prints its launches by recipe")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="build the kernels and run the wide (wf=1) phase "
+                         "alone; prints its launches by path")
     args = ap.parse_args()
     OUT_DIR = args.out
     if not torch.cuda.is_available():
@@ -4839,6 +5389,15 @@ def main():
                  "strided input")
         if not ex["ok"]:
             fail("examples", "the examples phase failed a check")
+        return
+    if args.wide_only:
+        wide = check_wide(dev, smi)
+        _write_log()
+        print(smi, flush=True)
+        emit({"wide": {name: wide_kernel_fields(wide, name)
+                       for name in counters()}})
+        if not wide["ok"]:
+            fail("wide", "the wide (wf=1) phase failed a check")
         return
     if args.int8_only:
         int8 = check_int8(dev, smi)
@@ -4918,6 +5477,10 @@ def main():
     examples = check_examples(dev, smi)
     if not examples["ok"]:
         fail("examples", "the examples phase failed a check")
+
+    wide = check_wide(dev, smi)
+    if not wide["ok"]:
+        fail("wide", "the wide (wf=1) phase failed a check")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5052,6 +5615,13 @@ def main():
     for p in paths:
         key = "conv3_" + p["name"].split(".")[1]
         p["examples_launches"] = sum(c[key] for c in by_recipe.values())
+    for line in lines:
+        line.update(wide_kernel_fields(wide, line["name"]))
+    for p in paths:
+        key = "conv3_" + p["name"].split(".")[1]
+        p["wide_launches"] = sum(c[key] for c in
+                                 wide["launches_by_path"].values()
+                                 if c is not None)
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

@@ -82,6 +82,8 @@ def _entry_points(tmp_path):
     from transfer_em_tpu_torch import compat
     from transfer_em_tpu_torch.parallel import make_mesh
     from transfer_em_tpu_torch.train import create_prior_helper
+    from transfer_em_tpu_torch.bench import infer as bench_infer
+    from transfer_em_tpu_torch.bench import train as bench_train
 
     gen = UNetGenerator(wf=32)
     cfg = CycleGANConfig(dimsize=74, wf=32)
@@ -134,6 +136,8 @@ def _entry_points(tmp_path):
         "create_prior_helper(.h5)": lambda: create_prior_helper(
             str(tmp_path / "prior.h5"), "down1"),
         "make_mesh": lambda: make_mesh(),
+        "bench.train.measure": lambda: bench_train.measure(wf=32, batch=1),
+        "bench.infer.measure": lambda: bench_infer.measure(wf=32, side=80),
     }
 
 
@@ -152,7 +156,9 @@ def _entry_points(tmp_path):
                                   "compat.load_tf_generator",
                                   "compat.load_tf_discriminator",
                                   "compat.load_reference_checkpoint",
-                                  "create_prior_helper(.h5)", "make_mesh"])
+                                  "create_prior_helper(.h5)", "make_mesh",
+                                  "bench.train.measure",
+                                  "bench.infer.measure"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """Called without ``device`` where CUDA is absent, every entry point
     raises instead of running on the CPU."""

@@ -192,9 +192,9 @@ __global__ void __launch_bounds__(kLeakyThreads)
     const long long i = base + u * kLeakyThreads;
     if (i < nvec) yv[i] = leaky_vec<T>(v[u], slope);
   }
-  const long long t =
-      nvec * static_cast<long long>(16 / sizeof(T)) + blockIdx.x * blockDim.x +
-      threadIdx.x;
+  const long long t = nvec * static_cast<long long>(16 / sizeof(T)) +
+                      static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
   if (t < n) y[t] = from_f32<T>(leaky(to_f32<T>(x[t]), slope));
 }
 

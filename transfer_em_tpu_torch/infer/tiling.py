@@ -183,7 +183,11 @@ def default_batch_size(gen: nn.Module) -> int:
     B = 64 / 128 / 256 in three calls of chip_smoke.py (``volume``; NVIDIA
     H100 80GB HBM3, 700 W), with peak memory 2.1 / 4.2 / 8.2 GB: no batch
     is faster by more than the spread between calls, and 256 takes twice
-    the memory.  The rule for other widths is not measured on the card."""
+    the memory.  16 at wf=1 holds too: bf16 device mode over a 180^3
+    request (125 tiles) ran 28.91-28.99 / 30.59-30.66 / 31.18-31.25
+    Mvox/s at B = 8 / 16 / 32 in two calls of chip_smoke.py (``wide``;
+    the same card), with peak memory 1.05 / 2.01 / 3.95 GB: B=32 gains 2%
+    for twice the memory.  wf = 2 and 4 are not measured on the card."""
     widest = max((int(p.shape[-1]) for p in gen.parameters()
                   if p.dim() >= 4), default=0)
     if widest <= 0:

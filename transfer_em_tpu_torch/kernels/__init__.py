@@ -170,11 +170,24 @@ def build_variant(source: str, tag: str, defines=()) -> ctypes.CDLL:
     return lib
 
 
+def check_c_ints(name: str, args) -> None:
+    """Raise ValueError where an argument that C entry ``name`` takes as an
+    ``int`` lies outside 32 bits: ctypes would pass it wrapped, silently.
+    (Element counts cross as ``long long``; every kernel indexes memory
+    with 64-bit offsets, so a tensor past 2^31 elements is served.)"""
+    for i, (a, t) in enumerate(zip(args, _SIGNATURES[name])):
+        if t is _i and not -2 ** 31 <= a < 2 ** 31:
+            raise ValueError(f"{name}: argument {i} = {a} does not fit the "
+                             "kernel's 32-bit int")
+
+
 def launch(name: str, *args, device: torch.device,
            lib: Optional[ctypes.CDLL] = None) -> None:
     """Call C entry ``name`` (of the kernel library, or of ``lib``) on the
-    current stream of ``device``; raise on a non-zero cudaError_t.  Does
-    not synchronise."""
+    current stream of ``device``; raise on a non-zero cudaError_t, and
+    before the call on an int argument past 32 bits
+    (:func:`check_c_ints`).  Does not synchronise."""
+    check_c_ints(name, args)
     lib = library() if lib is None else lib
     current = torch.cuda.current_device()
     index = current if device.index is None else device.index
