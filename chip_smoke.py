@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch/H100 port (transfer_em_tpu_torch).
 
     python3 chip_smoke.py [--out DIR] [--int8-only | --parallel-only |
-                                       --examples-only | --wide-only]
+                                       --examples-only | --wide-only |
+                                       --benches-only]
 
 ``--out DIR`` also writes every JSON line (chip_smoke.jsonl) and the
 compilers' output with ptxas register counts (chip_smoke_build.log) to DIR.
@@ -145,7 +146,13 @@ each printing one JSON line:
             bf16 step (wf=8, B=4, dropout off, cudnn.deterministic) through
             the kernels against the plain versions, each network's L2
             gradient gap within BF16_GRAD_TOL, beside the noise floor and
-            planted faults; 5 bf16 steps at B=64 as in phase 8 (every conv3
+            planted faults, and again with ``use_norm`` and its tile step
+            (``use_norm_bfloat16``: the losses within BF16_LOSS_RTOL and
+            one level on at most 1e-3 of the voxels against the plain step
+            on the kernels' conv3 roundings wherever those are correct,
+            none that is not, a planted dropped tap flagged, and the plain
+            step on its own roundings and its noise floor read beside);
+            5 bf16 steps at B=64 as in phase 8 (every conv3
             and LeakyReLU launch on bf16); remat on and off in f32 and bf16
             at B=64 (seconds, peak memory, bit-equal under
             cudnn.deterministic with dropout on); make_scan_train_step
@@ -175,7 +182,12 @@ each printing one JSON line:
             Cout; f32 and bf16 out; N(0, 1) and tie-rich inputs)
             bit-equal to an independent float64 reference, and each of
             three planted faults (roundf quantization, one weight scale
-            per tensor, a dropped tap) breaking that equality; the int8
+            per tensor, a dropped tap) breaking that equality; the
+            shapes the port once refused (``c12``: SAME at stride 2 and
+            3, transposed at k1, k2, k3, k5 stride 2, 3D and 2D, f32 and
+            bf16 out), through the phase plan, bit-equal to an
+            independent float64 reference and to the plain versions on
+            the CPU, each launching both kernels once; the int8
             goldens (PSNR >= 40 dB, the card's output within 1e-5 of the
             CPU's); conv_transpose_nd(phase_decompose=True) against
             cuDNN's default at up1.up / up0.up (B=128) and the slab's
@@ -279,6 +291,21 @@ each printing one JSON line:
             train must launch conv3 and LeakyReLU, serve and volume all
             four kernels.  ``--wide-only`` builds the kernels and runs this
             phase alone.
+17. benches  each module of transfer_em_tpu_torch/bench/ started as a
+            user starts it (``python -m``, a process of its own) at the
+            reduced counts of BENCH_RUNS: fidelity (f32, bf16), serve
+            model (8 requests), data (workers 0 and 4), soak (1000 data
+            and 100 model requests; then 20 with two models churning),
+            combined, dp (3 steps), int8, baseline_configs (config2's two
+            lower rungs, config4 over 2 epochs).  Gated on each exit
+            code, PSNR >= 40 dB (fidelity, int8), the soak bars and the
+            launches each run must count (conv3 and LeakyReLU on
+            fidelity, serve, combined and dp; the uint8 edges on serve;
+            conv_int8 and quantize_int8 on int8; LeakyReLU and the edges
+            on config2, a 2D model, whose convs all run on cuDNN, so no
+            conv3 there); each bench's JSON line printed, and the seconds
+            of each run.  ``--benches-only`` builds the kernels and runs
+            this phase alone.
 13. the card's nvidia-smi line, then the ``kernels`` line (``launches``
    from the served round, ``volume_launches`` from the volume phase's timed
    calls, ``train_launches`` from the 5 train steps, ``em2em_launches``
@@ -293,8 +320,9 @@ each printing one JSON line:
    ``parallel_launches_by_path`` split by path, ``examples_launches``
    from phase 15's recipes, ``examples_launches_by_recipe`` split by
    recipe, ``wide_launches`` and ``wide_launches_by_path`` from phase 16,
-   ``wide`` the kernels' times at the wf=1 shapes), then the ``ok``
-   line.  Any failed check exits non-zero
+   ``wide`` the kernels' times at the wf=1 shapes, ``benches_launches``
+   and ``benches_launches_by_run`` from phase 17's bench processes), then
+   the ``ok`` line.  Any failed check exits non-zero
    before the last line.
 """
 
@@ -304,6 +332,7 @@ import gzip
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -986,34 +1015,18 @@ def counters():
 
 
 def reset_counts():
-    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8, quant
-    for c in counters().values():
-        c.launches = 0
-    cuda_int8.conv_int8.launches = 0
-    quant.quantize_int8.launches = 0
-    quant.int8_weights.packs = 0
-    cuda_conv.conv3.launches_tc = cuda_conv.conv3.launches_direct = 0
-    cuda_conv.conv3.launches_bf16 = 0
-    counters()["leaky_relu"].launches_bf16 = 0
-    cuda_conv.packed_weights.packs = 0
+    from transfer_em_tpu_torch.ops.counts import reset_counts as reset
+    reset()
 
 
 def read_counts():
     """Launches per kernel, conv3 also per path (tc, direct), conv3's and
     LeakyReLU's on bfloat16 operands, and the weight packs (plain torch,
     not a kernel launch); conv_int8's and quantize_int8's, which only the
-    int8 path launches, and the int8 weights made, beside them."""
-    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8, quant
-    out = {k: c.launches for k, c in counters().items()}
-    out["conv_int8"] = cuda_int8.conv_int8.launches
-    out["quantize_int8"] = quant.quantize_int8.launches
-    out["int8_weight_packs"] = quant.int8_weights.packs
-    out["conv3_tc"] = cuda_conv.conv3.launches_tc
-    out["conv3_direct"] = cuda_conv.conv3.launches_direct
-    out["conv3_bf16"] = cuda_conv.conv3.launches_bf16
-    out["leaky_relu_bf16"] = counters()["leaky_relu"].launches_bf16
-    out["conv3_weight_packs"] = cuda_conv.packed_weights.packs
-    return out
+    int8 path launches, and the int8 weights made, beside them: the port's
+    one reader, ``ops/counts.py``."""
+    from transfer_em_tpu_torch.ops.counts import read_counts as read
+    return read()
 
 
 def post_chunk(url, location, start, size, model_name, dest):
@@ -1899,8 +1912,92 @@ def leaky_gates(gates, replay=False):
         blocks.conv3, blocks.leaky_relu = conv3, leaky
 
 
+# The f32 sums' error bound of a bf16 conv3 output, as a multiple of
+# n * 2^-24 * sum|x w| (n = 27 Cin products, each exact in f32): the plain
+# version's sums round to nearest (n u), a tensor core's may truncate (2 n u),
+# and the bound takes twice the two together's 3 n u, rounded up.
+ROUNDING_SLACK = 4.0
+
+
+def _bf16_bounds(s, slack, slope):
+    """The least and the greatest value that a bf16 conv3 output may take
+    for an f32 sum within ``slack`` of ``s``: the interval rounded outward
+    to bf16 (by the bits: the upper 16 of an f32 are its bf16 value toward
+    0), then the epilogue in bf16 as conv3_plain applies it; both steps are
+    monotone.  float32 tensors."""
+    def outward(v, up):
+        bits = v.view(torch.int32) & -65536
+        toward_zero = bits.view(torch.float32)
+        away = (bits + 65536).view(torch.float32)
+        return torch.where(toward_zero == v, v,
+                           torch.where((v > 0) == up, away, toward_zero))
+
+    def epilogue(v):
+        v = v.to(torch.bfloat16)
+        return (v if slope is None else torch.where(v >= 0, v, v * slope)
+                ).float()
+
+    return epilogue(outward(s - slack, False)), epilogue(outward(s + slack,
+                                                                 True))
+
+
+@contextlib.contextmanager
+def conv3_rounding(outputs, replay=False, misses=None, fault=None):
+    """The models' bf16 conv3 outputs, in call order: recorded into the
+    list ``outputs`` from the kernels' step, or (``replay``, inside
+    plain_versions) checked and taken from it by the plain step.  A
+    recorded output is taken where it is a bf16 rounding, epilogue after,
+    of a sum within the f32 sums' error bound (ROUNDING_SLACK) of the plain
+    version's own f32 sum; elsewhere the plain version's value stays and
+    the element counts in ``misses["n"]`` (``misses["of"]`` counts every
+    element).  Both steps then run one bf16 function wherever the kernels
+    round as a correct conv3 may, and the gradient is the plain version's
+    (the recorded value enters as a constant offset).  ``fault``
+    ("tap_dropped"): the recorded kernels' conv3 runs with every kernel's
+    first tap zeroed, for the check to show that the replay flags it."""
+    from transfer_em_tpu_torch.models import blocks
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    conv3 = blocks.conv3
+    replayed = iter(outputs)
+
+    def recorded(x, w, slope=None):
+        if fault == "tap_dropped":
+            mask = torch.ones(w.shape[:3], device=w.device)
+            mask[0, 0, 0] = 0
+            w = w * mask[..., None, None]
+        y = conv3(x, w, slope)
+        outputs.append(y.detach().clone())
+        return y
+
+    def replaying(x, w, slope=None):
+        y = conv3(x, w, slope)
+        got = next(replayed)
+        with torch.no_grad():
+            xf, wf = x.float(), w.to(x.dtype).float()
+            s = cuda_conv.conv3_plain(xf, wf)
+            slack = (ROUNDING_SLACK * 27 * x.shape[-1] * 2.0 ** -24
+                     * cuda_conv.conv3_plain(xf.abs(), wf.abs()))
+            lo, hi = _bf16_bounds(s, slack, slope)
+            got = got.float()
+            ok = (got >= lo) & (got <= hi)
+            misses["n"] += int((~ok).sum())
+            misses["of"] += ok.numel()
+            offset = torch.where(ok, got, y.float()) - y.float()
+        return (y.float() + offset).to(y.dtype)
+
+    if replay:
+        misses.update(n=0, of=0)
+    blocks.conv3 = replaying if replay else recorded
+    try:
+        yield outputs
+    finally:
+        blocks.conv3 = conv3
+
+
 def check_train_plain(dev, kernel_rel_err, wf=8, batch=4,
-                      phase="train_check", same_gates=False):
+                      phase="train_check", same_gates=False,
+                      use_norm=False):
     """One train step through the kernels and one through the plain
     versions, on the card, from the same state and batches (``wf``,
     ``batch``, dropout off): the 7-loss vectors within rtol 1e-4, every
@@ -1919,13 +2016,14 @@ def check_train_plain(dev, kernel_rel_err, wf=8, batch=4,
     gates the two steps set differently), not gated.  A LeakyReLU input
     within the kernels' rounding of 0 (f32 conv3 sums differ from cuDNN's
     by up to ~6e-5 of a layer's largest output at wf=1) flips its gate, and
-    one flipped gate moves a whole output channel's weight gradient."""
+    one flipped gate moves a whole output channel's weight gradient.
+    ``use_norm``: the networks with their InstanceNorm sites on."""
     import copy
 
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.train import build_step_fn, create_state
 
-    cfg = CycleGANConfig(wf=wf)
+    cfg = CycleGANConfig(wf=wf, use_norm=use_norm)
     state = create_state(cfg, seed=1, device=dev)
     redraw(state, 2)
     fresh = copy.deepcopy(state)
@@ -1983,7 +2081,7 @@ def check_train_plain(dev, kernel_rel_err, wf=8, batch=4,
              for t, e in errs.items()}
     grad = _worst(errs)
     caught = {k: min(v.values()) > GRAD_TOL for k, v in faults.items()}
-    rec = {"phase": phase, "wf": wf, "batch": batch,
+    rec = {"phase": phase, "wf": wf, "batch": batch, "use_norm": use_norm,
            "same_gates": same_gates, "losses": got.tolist(),
            "plain_losses": want.tolist(), "loss_max_rel_err": loss_rel,
            "loss_rtol": 1e-4, "grad_max_err_over_own_max": grad,
@@ -1997,6 +2095,90 @@ def check_train_plain(dev, kernel_rel_err, wf=8, batch=4,
                  and all(caught.values())
                  and launches["conv3_tc"] > 0 and launches["conv3_direct"] > 0
                  and launches["leaky_relu"] > 0)
+    emit(rec)
+    return rec
+
+
+def check_norm_tile_step(dev, dtype, bsz=16):
+    """The fused tile step of a wf=8 generator with ``use_norm`` (its
+    InstanceNorm sites on; numpy-seeded weights) in ``dtype`` on ``bsz``
+    tiles of a smooth volume, through the kernels and through the plain
+    versions: within one grey level on at most 1e-3 of the voxels, every
+    kernel launching.  Beside it, read and not gated, the plain step's own
+    spread: the plain versions with NOISE on conv3's sums (NOISE_SEEDS)
+    against the plain step.
+
+    In bf16 that spread is wider than the bar (bf16 InstanceNorm turns a
+    conv's last-bit differences into whole levels; on an H100: 7.5%), so
+    the plain step there takes the kernels' conv3 outputs where they are
+    a correct rounding of its own sums (:func:`conv3_rounding`; the share
+    of the rest, ``rounding_misses``, must be 0); the plain step on its own
+    roundings is read beside it (``free``), and the replay must flag the
+    planted fault ``tap_dropped`` (misses and the share above the bar)."""
+    from transfer_em_tpu_torch.infer import make_tile_step
+
+    bf16 = dtype == "bfloat16"
+    gen = seeded_generator(66, dev, use_norm=True,
+                           compute_dtype=dtype if bf16 else None)
+    tiles = _int8_tiles(smooth_volume(INT8_VOL, seed=67, dev=dev), bsz, 68)
+    step = make_tile_step(gen, MS_X, MS_Y, 2)
+    outs, misses = [], {}
+    reset_counts()
+    with conv3_rounding(outs) if bf16 else contextlib.nullcontext():
+        got = step(tiles)
+    launches = read_counts()
+    with plain_versions():
+        free = step(tiles)
+    floor = []
+    for seed in NOISE_SEEDS:
+        with plain_versions(noise=NOISE, seed=seed):
+            floor.append(_u8_diff(step(tiles), free))
+    rec = {"dtype": dtype, "batch": bsz, "frac_bar": 1e-3,
+           "noise_floor": [{"u8_max_diff": d, "u8_frac_differing": f}
+                           for d, f in floor],
+           "launches": launches, "output_std": float(got.std())}
+    want = free
+    caught = True
+    if bf16:
+        with plain_versions(), conv3_rounding(outs, True, misses):
+            want = step(tiles)
+        outs.clear()
+        rec["free"] = dict(zip(("u8_max_diff", "u8_frac_differing"),
+                               _u8_diff(got, free)))
+        rec["rounding_misses"] = misses["n"] / misses["of"]
+        bad, bad_misses = [], {}
+        with conv3_rounding(bad, fault="tap_dropped"):
+            broken = step(tiles)
+        with plain_versions(), conv3_rounding(bad, True, bad_misses):
+            fault = _u8_diff(broken, step(tiles))
+        bad.clear()
+        rec["fault_tap_dropped"] = {
+            "rounding_misses": bad_misses["n"] / bad_misses["of"],
+            "u8_max_diff": fault[0], "u8_frac_differing": fault[1]}
+        caught = bad_misses["n"] > 0 and fault[1] > 1e-3
+        rec["fault_caught"] = caught
+    diff, frac = _u8_diff(got, want)
+    rec.update(u8_max_diff=diff, u8_frac_differing=frac)
+    rec["ok"] = bool(diff <= 1 and frac <= 1e-3 and caught
+                     and misses.get("n", 0) == 0
+                     and got.shape == (bsz, 36, 36, 36)
+                     and all(launches[k] > 0 for k in counters()))
+    return rec
+
+
+def check_use_norm(dev, kernel_rel_err, dtype):
+    """``use_norm`` on the card (phases 7 and 11): a train step (wf=8,
+    B=4) through the kernels against the plain versions, GRAD_TOL in f32,
+    BF16_GRAD_TOL in bf16, and the tile step's uint8 bar."""
+    if dtype == "float32":
+        train = check_train_plain(dev, kernel_rel_err,
+                                  phase="train_check_norm", use_norm=True)
+    else:
+        train = check_train_bf16_plain(dev, phase="train_bf16_check_norm",
+                                       use_norm=True)
+    tile = check_norm_tile_step(dev, dtype)
+    rec = {"phase": f"use_norm_{dtype}", "train_check_ok": train["ok"],
+           "tile_step": tile, "ok": train["ok"] and tile["ok"]}
     emit(rec)
     return rec
 
@@ -2971,7 +3153,8 @@ def check_bf16_layers(dev, gen):
             "ok": all(r["ok"] for r in rows) and all(caught.values())}
 
 
-def check_train_bf16_plain(dev, wf=8, batch=4, phase="train_bf16_check"):
+def check_train_bf16_plain(dev, wf=8, batch=4, phase="train_bf16_check",
+                           use_norm=False):
     """One bf16 step through the kernels and one through the plain
     versions from the same state and batches (``wf``, ``batch``, dropout
     off,
@@ -2979,13 +3162,30 @@ def check_train_bf16_plain(dev, wf=8, batch=4, phase="train_bf16_check"):
     cudnn.deterministic: the 7 losses within BF16_LOSS_RTOL, each network's
     L2 gradient gap within BF16_GRAD_TOL, the noise floor and the planted
     faults read beside it; fails unless the BF16_FAULTS read above
-    BF16_GRAD_TOL in every network."""
+    BF16_GRAD_TOL in every network.
+
+    ``use_norm``: the networks with their InstanceNorm sites on.  Their
+    discriminators' outputs then follow the generators' last bits, and the
+    plain step's losses move by up to 1e-2 under BF16_NOISE (the noise
+    floor, read beside), ten times BF16_LOSS_RTOL; so the plain step takes
+    the kernels' conv3 outputs where they are a correct rounding of its own
+    sums (:func:`conv3_rounding`), the share of the rest
+    (``rounding_misses``) must be 0, and the losses and gradients are held
+    to the same bars against that step.  The plain step on its own
+    roundings is read beside it (``free``; its gradient gap gated by
+    BF16_GRAD_TOL as well), and the replay must flag the planted fault
+    ``tap_dropped`` (misses, and the losses off by more than
+    BF16_LOSS_RTOL)."""
     import copy
 
     from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.train import build_step_fn, create_state
 
-    cfg = CycleGANConfig(wf=wf, compute_dtype="bfloat16")
+    def rel(a, b):
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    cfg = CycleGANConfig(wf=wf, compute_dtype="bfloat16", use_norm=use_norm)
+    outs, misses = [], {}
     with cudnn_deterministic():
         state = create_state(cfg, seed=1, device=dev)
         redraw(state, 2)
@@ -2994,18 +3194,28 @@ def check_train_bf16_plain(dev, wf=8, batch=4, phase="train_bf16_check"):
         x, y = smooth_batches(batch, 0.3, 11, dev)
         step = build_step_fn(cfg, deterministic=True)
         reset_counts()
-        got = step(state, x, y, 0).cpu().numpy()
+        with conv3_rounding(outs) if use_norm else contextlib.nullcontext():
+            got = step(state, x, y, 0).cpu().numpy()
         launches = read_counts()
+        free_state = copy.deepcopy(fresh) if use_norm else ref_state
         with plain_versions():
-            want = step(ref_state, x, y, 0).cpu().numpy()
+            free = step(free_state, x, y, 0).cpu().numpy()
+        want = free
+        if use_norm:
+            with plain_versions(), conv3_rounding(outs, True, misses):
+                want = step(ref_state, x, y, 0).cpu().numpy()
+            outs.clear()
         grad = _grad_l2(state, ref_state)
+        grad_free = _grad_l2(state, free_state)
         del state
         floor = dict.fromkeys(TREES, 0.0)
+        floor_loss = 0.0
         for seed in NOISE_SEEDS:
             noisy = copy.deepcopy(fresh)
             with plain_versions(noise=BF16_NOISE, seed=seed):
-                step(noisy, x, y, 0)
-            for t, v in _grad_l2(noisy, ref_state).items():
+                lw = step(noisy, x, y, 0).cpu().numpy()
+            floor_loss = max(floor_loss, rel(lw, free))
+            for t, v in _grad_l2(noisy, free_state).items():
                 floor[t] = max(floor[t], v)
             del noisy
         faults = {}
@@ -3013,21 +3223,44 @@ def check_train_bf16_plain(dev, wf=8, batch=4, phase="train_bf16_check"):
             broken = copy.deepcopy(fresh)
             with planted_fault(kind):
                 step(broken, x, y, 0)
-            faults[kind] = _grad_l2(broken, ref_state)
+            faults[kind] = _grad_l2(broken, free_state)
             del broken
-    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        fwd_fault = None
+        if use_norm:
+            bad, bad_misses = [], {}
+            with conv3_rounding(bad, fault="tap_dropped"):
+                lb = step(copy.deepcopy(fresh), x, y, 0).cpu().numpy()
+            with plain_versions(), conv3_rounding(bad, True, bad_misses):
+                lp = step(copy.deepcopy(fresh), x, y, 0).cpu().numpy()
+            bad.clear()
+            fwd_fault = {"rounding_misses": bad_misses["n"] / bad_misses["of"],
+                         "loss_max_rel_err": rel(lb, lp)}
+            fwd_fault["caught"] = (bad_misses["n"] > 0 and
+                                   fwd_fault["loss_max_rel_err"]
+                                   > BF16_LOSS_RTOL)
+    loss_rel = rel(got, want)
     caught = {k: min(faults[k].values()) > BF16_GRAD_TOL
               for k in BF16_FAULTS}
-    rec = {"phase": phase, "wf": wf, "batch": batch,
+    rec = {"phase": phase, "wf": wf, "batch": batch, "use_norm": use_norm,
            "losses": got.tolist(),
            "plain_losses": want.tolist(), "loss_max_rel_err": loss_rel,
-           "loss_rtol": BF16_LOSS_RTOL, "grad_l2": grad,
+           "loss_rtol": BF16_LOSS_RTOL,
+           "noise_floor_loss_rel": floor_loss, "grad_l2": grad,
            "grad_tol": BF16_GRAD_TOL, "noise": BF16_NOISE,
            "noise_seeds": list(NOISE_SEEDS), "noise_floor_l2": floor,
            "faults": faults, "faults_caught": caught, "launches": launches}
+    if use_norm:
+        rec["free"] = {"plain_losses": free.tolist(),
+                       "loss_max_rel_err": rel(got, free),
+                       "grad_l2": grad_free}
+        rec["rounding_misses"] = misses["n"] / misses["of"]
+        rec["fault_tap_dropped"] = fwd_fault
     rec["ok"] = (loss_rel <= BF16_LOSS_RTOL
                  and all(v <= BF16_GRAD_TOL for v in grad.values())
+                 and all(v <= BF16_GRAD_TOL for v in grad_free.values())
                  and all(caught.values())
+                 and misses.get("n", 0) == 0
+                 and (fwd_fault is None or fwd_fault["caught"])
                  and launches["conv3_bf16"] == launches["conv3"] > 0
                  and launches["leaky_relu_bf16"] > 0)
     emit(rec)
@@ -3311,6 +3544,7 @@ def check_train_bf16(dev, smi):
     rec["layers"] = check_bf16_layers(dev, gen)
     emit({"phase": "bf16_layers", **rec["layers"]})
     rec["train_check"] = check_train_bf16_plain(dev)
+    rec["use_norm"] = check_use_norm(dev, None, "bfloat16")
     rec["step"] = check_train(dev, smi, cfg=cfg, phase="train_bf16_step")
     rec["remat"] = check_remat(dev)
     emit({"phase": "remat", **rec["remat"]})
@@ -3327,8 +3561,8 @@ def check_train_bf16(dev, smi):
     rec["ok"] = bool(
         all(v["ok"] for v in rec["kernels"].values())
         and rec["bwd_engines"]["ok"] and rec["layers"]["ok"]
-        and rec["train_check"]["ok"] and rec["step"]["ok"]
-        and rec["remat"]["ok"] and rec["scan_window"]["ok"]
+        and rec["train_check"]["ok"] and rec["use_norm"]["ok"]
+        and rec["step"]["ok"] and rec["remat"]["ok"] and rec["scan_window"]["ok"]
         and rec["ensemble_apps"]["ok"]
         and all(q["ok"] for q in rec["quick_start"].values())
         and all(launches[k] > 0 for k in counters())
@@ -3693,6 +3927,95 @@ def _int8_conv_checks(dev, gen):
             and all(f["cases_broken"] > 0 for f in faults.values())}
 
 
+def _int8_general_reference(x, w, kind, stride, out_dtype):
+    """The JAX package's int8 conv (as _int8_reference) at the shapes that
+    take the port's phase plan: ``"same"`` a SAME conv at ``stride``, the
+    input zero-padded by XLA's split (ceil(n / s) outputs, the odd voxel
+    after) then a VALID strided conv; ``"up"`` the TF-SAME transposed conv
+    at any k, as ``F.conv_transpose`` of the codes unpadded, cropped by
+    max(k - s, 0) split (lo = half, rounded down)."""
+    n = x.dim() - 2
+    k = w.shape[0]
+
+    def q(a, axes):
+        a = a.float()
+        s = torch.clamp(a.abs().amax(dim=axes, keepdim=True),
+                        min=1e-12) / a.new_full((), 127.0)
+        return torch.clamp(torch.round(a / s), -127, 127), s
+
+    qx, sx = q(x, tuple(range(x.dim())))
+    qk, sk = q(w, tuple(range(n + 1)))
+    xc = qx.double().permute(0, n + 1, *range(1, n + 1))
+    if kind == "up":
+        conv = F.conv_transpose3d if n == 3 else F.conv_transpose2d
+        acc = conv(xc, qk.double().permute(n, n + 1, *range(n)),
+                   stride=stride)
+        total = max(k - stride, 0)
+        lo, hi = total // 2, total - total // 2
+        acc = acc[(slice(None), slice(None)) + tuple(
+            slice(lo, acc.shape[2 + a] - hi) for a in range(n))]
+    else:
+        pads = []
+        for d in reversed(x.shape[1:-1]):
+            total = max((-(-d // stride) - 1) * stride + k - d, 0)
+            pads += [total // 2, total - total // 2]
+        conv = F.conv3d if n == 3 else F.conv2d
+        acc = conv(F.pad(xc, pads), qk.double().permute(n + 1, n, *range(n)),
+                   stride=stride)
+    acc = acc.permute(0, *range(2, n + 2), 1)
+    return (acc.float() * (sx.reshape(()) * sk.reshape(-1))).to(out_dtype)
+
+
+# the C12 int8 shapes: (kind, k, stride, side, C, O)
+INT8_C12_CASES = [("same", 3, 2, 15, 8, 8), ("same", 4, 2, 16, 8, 8),
+                  ("same", 3, 3, 16, 8, 4), ("up", 3, 2, 9, 8, 4),
+                  ("up", 2, 2, 9, 8, 4), ("up", 5, 2, 7, 8, 4),
+                  ("up", 1, 2, 9, 4, 4)]
+
+
+def _int8_c12_checks(dev, gen):
+    """conv_nd_int8 SAME at stride 2 and 3 and conv_transpose_nd_int8 at
+    k1, k2, k3, k5 stride 2 (the shapes the JAX package takes and the
+    port once refused, now the phase plan through the quantize kernel and
+    conv_int8's stride-1 VALID layout), 3D and 2D, B=4, f32 and bf16 out:
+    bit-equal to _int8_general_reference and to the plain versions on the
+    CPU, each call launching both kernels."""
+    from transfer_em_tpu_torch.ops import quant
+
+    rows = []
+    for rank in (3, 2):
+        for kind, k, s, side, c, o in INT8_C12_CASES:
+            w = torch.randn((k,) * rank + (c, o), generator=gen, device=dev)
+            x = torch.randn((4,) + (side,) * rank + (c,), generator=gen,
+                            device=dev)
+            for od in (torch.float32, torch.bfloat16):
+                reset_counts()
+                if kind == "up":
+                    got = quant.conv_transpose_nd_int8(x, w, stride=s,
+                                                       out_dtype=od)
+                    cpu = quant.conv_transpose_nd_int8(
+                        x.cpu(), w.cpu(), stride=s, out_dtype=od)
+                else:
+                    got = quant.conv_nd_int8(x, w, stride=s, padding="SAME",
+                                             out_dtype=od)
+                    cpu = quant.conv_nd_int8(x.cpu(), w.cpu(), stride=s,
+                                             padding="SAME", out_dtype=od)
+                n = read_counts()
+                want = _int8_general_reference(x, w, kind, s, od)
+                rows.append({
+                    "rank": rank, "kind": kind, "k": k, "stride": s,
+                    "shape": list(got.shape),
+                    "dtype": str(od).replace("torch.", ""),
+                    "equal_reference": bool(torch.equal(got, want)),
+                    "equal_plain_cpu": bool(torch.equal(got.cpu(), cpu)),
+                    "conv_int8": n["conv_int8"],
+                    "quantize_int8": n["quantize_int8"]})
+    ok = all(r["equal_reference"] and r["equal_plain_cpu"]
+             and r["conv_int8"] == 1 and r["quantize_int8"] == 1
+             for r in rows)
+    return {"cases": rows, "ok": ok}
+
+
 def _int8_goldens(dev):
     """The int8 generator (wf=8) with the goldens' weights, f32 and bf16,
     3D and 2D: PSNR against the frozen TF output, and the card's output
@@ -3874,6 +4197,7 @@ def check_int8(dev, smi):
     rec["quant_faults"] = _quant_fault_checks(dev, inputs)
     del inputs
     rec["convs"] = _int8_conv_checks(dev, gen)
+    rec["c12"] = _int8_c12_checks(dev, gen)
     rec["golden"] = _int8_goldens(dev)
     rec["phase_conv"] = _phase_conv_cases(dev, gen)
     vol = smooth_volume(INT8_VOL, seed=63, dev=dev)
@@ -3895,7 +4219,7 @@ def check_int8(dev, smi):
     rec["phase_s"] = time.perf_counter() - t_phase
     rec["ok"] = bool(
         all(c["ok"] for c in rec["layers"]) and rec["convs"]["ok"]
-        and rec["quant_faults"]["ok"]
+        and rec["c12"]["ok"] and rec["quant_faults"]["ok"]
         and all(g["psnr_db"] >= 40 and g["card_vs_cpu_max_abs"] <= 1e-5
                 for g in rec["golden"].values())
         and rec["phase_conv"]["ok"]
@@ -4162,7 +4486,7 @@ def check_dp(dev):
     for dropout in (False, True):
         single = copy.deepcopy(state)
         meshed = shard_state(copy.deepcopy(state), mesh)
-        one = (make_train_step(cfg, dev) if dropout
+        one = (make_train_step(cfg, device=dev) if dropout
                else build_step_fn(cfg, deterministic=True))
         dp = make_dp_train_step(cfg, mesh, deterministic=not dropout)
         torch.cuda.synchronize()
@@ -4411,10 +4735,10 @@ def parallel_worker(rank, port, outdir):
                                                 shard_state)
     from transfer_em_tpu_torch.parallel.distributed import (barrier,
                                                             initialize)
+    from transfer_em_tpu_torch.device import float32_exact
     from transfer_em_tpu_torch.train import create_state
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    float32_exact()
     torch.backends.cudnn.deterministic = True
     nproc, backend = _workers()
     dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -4626,7 +4950,7 @@ def check_scaling(dev):
         redraw(state, 2)
         x, y = smooth_batches(SCALE_TILES * k, 0.3, 13, dev)
         if k == 1:
-            step = make_train_step(cfg, dev)
+            step = make_train_step(cfg, device=dev)
         else:
             mesh = make_mesh(devices=_cards(k))
             shard_state(state, mesh)
@@ -5313,6 +5637,133 @@ def wide_kernel_fields(wide, name):
     return out
 
 
+# -- phase 17: the benches, as a user starts them ---------------------------
+
+# (name, module and arguments, the metrics its lines must carry, seconds
+# allowed); the counts as reduced as a run that still reads each section's
+# metric
+BENCH_RUNS = [
+    ("fidelity", ["fidelity", "--dtype", "f32,bf16", "--wf1"],
+     ["golden_psnr_db_min"] * 2, 240),
+    ("serve_model", ["serve", "model", "--reqs", "8", "--reps", "2"],
+     ["serve_fleet_mvox_per_sec"], 240),
+    ("serve_data", ["serve", "data", "--reqs-per-client", "8",
+                    "--workers", "0,4", "--reps", "1"],
+     ["data_fleet_req_per_sec"], 240),
+    ("serve_soak", ["serve", "soak", "--soak-data-reqs", "1000",
+                    "--soak-model-reqs", "100"],
+     ["serve_soak_data_req_per_sec", "serve_soak_model_req_per_sec"], 300),
+    ("serve_soak_churn", ["serve", "soak", "--models", "2",
+                          "--soak-model-reqs", "20"],
+     ["serve_soak_model_churn2_req_per_sec"], 240),
+    ("serve_combined", ["serve", "combined", "--batch", "4",
+                        "--epoch-size", "8", "--extent", "160",
+                        "--clients", "8", "--combined-workers", "4"],
+     ["combined_stream_train_tiles74_per_sec"], 300),
+    ("dp", ["dp", "--steps", "3"], ["dp_train_tiles_per_sec"], 240),
+    ("int8", ["int8", "--reps", "3"], ["int8_speedup_b128_wf8"], 300),
+    ("baseline_configs", ["baseline_configs", "--ladder", "4096,16384",
+                          "--steps", "5", "--epochs", "2",
+                          "--epoch-size", "16"],
+     ["inference2d_mvox_per_sec", "stream_train_tiles74_per_sec"], 300),
+]
+# the kernels each metric's section must launch: the tile step's four
+# where a section serves uint8 tiles, conv3 and LeakyReLU where it runs
+# the 3D networks on floats; fidelity runs float inputs (no uint8 edges),
+# config2 is 2D (every 2D conv on cuDNN, as JAX keeps its Pallas conv to
+# 3D: no conv3), the data sections none
+_TILE = ("conv3", "leaky_relu", "preprocess_u8", "postprocess_u8")
+BENCH_KERNELS = {
+    "golden_psnr_db_min": ("conv3", "leaky_relu"),
+    "serve_fleet_mvox_per_sec": _TILE,
+    "data_fleet_req_per_sec": (),
+    "serve_soak_data_req_per_sec": (),
+    "serve_soak_model_req_per_sec": _TILE,
+    "serve_soak_model_churn2_req_per_sec": _TILE,
+    "combined_stream_train_tiles74_per_sec": ("conv3", "leaky_relu"),
+    "dp_train_tiles_per_sec": ("conv3", "leaky_relu"),
+    "int8_speedup_b128_wf8": ("conv_int8", "quantize_int8", "preprocess_u8",
+                              "postprocess_u8"),
+    "inference2d_mvox_per_sec": ("leaky_relu", "preprocess_u8",
+                                 "postprocess_u8"),
+    "stream_train_tiles74_per_sec": ("conv3", "leaky_relu"),
+}
+
+
+def _run_bench(args, timeout):
+    """``python -m transfer_em_tpu_torch.bench.<args>`` in its own process
+    group from the repo root: (exit code, its JSON lines, stderr's tail,
+    seconds).  At the time limit the whole group is killed (a data
+    service it started included)."""
+    cmd = [sys.executable, "-m", f"transfer_em_tpu_torch.bench.{args[0]}",
+           *args[1:]]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        rc = "timeout"
+    lines = []
+    for line in out.splitlines():
+        if line.startswith("{"):
+            try:
+                lines.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass
+    return rc, lines, err[-2000:], time.perf_counter() - t0
+
+
+def _bench_gates(lines, metrics):
+    """The bench's own bars: the metrics expected, in order, PSNR >= 40 dB
+    (fidelity, int8), the soak bars, and each line's kernels
+    (BENCH_KERNELS) launched."""
+    gates = {"metrics": [r.get("metric") for r in lines] == metrics}
+    for i, rec in enumerate(lines):
+        got = rec.get("launches") or {}
+        for k in BENCH_KERNELS.get(rec.get("metric"), ()):
+            gates[f"{i}.{k}_launched"] = got.get(k, 0) > 0
+        if rec.get("metric") == "golden_psnr_db_min":
+            gates[f"{i}.psnr_ge_40"] = rec["value"] >= 40.0
+        if rec.get("bench") == "int8":
+            gates[f"{i}.psnr_ge_40"] = rec["golden_psnr_db_min"] >= 40.0
+        if "pass" in rec:
+            gates[f"{i}.bars"] = bool(rec["pass"])
+    return gates
+
+
+def check_benches(dev, smi):
+    """Each bench module of ``transfer_em_tpu_torch/bench/`` started as a
+    user starts it (``python -m``, a process of its own, after the kernels
+    are built), at the reduced counts of BENCH_RUNS: gated on its exit
+    code, its metrics, its own bars and the launches of the kernels each
+    section must reach (BENCH_KERNELS).  Each bench's JSON line is
+    printed."""
+    del dev
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, args, metrics, timeout in BENCH_RUNS:
+        rc, lines, err, secs = _run_bench(args, timeout)
+        gates = _bench_gates(lines, metrics)
+        ok = rc == 0 and all(gates.values())
+        for line in lines:
+            emit({"phase": "bench_line", "run": name, **line})
+        runs[name] = {"rc": rc, "seconds": secs, "ok": ok,
+                      "failed_gates": [g for g, v in gates.items() if not v],
+                      "launches": [line.get("launches") or {}
+                                   for line in lines],
+                      "stderr_tail": None if ok else err}
+    rec = {"phase": "benches", "card": smi, "runs": runs,
+           "phase_s": time.perf_counter() - t_phase,
+           "ok": all(r["ok"] for r in runs.values())}
+    emit(rec)
+    return rec
+
+
 def main():
     global OUT_DIR
     import argparse
@@ -5337,6 +5788,9 @@ def main():
     ap.add_argument("--wide-only", action="store_true",
                     help="build the kernels and run the wide (wf=1) phase "
                          "alone; prints its launches by path")
+    ap.add_argument("--benches-only", action="store_true",
+                    help="build the kernels and run the benches phase "
+                         "alone; prints each bench's JSON line")
     args = ap.parse_args()
     OUT_DIR = args.out
     if not torch.cuda.is_available():
@@ -5348,10 +5802,9 @@ def main():
         parallel_worker(int(rank), port, outdir)
         return
     from transfer_em_tpu_torch import kernels
-    from transfer_em_tpu_torch.device import resolve_device
+    from transfer_em_tpu_torch.device import float32_exact, resolve_device
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    float32_exact()
     dev = resolve_device("cuda")
     smi = nvidia_smi_line()
     emit({"phase": "env", "nvidia_smi": smi,
@@ -5398,6 +5851,15 @@ def main():
                        for name in counters()}})
         if not wide["ok"]:
             fail("wide", "the wide (wf=1) phase failed a check")
+        return
+    if args.benches_only:
+        benches = check_benches(dev, smi)
+        _write_log()
+        print(smi, flush=True)
+        emit({"benches": {n: r["seconds"] for n, r in
+                          benches["runs"].items()}})
+        if not benches["ok"]:
+            fail("benches", "a bench failed its run or its bars")
         return
     if args.int8_only:
         int8 = check_int8(dev, smi)
@@ -5447,10 +5909,15 @@ def main():
 
     train_check = check_train_plain(
         dev, max(conv["float32"]["rel_err"], shapes["rel_err"]))
+    norm = check_use_norm(
+        dev, max(conv["float32"]["rel_err"], shapes["rel_err"]), "float32")
     train = check_train(dev, smi)
     if not train_check["ok"]:
         fail("train_check", "the kernels' train step disagrees with the "
              "plain versions'")
+    if not norm["ok"]:
+        fail("use_norm_float32", "with use_norm the kernels' train or tile "
+             "step disagrees with the plain versions'")
     if not train["ok"]:
         fail("train", "train step check failed")
 
@@ -5481,6 +5948,10 @@ def main():
     wide = check_wide(dev, smi)
     if not wide["ok"]:
         fail("wide", "the wide (wf=1) phase failed a check")
+
+    benches = check_benches(dev, smi)
+    if not benches["ok"]:
+        fail("benches", "a bench failed its run or its bars")
 
     def entry(name, source, replaces, rec, launches, extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5622,6 +6093,11 @@ def main():
         p["wide_launches"] = sum(c[key] for c in
                                  wide["launches_by_path"].values()
                                  if c is not None)
+    for line in lines:
+        by_run = {n: sum(c.get(line["name"], 0) for c in r["launches"])
+                  for n, r in benches["runs"].items()}
+        line["benches_launches"] = sum(by_run.values())
+        line["benches_launches_by_run"] = by_run
     print(smi, flush=True)
     emit({"kernels": lines})
     _write_log()

@@ -3,7 +3,10 @@ keeps as its own copy, held to the JAX value or behaviour (one case a
 name), and an ``ast`` walk of every JAX module's public top-level names,
 which finds nothing missing from the port but the two Pallas files (their
 kernels are the port's ``csrc/``) and names a JAX module only imports; and
-the port's console scripts in setup.py."""
+the port's console scripts in setup.py; and an ``inspect.signature`` walk
+of every public function and class the two packages share, which finds no
+JAX parameter missing from the port but the JAX-only idioms of
+``EXCLUDED_PARAMS``."""
 
 import ast
 import glob
@@ -153,6 +156,95 @@ def test_public_names_walk():
         have, imported = _top_level_names(port_path)
         if want - have - imported:
             missing[rel] = sorted(want - have - imported)
+    assert not missing, missing
+
+
+# JAX parameters the port does not take, each with why no call needs it.
+EXCLUDED_PARAMS = {
+    "params": "flax keeps weights in a param tree beside the module; the "
+              "port's modules hold their parameters",
+    "gen_apply": "a flax module's apply function; the port passes the "
+                 "module itself",
+    "parent": "flax's module-tree bookkeeping (a dataclass field)",
+    "name": "flax's module-tree bookkeeping (a dataclass field)",
+    "fast_conv": "the opt-in to JAX's Pallas conv; the port's conv3 kernel "
+                 "is its default route",
+    "dropout_impl": "JAX's choice of dropout PRNG (rbg8); the port draws "
+                    "from a torch.Generator",
+    "rng": "a JAX PRNG key; the port takes integer seeds and "
+           "torch.Generators",
+    "platforms": "JAX backend selection; the port takes device=",
+}
+EXCLUDED_PREFIXES = {
+    "donate": "XLA buffer donation; eager PyTorch updates in place",
+}
+# (module, name) -> parameters excluded there only, with the reason
+EXCLUDED_AT = {
+    ("ops", None): ({"compute_dtype"}, "the ops take the dtype of their "
+                    "input (the blocks cast), as conv_nd's x.dtype does"),
+    ("train.cgan", "cyclegan_losses"): (
+        {"gen", "disc_x", "disc_y"}, "JAX passes flax modules beside a "
+        "param tree; the port passes the four networks gg, gf, dx, dy"),
+    ("models.blocks", "WEIGHT_INIT"): (
+        {"key", "out_sharding"}, "a jax.nn initializer's PRNG key and "
+        "output sharding; the port's draws from a torch.Generator"),
+    ("train.cgan", "BoundModel"): (
+        {"params_fn", "apply_fn"}, "a flax module's param getter and "
+        "apply; the port binds the nn.Module itself"),
+}
+
+
+def _jax_modules():
+    jax_root = os.path.join(REPO, "transfer_em_tpu")
+    out = []
+    for path in sorted(glob.glob(os.path.join(jax_root, "**", "*.py"),
+                                 recursive=True)):
+        rel = os.path.relpath(path, jax_root)
+        if rel in PALLAS_FILES:
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        out.append(mod[:-len(".__init__")] if mod.endswith("__init__")
+                   else mod)
+    return out
+
+
+def _excluded(mod, name, param):
+    if param in EXCLUDED_PARAMS or any(param.startswith(p)
+                                       for p in EXCLUDED_PREFIXES):
+        return True
+    for (m, n), (params, _) in EXCLUDED_AT.items():
+        if (mod == m or mod.startswith(m + ".")) and n in (None, name) \
+                and param in params:
+            return True
+    return False
+
+
+@pytest.mark.parametrize("mod", _jax_modules())
+def test_public_parameters_walk(mod):
+    """Every parameter of a JAX public function or class (defined in the
+    module, not imported) is a parameter of the port's counterpart, but
+    the excluded idioms above."""
+    import importlib
+    import inspect
+
+    jmod = importlib.import_module("transfer_em_tpu" + ("." + mod if mod
+                                                        else ""))
+    pmod = importlib.import_module("transfer_em_tpu_torch"
+                                   + ("." + mod if mod else ""))
+    defined, _ = _top_level_names(jmod.__file__)
+    missing = {}
+    for name in sorted(defined):
+        jobj, pobj = getattr(jmod, name, None), getattr(pmod, name, None)
+        if not callable(jobj) or pobj is None:
+            continue
+        try:
+            jsig, psig = inspect.signature(jobj), inspect.signature(pobj)
+        except (TypeError, ValueError):
+            continue  # a builtin or a C type: nothing to walk
+        gone = [p for p in jsig.parameters
+                if p not in psig.parameters and not _excluded(mod, name, p)]
+        if gone:
+            missing[name] = gone
     assert not missing, missing
 
 

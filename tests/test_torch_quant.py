@@ -101,7 +101,8 @@ def test_conv_nd_int8_matches_jax(ndim, dtype):
 def test_conv_transpose_nd_int8_matches_jax(ndim, dtype):
     """The TF-SAME stride-2 k4 transposed conv in int8: the port's phase
     decomposition of the codes against JAX's input-dilated conv of its
-    flipped kernel's codes, bit-equal."""
+    flipped kernel's codes, bit-equal; a k3 kernel (once refused) takes the
+    general phase plan and matches JAX too."""
     jd, td = DTYPES[dtype]
     rng = np.random.default_rng(2)
     for side, cin, cout in ((5, 6, 3), (7, 4, 8)):
@@ -114,9 +115,13 @@ def test_conv_transpose_nd_int8_matches_jax(ndim, dtype):
             torch.from_numpy(x), torch.from_numpy(w), out_dtype=td)
         assert got.shape == want.shape
         np.testing.assert_array_equal(got.float().numpy(), _np(want))
-    with pytest.raises(ValueError, match="k=4, stride=2"):
-        quant.conv_transpose_nd_int8(torch.from_numpy(x),
-                                     torch.from_numpy(w[(slice(0, 3),) * ndim]))
+    w3 = w[(slice(0, 3),) * ndim]
+    want = jquant.conv_transpose_nd_int8(jnp.asarray(x), jnp.asarray(w3),
+                                         out_dtype=jd)
+    got = quant.conv_transpose_nd_int8(torch.from_numpy(x),
+                                       torch.from_numpy(w3), out_dtype=td)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), _np(want))
 
 
 @pytest.mark.parametrize("ndim", [2, 3])

@@ -99,7 +99,7 @@ def main():
     batches = [(0.3 * torch.randn((B, 74, 74, 74, 1), generator=g, device=dev),
                 0.3 * torch.randn((B, 74, 74, 74, 1), generator=g, device=dev))
                for _ in range(4)]
-    step = make_train_step(cfg, dev)
+    step = make_train_step(cfg, device=dev)
     step_s = {False: [], True: []}
 
     def run(st, deterministic=False):

@@ -30,7 +30,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import DTYPES, card, peak_memory_gb, reset_peak_memory, sync
+from . import (DTYPES, card, float32_exact, peak_memory_gb,
+               reset_peak_memory, sync)
 from ..device import resolve_device
 from ..infer import predict_volume
 from ..infer.tiling import default_batch_size
@@ -148,6 +149,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    float32_exact()
     modes = [m for m in args.modes.split(",") if m]
     unknown = set(modes) - {"device", "slab"}
     if unknown:

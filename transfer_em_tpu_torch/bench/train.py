@@ -34,7 +34,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import DTYPES, card, peak_memory_gb, reset_peak_memory, sync
+from . import (DTYPES, card, float32_exact, peak_memory_gb,
+               reset_peak_memory, sync)
 from ..config import CycleGANConfig
 from ..device import resolve_device
 from ..models import Discriminator, UNetGenerator
@@ -255,6 +256,7 @@ def main(argv=None) -> int:
                     help="bench_wf1.py's configurations in order")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    float32_exact()
     if args.sweep:
         sweep(args.wf, args.dtype, args.steps, args.device)
         return 0

@@ -22,3 +22,12 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def float32_exact() -> None:
+    """TF32 off for cuDNN's convs and cuBLAS's products, so the port's
+    float32 path is float32 (conv3's float32 kernel keeps f32 accuracy as
+    3xTF32 either way).  The model service's ``main``, the benches and
+    ``chip_smoke.py`` set it before their first call."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

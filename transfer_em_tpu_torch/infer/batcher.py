@@ -26,7 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 
 _CLOSE = object()
-BUCKET = 8  # batches are zero-padded up to a multiple of BUCKET tiles
+BUCKET = 8  # default bucket granule and smallest bucket, as in the JAX package
 
 
 @dataclasses.dataclass
@@ -46,10 +46,12 @@ class TileBatcher:
       max_batch: device batch ceiling.
       linger_ms: after the first tile of a batch arrives, wait at most this
         long for more before dispatching.
-      Batches are zero-padded to ``round_up(k, BUCKET)`` (clamped to
-      ``max_batch``) rounded up to a multiple of ``multiple`` (the mesh's
-      data-axis size when the step splits batches over it), so pad waste
-      stays under BUCKET slots per batch and few batch shapes ever run.
+      min_bucket / bucket_granule / multiple: batches are zero-padded to
+        ``max(min_bucket, round_up(k, bucket_granule))`` (clamped to
+        ``max_batch``) rounded up to a multiple of ``multiple`` (the mesh's
+        data-axis size when the step splits batches over it), so pad waste
+        stays under ``bucket_granule`` slots per batch and few batch shapes
+        ever run (the JAX package's rule, batcher.py:61-75, 178-181).
       outdimsize / buffer / meanstd_x / meanstd_y / model / device: what the
         step bakes in, when known; ``predict_tiled`` rejects a request whose
         plan, normalization, model or device differ.
@@ -57,6 +59,7 @@ class TileBatcher:
 
     def __init__(self, step: Callable, *, insize: Optional[int] = None,
                  max_batch: int = 128, linger_ms: float = 5.0,
+                 min_bucket: int = BUCKET, bucket_granule: int = BUCKET,
                  multiple: int = 1,
                  outdimsize: Optional[int] = None,
                  buffer: Optional[int] = None,
@@ -74,6 +77,8 @@ class TileBatcher:
         self.model = model
         self.device = device
         self.max_batch = int(max_batch)
+        self._min_bucket = max(1, int(min_bucket))
+        self._granule = max(1, int(bucket_granule))
         self._multiple = max(1, int(multiple))
         self._linger = float(linger_ms) / 1000.0
         self._q: queue.Queue = queue.Queue()
@@ -137,7 +142,8 @@ class TileBatcher:
     # -- worker side -------------------------------------------------------
 
     def _bucket(self, k: int) -> int:
-        b = min(-(-k // BUCKET) * BUCKET, max(self.max_batch, k))
+        b = max(self._min_bucket, -(-k // self._granule) * self._granule)
+        b = min(max(b, k), max(self.max_batch, k))
         return -(-b // self._multiple) * self._multiple
 
     def _gather(self, first: _Item):
@@ -215,7 +221,8 @@ def make_tile_batcher(gen, meanstd_x, meanstd_y, outdimsize: int,
                       buffer: int, *, device="cuda",
                       max_batch: Optional[int] = None,
                       linger_ms: float = 5.0, mesh=None,
-                      sharding=None) -> TileBatcher:
+                      sharding=None, min_bucket: int = BUCKET,
+                      bucket_granule: int = BUCKET) -> TileBatcher:
     """Build a TileBatcher around one model's fused tile step on ``device``.
 
     Takes the (outdimsize, buffer) the model's meta.json records and applies
@@ -224,7 +231,8 @@ def make_tile_batcher(gen, meanstd_x, meanstd_y, outdimsize: int,
     ``max_batch=None``: the width-aware default (128 at wf=8).  ``mesh``:
     split every batch over the mesh's 'data' axis, one generator replica a
     device (bucket sizes round up to the axis size); ``sharding`` takes the
-    devices (``tiling.data_sharding(mesh)``) instead.
+    devices (``tiling.data_sharding(mesh)``) instead.  ``min_bucket`` /
+    ``bucket_granule``: :class:`TileBatcher`'s.
     """
     from ..device import resolve_device
     from ..shapes import tile_plan_outdimsize
@@ -241,6 +249,7 @@ def make_tile_batcher(gen, meanstd_x, meanstd_y, outdimsize: int,
     step = make_tile_step(gen, meanstd_x, meanstd_y, tpad, dev, sharding)
     return TileBatcher(step, insize=eff_out + 2 * eff_buf,
                        max_batch=max_batch, linger_ms=linger_ms,
+                       min_bucket=min_bucket, bucket_granule=bucket_granule,
                        multiple=len(sharding) if sharding is not None else 1,
                        outdimsize=eff_out, buffer=eff_buf,
                        meanstd_x=meanstd_x, meanstd_y=meanstd_y,

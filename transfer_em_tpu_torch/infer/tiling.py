@@ -40,7 +40,7 @@ from ..parallel.mesh import replicas
 from ..shapes import tile_plan_outdimsize
 
 _DEVICE_LOCK = threading.Lock()
-FETCH_THREADS = 8  # tile fetches in flight: 2 * FETCH_THREADS
+FETCH_THREADS = 8  # predict_tiled default: tile fetches in flight 2x this
 
 
 class InferenceCancelled(RuntimeError):
@@ -173,10 +173,13 @@ def scatter_tiles(out_zyx: np.ndarray, tiles_u8: np.ndarray,
     scatter_blocks(out_zyx, tiles_u8, indices, outdimsize)
 
 
-def default_batch_size(gen: nn.Module) -> int:
-    """Width-aware device batch: 128 * 32 / widest conv output, rounded
-    down to a multiple of 8, within [8, 128] (wf=8 -> 128, wf=4 -> 64,
-    wf=1 -> 16), the JAX package's rule (tiling.py:150-172).
+def default_batch_size(gen: nn.Module, ceiling: int = 128,
+                       floor: int = 8) -> int:
+    """Width-aware device batch: ``ceiling`` * 32 / widest conv output,
+    rounded down to a multiple of 8, within [``floor``, ``ceiling``] (wf=8
+    -> 128, wf=4 -> 64, wf=1 -> 16 at the defaults), the JAX package's
+    rule (tiling.py:150-174); a generator without conv kernels gets
+    ``ceiling``.
 
     128 at wf=8 holds on the H100: device mode over a 360^3 request (1000
     tiles, f32) ran 127.9-134.1 / 131.4-134.7 / 133.0-134.5 Mvox/s at
@@ -191,8 +194,8 @@ def default_batch_size(gen: nn.Module) -> int:
     widest = max((int(p.shape[-1]) for p in gen.parameters()
                   if p.dim() >= 4), default=0)
     if widest <= 0:
-        return 128
-    return max(8, min(128, (128 * 32 // widest) // 8 * 8))
+        return ceiling
+    return max(floor, min(ceiling, (ceiling * 32 // widest) // 8 * 8))
 
 
 def tile_batch(n_tiles: int, batch_size: int, multiple: int = 1) -> int:
@@ -257,6 +260,7 @@ def predict_tiled(
         mesh=None,
         sharding=None,
         fetch_input: bool = False,
+        fetch_threads: int = FETCH_THREADS,
 ):
     """Full tiled inference: fetch -> batched fused step -> stitch -> crop.
 
@@ -280,6 +284,8 @@ def predict_tiled(
         devices (``data_sharding(mesh)``) instead.  Unused with a batcher,
         which carries its own.
       fetch_input: also stitch the input voxels under each output tile.
+      fetch_threads: ``fetch_tile`` calls run on this many threads, twice
+        as many tiles in flight (the JAX package's default, 8).
     Returns:
       the zyx uint8 prediction of ``size`` (``out`` if given); with
       ``fetch_input``, the pair (input, prediction).
@@ -303,7 +309,8 @@ def predict_tiled(
         _check_batcher(batcher, plan, gen, meanstd_x, meanstd_y, dev)
         return _predict_tiled_batched(batcher, fetch_tile, plan, out=out,
                                       should_cancel=should_cancel,
-                                      fetch_input=fetch_input)
+                                      fetch_input=fetch_input,
+                                      fetch_threads=fetch_threads)
     step = make_tile_step(gen, meanstd_x, meanstd_y, plan.tpad, dev,
                           sharding)
 
@@ -314,7 +321,7 @@ def predict_tiled(
     lo, hi = plan.buffer, plan.buffer + plan.outdimsize
     fetched = _parallel_fetch(iter(plan.corners),
                               lambda c: fetch_tile(c, plan.insize),
-                              FETCH_THREADS)
+                              fetch_threads)
     batch_tiles: List[np.ndarray] = []
     batch_idx: List[Tuple[int, int, int]] = []
 
@@ -357,7 +364,8 @@ def _result(out, in_out, plan: TilePlan, user_out: bool):
 def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
                            out: Optional[np.ndarray] = None,
                            should_cancel: Optional[Callable[[], bool]]
-                           = None, fetch_input: bool = False):
+                           = None, fetch_input: bool = False,
+                           fetch_threads: int = FETCH_THREADS):
     """predict_tiled's loop when a shared TileBatcher owns the device:
     submit tiles as they are fetched, scatter as futures resolve.  In-flight
     tiles are capped at 4 batches' worth to bound host RAM."""
@@ -393,7 +401,7 @@ def _predict_tiled_batched(batcher, fetch_tile, plan: TilePlan,
 
     fetched = _parallel_fetch(iter(plan.corners),
                               lambda c: fetch_tile(c, plan.insize),
-                              FETCH_THREADS)
+                              fetch_threads)
     cap = 4 * batcher.max_batch
     for tile, idx in zip(fetched, plan.indices):
         if should_cancel is not None and should_cancel():

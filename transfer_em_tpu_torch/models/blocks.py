@@ -49,7 +49,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops.convs import conv_nd, conv_transpose_nd
+from ..ops.convs import conv_nd, conv_transpose_nd, zero_pad
 from ..ops.cuda_conv import conv3
 from ..ops.cuda_kernels import LEAKY_SLOPE, leaky_relu, slope_in
 from ..ops.quant import conv_nd_int8, conv_transpose_nd_int8
@@ -99,17 +99,22 @@ def _init_normal(shape, generator: Optional[torch.Generator]) -> nn.Parameter:
 
 
 class ConvND(nn.Module):
-    """VALID conv, channels last; kernel ((k,) * ndim, Cin, Cout); a
-    ``bias`` (zeros at init) only with ``use_bias`` (the discriminator's
-    ``out``); ``int8_conv`` runs it on the int8 kernel."""
+    """VALID (or ``padding="SAME"``) conv, channels last; kernel ((k,) *
+    ndim, Cin, Cout); a ``bias`` (zeros at init) only with ``use_bias``
+    (the discriminator's ``out``); ``int8_conv`` runs it on the int8
+    kernel."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, *, use_bias: bool = False, ndim: int = 3,
+                 stride: int = 1, *, padding: str = "VALID",
+                 use_bias: bool = False, ndim: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
                  int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if padding not in ("VALID", "SAME"):
+            raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
         self.stride = stride
+        self.padding = padding
         self.compute_dtype = compute_dtype
         self.int8_conv = int8_conv
         self.kernel = _init_normal((kernel_size,) * ndim
@@ -126,11 +131,19 @@ class ConvND(nn.Module):
     def _cast(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
+    def _conv3_input(self, x: torch.Tensor) -> torch.Tensor:
+        """x for conv3, which is VALID only: a SAME conv keeps the kernel
+        on x zero-padded by 1 a face (XLA's SAME split for k3 s1), where
+        JAX routes SAME past its Pallas conv to XLA."""
+        x = self._cast(x)
+        return zero_pad(x, 1) if self.padding == "SAME" else x
+
     def _int8(self, x: torch.Tensor, leaky_slope: Optional[float] = None
               ) -> torch.Tensor:
         """The int8 conv, dequantized into the compute dtype (float32 when
         None); ``leaky_slope`` fuses LeakyReLU into the epilogue."""
         return conv_nd_int8(x, self.kernel, stride=self.stride,
+                            padding=self.padding,
                             out_dtype=self.compute_dtype or torch.float32,
                             leaky=leaky_slope)
 
@@ -140,9 +153,10 @@ class ConvND(nn.Module):
         # conv3 takes the float32 parameter itself under a bf16 x: its
         # packed weights are cached per parameter, a per-call cast is not.
         elif self._is_conv3():
-            y = conv3(self._cast(x), self.kernel)
+            y = conv3(self._conv3_input(x), self.kernel)
         else:
-            y = conv_nd(self._cast(x), self.kernel, stride=self.stride)
+            y = conv_nd(self._cast(x), self.kernel, stride=self.stride,
+                        padding=self.padding)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -155,36 +169,40 @@ class ConvActND(ConvND):
         if self.int8_conv:
             return self._int8(x, slope_in(self.compute_dtype
                                           or torch.float32))
-        x = self._cast(x)
         if self._is_conv3():
+            x = self._conv3_input(x)
             return conv3(x, self.kernel, slope_in(x.dtype))
-        return leaky(conv_nd(x, self.kernel, stride=self.stride))
+        return leaky(conv_nd(self._cast(x), self.kernel, stride=self.stride,
+                             padding=self.padding))
 
 
 class ConvTransposeND(nn.Module):
-    """TF-exact stride-2 SAME transposed conv; kernel ((4,) * ndim, Cin,
-    Cout) in the transpose direction (TF stores (.., Cout, Cin): swap the
-    last two axes to import it).  ``int8_conv`` runs it on the int8
-    kernel, as its phase decomposition."""
+    """TF-exact stride-s SAME transposed conv (default k4 s2, the
+    generator's); kernel ((kernel_size,) * ndim, Cin, Cout) in the
+    transpose direction (TF stores (.., Cout, Cin): swap the last two axes
+    to import it).  ``int8_conv`` runs it on the int8 kernel, as its phase
+    decomposition."""
 
-    def __init__(self, in_features: int, features: int, *, ndim: int = 3,
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 4, stride: int = 2, *, ndim: int = 3,
                  compute_dtype: Optional[torch.dtype] = None,
                  int8_conv: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.stride = stride
         self.compute_dtype = compute_dtype
         self.int8_conv = int8_conv
-        self.kernel = _init_normal((4,) * ndim + (in_features, features),
-                                   generator)
+        self.kernel = _init_normal((kernel_size,) * ndim
+                                   + (in_features, features), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.int8_conv:
             return conv_transpose_nd_int8(
-                x, self.kernel, stride=2,
+                x, self.kernel, stride=self.stride,
                 out_dtype=self.compute_dtype or torch.float32)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return conv_transpose_nd(x, self.kernel, stride=2)
+        return conv_transpose_nd(x, self.kernel, stride=self.stride)
 
 
 class InstanceNorm(nn.Module):

@@ -6,10 +6,11 @@ these convs with XLA outside any Pallas kernel, so the port leaves them to
 (NHWC / NDHWC) and kernels in the JAX layout (HWIO / DHWIO), so both
 packages take the same tensors at their public functions:
 
-* ``conv_nd``: VALID (or SAME) strided conv; the kernel's (k.., Cin, Cout)
-  -> (Cout, Cin, k..) is ``permute(n + 1, n, 0, .., n - 1)`` for n spatial
-  axes.
-* ``conv_transpose_nd``: TF-SAME k4 stride-2 transposed conv (reference
+* ``conv_nd``: VALID or SAME (XLA's split, at any stride) strided conv;
+  the kernel's (k.., Cin, Cout) -> (Cout, Cin, k..) is ``permute(n + 1,
+  n, 0, .., n - 1)`` for n spatial axes.
+* ``conv_transpose_nd``: TF-SAME transposed conv at any k and s; the
+  generator's k4 stride-2 one (reference
   Keras ``Conv2DTranspose`` / ``Conv3DTranspose``, convs.py:84-132) ==
   ``F.conv_transpose{2,3}d(stride=2, padding=1)`` with the (k.., Cin, Cout)
   kernel as (Cin, Cout, k..) and NO spatial flip (the JAX version flips
@@ -64,15 +65,34 @@ def _to_channels_last(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, *range(2, n + 2), 1).contiguous()
 
 
+def same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's SAME split of one axis of extent ``n`` for a k-tap stride-s
+    conv: ceil(n / s) outputs, ``total = max((ceil(n / s) - 1) * s + k - n,
+    0)`` zeros, ``total // 2`` before and the rest after (more after when
+    ``total`` is odd)."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
 def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
             padding: str = "VALID") -> torch.Tensor:
     """(B, *S, Cin) * (*k, Cin, Cout) -> (B, *S', Cout), 2D or 3D, in x's
-    dtype (the kernel is cast to it)."""
+    dtype (the kernel is cast to it).  ``padding="SAME"`` pads as XLA does
+    (:func:`same_padding`, split unevenly where the total is odd): torch's
+    ``padding="same"`` at stride 1, at a larger stride an explicit pad and
+    a VALID conv (torch refuses "same" there)."""
     n = _spatial_rank(x, kernel)
-    pad = {"VALID": "valid", "SAME": "same"}[padding]
-    if pad == "same" and stride != 1:
-        raise ValueError("SAME padding is supported at stride 1 only")
+    if padding not in ("VALID", "SAME"):
+        raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
     w = _weight(kernel.to(x.dtype).permute(n + 1, n, *range(n)))
+    pad = "valid"
+    if padding == "SAME" and stride == 1:
+        pad = "same"
+    elif padding == "SAME":
+        pads = ()
+        for ax in reversed(range(n)):
+            pads += same_padding(x.shape[1 + ax], kernel.shape[ax], stride)
+        x = F.pad(x, (0, 0) + pads)
     y = _CONV[n](_to_channels_first(x), w, stride=stride, padding=pad)
     return _to_channels_last(y)
 
@@ -95,23 +115,35 @@ def same_transpose_padding(k: int, s: int) -> Tuple[int, int]:
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
                       stride: int = 2,
                       phase_decompose: Optional[bool] = None) -> torch.Tensor:
-    """TF-exact stride-2 SAME transposed conv, 2D or 3D: (B, *n, Cin) *
-    (4.., Cin, Cout) -> (B, *2n, Cout).  ``phase_decompose`` (default off,
-    as in the JAX package): one stride-1 k3 conv with 2^n * Cout outputs,
-    then interleaved; the same function, summed in another order."""
+    """TF-exact stride-s SAME transposed conv, 2D or 3D: (B, *n, Cin) *
+    (k.., Cin, Cout) -> (B, *n', Cout), n' = (n - 1) * s + k - max(k - s,
+    0): n * s where k >= s, (n - 1) * s + k below (k1 s2: 2n - 1), as the
+    JAX package's input-dilated conv gives.  The generator's k4 s2 is
+    ``conv_transpose`` with padding 1; any other (k, s) is ``conv_transpose``
+    unpadded, cropped by :func:`same_transpose_padding`'s split of
+    max(k - s, 0) (the low side ``p_lo``, the high side the rest).
+    ``phase_decompose`` (default off, as in the JAX package; k4 s2 only):
+    one stride-1 k3 conv with 2^n * Cout outputs, then interleaved; the
+    same function, summed in another order."""
     n = _spatial_rank(x, kernel)
+    k = kernel.shape[0]
     if phase_decompose:
-        if stride != 2 or kernel.shape[0] != 4:
+        if stride != 2 or k != 4:
             raise ValueError("phase_decompose supports stride=2, k=4 only")
         return _conv_transpose_phase(x, kernel)
-    if stride != 2 or kernel.shape[0] != 4:
-        raise ValueError("conv_transpose_nd supports k=4, stride=2 (the "
-                         "generator's up convs)")
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
     w = _weight(kernel.to(x.dtype).permute(n, n + 1, *range(n)))
-    k = kernel.shape[0]
-    pad, _ = same_transpose_padding(k, stride)  # symmetric at k=4, s=2
-    y = _CONV_T[n](_to_channels_first(x), w, stride=stride,
-                   padding=k - 1 - pad)
+    xc = _to_channels_first(x)
+    if stride == 2 and k == 4:  # the generator's up convs
+        pad, _ = same_transpose_padding(k, stride)  # symmetric: (2, 2)
+        return _to_channels_last(_CONV_T[n](xc, w, stride=stride,
+                                            padding=k - 1 - pad))
+    p_total = max(k - stride, 0)
+    lo, hi = p_total // 2, p_total - p_total // 2
+    y = _CONV_T[n](xc, w, stride=stride)  # (n - 1) * s + k an axis
+    y = y[(slice(None), slice(None))
+          + tuple(slice(lo, y.shape[2 + ax] - hi) for ax in range(n))]
     return _to_channels_last(y)
 
 
@@ -139,16 +171,18 @@ def phase_kernel(kernel: torch.Tensor) -> torch.Tensor:
     return k3
 
 
-def interleave_phases(y: torch.Tensor) -> torch.Tensor:
-    """The phase conv's (B, *S, 2^n * Cout) -> (B, *2S, Cout)."""
+def interleave_phases(y: torch.Tensor, p: int = 2) -> torch.Tensor:
+    """A phase conv's (B, *S, p^n * Cout) -> (B, *pS, Cout): output p * m
+    + r of each axis from phase r (the phases' channel blocks ordered with
+    the first axis most significant)."""
     n = y.dim() - 2
-    bsz, sp, cout = y.shape[0], tuple(y.shape[1:-1]), y.shape[-1] // 2 ** n
-    y = y.reshape((bsz,) + sp + (2,) * n + (cout,))
+    bsz, sp, cout = y.shape[0], tuple(y.shape[1:-1]), y.shape[-1] // p ** n
+    y = y.reshape((bsz,) + sp + (p,) * n + (cout,))
     perm = [0]
     for i in range(n):
         perm += [1 + i, 1 + n + i]  # (m, phase) per axis
     y = y.permute(perm + [1 + 2 * n])
-    return y.reshape((bsz,) + tuple(2 * s for s in sp) + (cout,))
+    return y.reshape((bsz,) + tuple(p * s for s in sp) + (cout,))
 
 
 def _conv_transpose_phase(x: torch.Tensor, kernel: torch.Tensor

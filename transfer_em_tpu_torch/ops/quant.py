@@ -35,7 +35,15 @@ integer sums do not depend on their order:
   those JAX quantizes from its flipped kernel (a flip moves no channel);
 * a one-channel input with kw <= 4 (the stem): codes[.., w, j] = q[.., w +
   j] and the kernel's kw taps moved into its channel axis, a conv with one
-  kw tap and 4 channels: a third of the stem's K words.
+  kw tap and 4 channels: a third of the stem's K words;
+* every other conv (SAME at a stride > 1, more than 3 taps an axis after
+  the reductions above, a transposed conv at any (k, s) but k4 s2): the
+  phases of :func:`phase_plan`, the input space-to-depth by ``Q`` (the
+  quantize kernel's layout) and the output ``P`` phases an axis, a conv of
+  at most 3 taps an axis with P^n * Cout outputs, interleaved
+  (:func:`..convs.interleave_phases`) and cropped after the kernel.  A
+  transposed conv is JAX's input-dilated conv of its flipped kernel, the
+  dilation's zeros dropped.
 
 The weights' codes, scales and the kernel's packed operand are made once
 per parameter (:func:`int8_weights`, cached on the parameter's memory, view
@@ -49,17 +57,20 @@ bit-equality across batch shapes does not carry over to int8.
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .convs import phase_kernel
+from .convs import (interleave_phases, phase_kernel, same_padding,
+                    same_transpose_padding)
 from .cuda_int8 import conv_int8, pack_int8_weights
 
 __all__ = ["quantize_sym", "conv_nd_int8", "conv_transpose_nd_int8",
            "space_to_depth", "kernel_to_depth", "Layout", "conv_layout",
+           "PhasePlan", "phase_plan", "phase_plans", "phase_layout",
            "arrange", "quantize_int8", "quantize_int8_plain",
            "quantize_int8_cuda", "int8_weights"]
 
@@ -145,6 +156,8 @@ def conv_layout(x_shape: Sequence[int], k_shape: Sequence[int], stride: int,
     ks = tuple(k_shape[:n])
     if transpose:
         return Layout((1,) * n, tuple(d + 2 for d in sp), 1, 1, _words(c))
+    if padding == "SAME" and stride != 1:
+        raise ValueError("SAME at a stride > 1 takes phase_layout")
     if stride != 1:
         kp = [-(-k // stride) * stride for k in ks]
         outs = [(d - k) // stride + 1 for d, k in zip(sp, ks)]
@@ -237,6 +250,96 @@ quantize_int8.launches = 0
 _counted = quantize_int8  # the counter, wherever the name is rebound
 
 
+# -- the phases of any other conv --------------------------------------------
+
+class PhasePlan(NamedTuple):
+    """One axis of a conv that the reductions above do not take, as a
+    stride-1 conv of at most 3 taps: the output y[o] = sum_t w_t *
+    x[(o * stride + t - lo) / dilation] over the taps t whose index is
+    whole (``dilation`` > 1: the transposed conv's input dilation, ``lo``
+    its low pad; 1: a forward conv, ``lo`` its SAME pad), w_t the kernel's
+    tap t, or tap k - 1 - t with ``flip``.  Output o = P * m + r (``P``
+    phases) reads block m + j of the input space-to-depth by ``Q``:
+    ``entries`` holds (r, t, j, offset in the block) for every tap, j from
+    0 to ``taps`` - 1; ``first`` is the first block's index (x[Q * (m +
+    first) + offset])."""
+    k: int
+    stride: int
+    dilation: int
+    lo: int
+    flip: bool
+    P: int
+    Q: int
+    taps: int
+    first: int
+    entries: Tuple[Tuple[int, int, int, int], ...]
+
+
+def phase_plan(k: int, stride: int = 1, dilation: int = 1, lo: int = 0,
+               flip: bool = False, f: int = 1) -> PhasePlan:
+    """The :class:`PhasePlan` of one axis with P = dilation * f phases and
+    input blocks of Q = stride * f."""
+    P, Q = dilation * f, stride * f
+    rows = []
+    for r in range(P):
+        for t in range(k):
+            num = r * stride + t - lo
+            if num % dilation == 0:
+                e = num // dilation
+                rows.append((r, t, e // Q, e % Q))
+    first = min(b for _, _, b, _ in rows)
+    taps = max(b for _, _, b, _ in rows) - first + 1
+    return PhasePlan(k, stride, dilation, lo, flip, P, Q, taps, first,
+                     tuple((r, t, b - first, q) for r, t, b, q in rows))
+
+
+def phase_plans(k: int, stride: int, dilation: int, los: Sequence[int],
+                flip: bool = False) -> Tuple[PhasePlan, ...]:
+    """One :func:`phase_plan` an axis (``los``: each axis's low pad), at
+    the fewest phases (f = 1, 2, ..) that leave every axis at most 3 taps
+    (f = k + 1 leaves at most 2)."""
+    for f in range(1, k + 2):
+        plans = tuple(phase_plan(k, stride, dilation, lo, flip, f)
+                      for lo in los)
+        if max(p.taps for p in plans) <= 3:
+            return plans
+    raise AssertionError(f"no phase plan for k={k}")
+
+
+def phase_layout(x_shape: Sequence[int], plans: Sequence[PhasePlan],
+                 out: Sequence[int]) -> Layout:
+    """The codes' layout for ``plans`` (one an axis) over an (B, *S, C)
+    input with ``out`` output voxels an axis: ceil(out / P) output blocks,
+    so taps - 1 more input blocks of Q, from x[Q * first] on."""
+    n = len(x_shape) - 2
+    Q = plans[0].Q
+    return Layout(tuple(-Q * p.first for p in plans),
+                  tuple(Q * (-(-o // p.P) + p.taps - 1)
+                        for p, o in zip(plans, out)),
+                  Q, 1, _words(Q ** n * x_shape[-1]))
+
+
+def _phase_kernel(qk: torch.Tensor, plans: Sequence[PhasePlan]
+                  ) -> torch.Tensor:
+    """((k,)*n, C, O) codes -> the plans' (taps_1, .., taps_n, Q^n * C,
+    P^n * O) codes: input channel (q_1, .., q_n, c), output (r_1, .., r_n,
+    o), first axis most significant.  Each tap is one weight code."""
+    c, o = qk.shape[-2], qk.shape[-1]
+    P, Q, n = plans[0].P, plans[0].Q, len(plans)
+    out = qk.new_zeros(tuple(p.taps for p in plans)
+                       + (Q ** n * c, P ** n * o))
+    for rows in itertools.product(*[p.entries for p in plans]):
+        qi = ri = 0
+        for r, _, _, q in rows:
+            qi, ri = qi * Q + q, ri * P + r
+        taps = tuple(p.k - 1 - t if p.flip else t
+                     for p, (_, t, _, _) in zip(plans, rows))
+        out[tuple(j for _, _, j, _ in rows)
+            + (slice(qi * c, (qi + 1) * c), slice(ri * o, (ri + 1) * o))] \
+            = qk[taps]
+    return out
+
+
 # -- the weights, once per parameter ------------------------------------------
 
 class Int8Weights(NamedTuple):
@@ -250,12 +353,15 @@ class Int8Weights(NamedTuple):
 
 
 def _unit_kernel(qk: torch.Tensor, sk: torch.Tensor, layout: Layout,
-                 transpose: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                 transpose: bool, plans: Optional[Tuple[PhasePlan, ...]]
+                 = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The weight codes and per-output scales of the stride-1 conv that
     ``layout``'s codes go through (module docstring)."""
     n = qk.dim() - 2
     sk = sk.reshape(-1)
-    if transpose:
+    if plans is not None:
+        qk, sk = _phase_kernel(qk, plans), sk.repeat(plans[0].P ** n)
+    elif transpose:
         qk, sk = phase_kernel(qk), sk.repeat(2 ** n)
     elif layout.stride != 1:
         s, k = layout.stride, qk.shape[0]
@@ -268,11 +374,12 @@ def _unit_kernel(qk: torch.Tensor, sk: torch.Tensor, layout: Layout,
     return F.pad(qk, (0, 0, 0, layout.channels - qk.shape[-2])), sk
 
 
-def _make_weights(kernel: torch.Tensor, layout: Layout,
-                  transpose: bool) -> Int8Weights:
+def _make_weights(kernel: torch.Tensor, layout: Layout, transpose: bool,
+                  plans: Optional[Tuple[PhasePlan, ...]] = None
+                  ) -> Int8Weights:
     n = kernel.dim() - 2
     qk, sk = quantize_sym(kernel.detach(), tuple(range(n + 1)))
-    codes, sk = _unit_kernel(qk, sk, layout, transpose)
+    codes, sk = _unit_kernel(qk, sk, layout, transpose, plans)
     codes, sk = codes.contiguous(), sk.contiguous()
     packed = (pack_int8_weights(codes) if kernel.device.type == "cuda"
               else None)
@@ -280,8 +387,11 @@ def _make_weights(kernel: torch.Tensor, layout: Layout,
 
 
 def int8_weights(kernel: torch.Tensor, layout: Layout,
-                 transpose: bool = False) -> Int8Weights:
-    """The kernel's :class:`Int8Weights` for ``layout``, made once and
+                 transpose: bool = False,
+                 plans: Optional[Tuple[PhasePlan, ...]] = None
+                 ) -> Int8Weights:
+    """The kernel's :class:`Int8Weights` for ``layout`` (and ``plans``,
+    :func:`phase_plans`, for the convs that take them), made once and
     cached on the kernel's STORAGE, keyed by its view (offset, shape,
     strides, dtype) and the layout, and stamped with its version counter,
     as ``ops/cuda_conv.packed_weights`` caches conv3's packs:
@@ -297,18 +407,18 @@ def int8_weights(kernel: torch.Tensor, layout: Layout,
     ``int8_weights.packs`` counts the makes."""
     if kernel.is_inference():
         _made.packs += 1
-        return _make_weights(kernel, layout, transpose)
+        return _make_weights(kernel, layout, transpose, plans)
     storage = kernel.untyped_storage()
     key = (kernel.storage_offset(), tuple(kernel.shape), kernel.stride(),
            kernel.dtype, layout.stride, layout.wtaps, layout.channels,
-           transpose)
+           transpose, plans)
     cache = getattr(storage, "_int8_weights", None)
     if cache is None:
         cache = storage._int8_weights = {}
     hit = cache.get(key)
     if hit is not None and hit[0] == kernel._version:
         return hit[1]
-    made = _make_weights(kernel, layout, transpose)
+    made = _make_weights(kernel, layout, transpose, plans)
     _made.packs += 1
     cache[key] = (kernel._version, made)
     return made
@@ -333,20 +443,48 @@ def _on(kernel: torch.Tensor, device: torch.device) -> torch.Tensor:
     return kernel if kernel.device == device else kernel.to(device)
 
 
+def _phase_conv(x: torch.Tensor, kernel: torch.Tensor,
+                plans: Tuple[PhasePlan, ...], out: Sequence[int],
+                out_dtype: Optional[torch.dtype],
+                leaky: Optional[float] = None) -> torch.Tensor:
+    """A conv by ``plans`` (module docstring): the codes in
+    :func:`phase_layout`, one stride-1 conv_int8 of P^n * Cout outputs,
+    interleaved and cropped to ``out``."""
+    layout = phase_layout(x.shape, plans, out)
+    w = int8_weights(_on(kernel, x.device), layout, plans=plans)
+    qx, sx = quantize_int8(x, layout)
+    y = conv_int8(qx, w.codes, sx, w.scales, out_dtype or torch.float32,
+                  leaky, packed=w.packed)
+    y = interleave_phases(y, plans[0].P)
+    return y[(slice(None),) + tuple(slice(0, d) for d in out)].contiguous()
+
+
 def conv_nd_int8(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
                  padding: str = "VALID",
                  out_dtype: Optional[torch.dtype] = None,
                  leaky: Optional[float] = None) -> torch.Tensor:
     """VALID/SAME N-D conv in int8: quantize both operands, integer conv,
     dequantize to ``out_dtype`` (default float32).  Same call shape as
-    :func:`..convs.conv_nd` and as the JAX package's ``conv_nd_int8``;
-    ``leaky`` fuses a LeakyReLU on the dequantized value (rounded to
-    ``out_dtype`` first) into the kernel's epilogue."""
+    :func:`..convs.conv_nd` and as the JAX package's ``conv_nd_int8``
+    (SAME split as XLA splits it, :func:`..convs.same_padding`); ``leaky``
+    fuses a LeakyReLU on the dequantized value (rounded to ``out_dtype``
+    first) into the kernel's epilogue."""
     _check_ranks(x, kernel)
     if padding not in ("VALID", "SAME"):
         raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
-    if padding == "SAME" and stride != 1:
-        raise ValueError("SAME padding is supported at stride 1 only")
+    k = kernel.shape[0]
+    if (padding == "SAME" and stride != 1) or -(-k // stride) > 3:
+        sp = x.shape[1:-1]
+        if padding == "SAME":
+            los = [same_padding(d, k, stride)[0] for d in sp]
+            out = [-(-d // stride) for d in sp]
+        else:
+            los, out = [0] * len(sp), [(d - k) // stride + 1 for d in sp]
+        if min(out) < 1:
+            raise ValueError(f"input {tuple(x.shape)} smaller than the "
+                             f"kernel {tuple(kernel.shape)}")
+        return _phase_conv(x, kernel, phase_plans(k, stride, 1, los), out,
+                           out_dtype, leaky)
     layout = conv_layout(x.shape, kernel.shape, stride, padding)
     w = int8_weights(_on(kernel, x.device), layout)
     qx, sx = quantize_int8(x, layout)
@@ -358,15 +496,24 @@ def conv_transpose_nd_int8(x: torch.Tensor, kernel: torch.Tensor, *,
                            stride: int = 2,
                            out_dtype: Optional[torch.dtype] = None
                            ) -> torch.Tensor:
-    """TF-exact stride-2 SAME transposed conv (k4) in int8: (B, *S, Cin) *
-    (4.., Cin, Cout) -> (B, *2S, Cout) in ``out_dtype`` (default float32).
-    The JAX package writes it as an input-dilated conv on its flipped
-    kernel's codes; here it is the phase decomposition of the same codes
-    (module docstring), interleaved by the conv's epilogue."""
-    _check_ranks(x, kernel)
-    if stride != 2 or kernel.shape[0] != 4:
-        raise ValueError("conv_transpose_nd_int8 supports k=4, stride=2 "
-                         "(the generator's up convs)")
+    """TF-exact stride-s SAME transposed conv in int8: (B, *S, Cin) *
+    (k.., Cin, Cout) -> (B, *S', Cout) in ``out_dtype`` (default float32),
+    S' as :func:`..convs.conv_transpose_nd` gives it.  The JAX package
+    writes it as an input-dilated conv on its flipped kernel's codes; the
+    generator's k4 s2 is here the phase decomposition of the same codes,
+    interleaved by the conv's epilogue, any other (k, s) the phases of
+    :func:`phase_plans` over the same dilated input (module docstring)."""
+    n = _check_ranks(x, kernel)
+    k = kernel.shape[0]
+    if stride < 1:
+        raise ValueError(f"stride must be >= 1, got {stride}")
+    if stride != 2 or k != 4:
+        out = [(d - 1) * stride + k - max(k - stride, 0)
+               for d in x.shape[1:-1]]
+        lo = same_transpose_padding(k, stride)[0]
+        return _phase_conv(x, kernel,
+                           phase_plans(k, 1, stride, [lo] * n, True), out,
+                           out_dtype)
     layout = conv_layout(x.shape, kernel.shape, 1, "VALID", transpose=True)
     w = int8_weights(_on(kernel, x.device), layout, transpose=True)
     qx, sx = quantize_int8(x, layout)

@@ -544,12 +544,10 @@ class ModelService:
 def main():  # pragma: no cover
     """Serve on $PORT (default 8080) until SIGTERM/SIGINT.  TF32 is off so
     the float32 convolutions on cuDNN stay float32."""
-    import torch
-
+    from ..device import float32_exact
     from .data_service import serve_until_signal
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    float32_exact()
     svc = ModelService(host="0.0.0.0", port=int(os.environ.get("PORT", 8080)),
                        compute_dtype=os.environ.get("COMPUTE_DTYPE") or None)
     print(f"model service on {svc.url}")

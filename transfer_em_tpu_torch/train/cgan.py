@@ -139,11 +139,7 @@ def build_models(config: CycleGANConfig, disc_prior: Optional[Callable] = None,
     its input to bf16 and hands it to the prior, a float32 generator, and
     ``lax.conv_general_dilated`` refuses a bf16 input with a float32
     kernel."""
-    if disc_prior is not None and config.compute_dtype == "bfloat16":
-        raise TypeError(
-            "compute_dtype='bfloat16' with a disc_prior: the bf16 "
-            "discriminator input meets the prior's float32 kernels (the JAX "
-            "package raises this TypeError too)")
+    _check_prior(config, disc_prior)
     k = {"wf": config.wf, "is3d": config.is3d, "use_norm": config.use_norm,
          "compute_dtype": config.compute_dtype, "generator": generator}
     gg = UNetGenerator(**k)
@@ -357,10 +353,59 @@ def _dropout_generators(device: torch.device, seed: int, step: int,
         derive_seed(*words, app)) for app in range(6)]
 
 
-def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
+def _check_prior(config: CycleGANConfig, disc_prior: Optional[Callable]
+                 ) -> None:
+    """A ``disc_prior`` must be a callable (a device or a flag in its
+    place is a positional slip), and is refused with bfloat16."""
+    if disc_prior is None:
+        return
+    if not callable(disc_prior):
+        raise TypeError(f"disc_prior must be a callable prior (a "
+                        f"create_prior_helper result) or None, got "
+                        f"{disc_prior!r}; pass the other options by keyword")
+    if config.compute_dtype == "bfloat16":
+        raise TypeError(
+            "compute_dtype='bfloat16' with a disc_prior: the bf16 "
+            "discriminator input meets the prior's float32 kernels (the JAX "
+            "package raises this TypeError too)")
+
+
+def _check_state_prior(disc_prior: Optional[Callable],
+                       state: CycleGANState) -> None:
+    """A step given ``disc_prior`` trains with that prior or not at all:
+    the state's disc_y must hold it (the same callable, or a tap of equal
+    weights, ``params``)."""
+    if disc_prior is None:
+        return
+    held = state.dy.disc_prior
+    if held is None:
+        raise ValueError("the step got a disc_prior, but the state's disc_y "
+                         "was built without one: make the state with "
+                         "create_state(..., disc_prior=...)")
+    if held is disc_prior:
+        return
+    a = getattr(held, "params", None)
+    b = getattr(disc_prior, "params", None)
+    if (a is None or b is None or a.keys() != b.keys()
+            or any(a[k].shape != b[k].shape or not torch.equal(
+                a[k], b[k].to(a[k].device)) for k in a)):
+        raise ValueError("the step's disc_prior is not the one in the "
+                         "state's disc_y: make the state with "
+                         "create_state(..., disc_prior=) of the same prior")
+
+
+def build_step_fn(config: CycleGANConfig,
+                  disc_prior: Optional[Callable] = None, *,
+                  batched_apps: bool = True,
                   deterministic: bool = False) -> Callable:
     """The train step: ``step(state, real_x, real_y, seed) -> loss7``,
     updating ``state`` in place (parameters, Adam states, ``step``).
+
+    ``disc_prior`` is the JAX signature's (``build_step_fn(config,
+    disc_prior)``): the port's prior rides in the state's disc_y
+    (``create_state(config, seed, disc_prior=...)``), so given here each
+    step checks it against the state's: a state whose disc_y holds no
+    prior, or another prior, is refused.  The options after it are keyword-only.
 
     real_x / real_y: standardized float32 batches (B, D, H, W, 1), or
     (B, H, W, 1) in 2D, of ``config.dimsize``, on the state's device.  ``config.accum_steps > 1``
@@ -370,6 +415,7 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
     the state's step count seeds the dropout masks; ``deterministic`` turns
     dropout off (tests).  ``config.remat`` and ``config.ensemble_apps``
     select those forms of :func:`cyclegan_losses`."""
+    _check_prior(config, disc_prior)
     accum = int(config.accum_steps)
     if accum < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum}")
@@ -379,6 +425,7 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
 
     def step(state: CycleGANState, real_x: torch.Tensor,
              real_y: torch.Tensor, seed: int) -> LossVector:
+        _check_state_prior(disc_prior, state)
         B = real_x.shape[0]
         if B % accum:
             raise ValueError(f"batch {B} not divisible by accum_steps {accum}")
@@ -412,12 +459,16 @@ def build_step_fn(config: CycleGANConfig, batched_apps: bool = True,
     return step
 
 
-def make_train_step(config: CycleGANConfig, device="cuda") -> Callable:
+def make_train_step(config: CycleGANConfig,
+                    disc_prior: Optional[Callable] = None, *,
+                    device="cuda") -> Callable:
     """The train step on ``device`` (default ``cuda``; raises where it is
     absent): ``step(state, real_x, real_y, seed) -> loss7``, with the
-    batches moved to the device and the state checked to be there."""
+    batches moved to the device and the state checked to be there.
+    ``disc_prior``: as :func:`build_step_fn` takes it."""
+    _check_prior(config, disc_prior)
     dev = resolve_device(device)
-    step = build_step_fn(config)
+    step = build_step_fn(config, disc_prior)
 
     def run(state: CycleGANState, real_x, real_y, seed: int) -> LossVector:
         where = next(state.gg.parameters()).device
@@ -440,21 +491,22 @@ def make_scan_train_step(config: CycleGANConfig, window: int,
     (seed, step) dropout seeds and the same updates.  The JAX package scans
     the step on the device in one dispatch; eager PyTorch has no dispatch
     to save, so this is a loop over the window with the same numbers.  The
-    prior, if any, rides in the state's disc_y, so ``disc_prior`` (the JAX
-    signature's) is not needed.  ``mesh``: each step is the data-parallel
+    prior, if any, rides in the state's disc_y; ``disc_prior`` is checked
+    as :func:`build_step_fn` checks it.  ``mesh``: each step is the data-parallel
     step over it (``parallel.make_dp_train_step``), the stacked batches
     split on their axis 1, and ``device`` is unused."""
-    del disc_prior
     window = int(window)
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if mesh is None:
-        step = make_train_step(config, device)
+        step = make_train_step(config, disc_prior, device=device)
     else:
         from ..parallel.dp import make_dp_train_step
+        _check_prior(config, disc_prior)
         step = make_dp_train_step(config, mesh)
 
     def scan(state: CycleGANState, xs, ys, seed: int) -> torch.Tensor:
+        _check_state_prior(disc_prior, state)
         if len(xs) != window or len(ys) != window:
             raise ValueError(f"stacked batches have leading dim {len(xs)}/"
                              f"{len(ys)}, expected window={window}")
@@ -553,7 +605,7 @@ class EM2EM:
         self.buffer = shapes.buffer
         self.outdimsize = shapes.out
         self.mesh = None
-        self._train_step = make_train_step(self.config, self.device)
+        self._train_step = make_train_step(self.config, device=self.device)
 
         self.checkpoint_path = os.path.abspath(
             os.path.join(checkpoint_root, f"train_{exp_name}"))
