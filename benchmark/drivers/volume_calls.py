@@ -1,0 +1,128 @@
+"""Volume traffic: repeated ``infer.predict_volume`` calls with the
+function's defaults (device mode, the width's default batch, float32), each
+handed a host uint8 volume and returning a host uint8 array, as a user with
+a volume in memory calls it.
+
+Set-up makes ``volumes`` seeded uint8 volumes of side ``volume_side``, the
+generator (``models.UNetGenerator``) with the benchmark's seeded weights,
+and the two domains' (mean, std) from the seed, then makes ``warm_calls``
+calls.  The window cycles through the volumes, one call at a time, for
+``--seconds``; ``samples`` of its calls, drawn from the seed, keep their
+outputs.  Afterwards the plain reference predicts each sampled call's
+region and the outputs are compared voxel by voxel: the share of a call's
+voxels whose level differs, the worst sampled call's (the widest gap in
+levels is reported beside it).
+
+Cell keys: ``volume_side``, ``volumes``, ``start``, ``size`` (xyz),
+``warm_calls``, ``samples``, ``limits`` (off_share).  With ``control``
+(``reference.models.fake_tf32``) the reference in TF32 takes the
+program's place in the check, and the program's own reading goes to
+``detail``.
+"""
+
+from __future__ import annotations
+
+import gc
+import math
+import time
+
+import numpy as np
+import torch
+
+from benchmark import counts, inputs
+from benchmark.reference import infer as RI
+from benchmark.reference import models as RM
+from benchmark.reference.pipeline import derive_seed
+
+
+def make_generator(ctx, dev):
+    """The system's generator with the benchmark's weights; returns it and
+    the weights."""
+    from transfer_em_tpu_torch.models import UNetGenerator
+    wf = ctx.config["wf"]
+    w = RM.make_weights([RM.generator_spec(wf)], derive_seed(ctx.seed, 3),
+                        dev)[0]
+    gen = UNetGenerator(wf=wf).to(dev).eval()
+    gen.load_state_dict(w, strict=True)
+    return gen, w
+
+
+def run(ctx, control=None):
+    from transfer_em_tpu_torch.device import float32_exact
+    from transfer_em_tpu_torch.infer import predict_volume
+
+    float32_exact()
+    c = ctx.cell
+    dev = ctx.devices[0]
+    gen, w = make_generator(ctx, dev)
+    ms_x, ms_y = inputs.meanstd(ctx.seed, 0), inputs.meanstd(ctx.seed, 1)
+    vols = [inputs.device_volume(c["volume_side"], derive_seed(ctx.seed, 1, k),
+                                 dev).cpu().numpy()
+            for k in range(c["volumes"])]
+    start, size = tuple(c["start"]), tuple(c["size"])
+
+    def call(i):
+        with ctx.span("port.predict_volume"):
+            return predict_volume(vols[i % len(vols)], gen, start, size,
+                                  ms_x, ms_y, device=dev)
+
+    for i in range(c["warm_calls"]):
+        call(i)
+
+    rng = np.random.default_rng(derive_seed(ctx.seed, 6))
+    kept = []  # (call index, output): a uniform sample of the window's calls
+    ctx.begin_window()
+    calls = 0
+    end = time.perf_counter() + ctx.seconds
+    while time.perf_counter() < end:
+        out = call(calls)
+        if len(kept) < c["samples"]:
+            kept.append((calls, out))
+        else:
+            j = int(rng.integers(0, calls + 1))
+            if j < c["samples"]:
+                kept[j] = (calls, out)
+        calls += 1
+    ctx.end_window()
+
+    del gen
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    worst_share, worst_gap = 0.0, 0
+    low_share, low_gap = 0.0, 0
+    for i, out in kept:
+        v = torch.from_numpy(vols[i % len(vols)]).to(dev)
+        with RM.exact():
+            want = RI.predict_region(v, w, start, size, ms_x, ms_y).cpu()
+        r = RI.compare_u8(out, want.numpy())
+        worst_share = max(worst_share, r["off"] / r["voxels"])
+        worst_gap = max(worst_gap, r["max_gap"])
+        if control is not None:
+            with RM.exact():
+                ctl = RI.predict_region(v, w, start, size, ms_x, ms_y,
+                                        quant=control).cpu()
+            r = RI.compare_u8(ctl.numpy(), want.numpy())
+            low_share = max(low_share, r["off"] / r["voxels"])
+            low_gap = max(low_gap, r["max_gap"])
+    detail = {"sampled_calls": [i for i, _ in kept], "max_gap": worst_gap}
+    if control is not None:  # the control in the program's place
+        detail["program"] = {"off_share": worst_share}
+        worst_share, detail["max_gap"] = low_share, low_gap
+    lim = c["limits"]
+    vox = math.prod(size)
+    od = RI.tile_plan(start, size)[0]
+    tiles = math.prod(-(-s // od) for s in size)
+    wf = ctx.config["wf"]
+    c3 = counts.conv3_work({"gen": [1]}, wf, "float32")
+    c3w = counts.conv3_work({"gen": [0]}, wf, "float32")["bytes"]
+    return {"e2e": {"volume_mvox_per_s": calls * vox / 1e6 / ctx.window_s},
+            "attempted": calls, "failed": 0,
+            "checks": [("off_share", worst_share, lim["off_share"])],
+            "detail": detail,
+            "obs": {"kind": "volume", "calls": calls,
+                    "tiles": calls * tiles, "dtype": "float32",
+                    "gen_flops_per_tile": counts.forward_flops("gen", wf),
+                    "conv3_flops_per_tile": c3["flops"],
+                    "conv3_bytes_per_tile": c3["bytes"] - c3w,
+                    "conv3_weight_bytes": c3w}}

@@ -1,0 +1,110 @@
+"""Each cell's comparison fails what it has to fail, at a size a test run
+holds: its control (the reference in the precision below the
+configuration's) and, with the timed path broken underneath, a run of the
+harness on the CPU (``harness.run`` without the look for a card)."""
+
+import pytest
+import torch
+
+from benchmark import harness
+from benchmark.reference import models as RM
+from benchmark.tests import helpers
+from benchmark.tests.helpers import card  # noqa: F401  (a fixture)
+
+
+
+def test_train_control_fails():
+    """The reference with float8 operands and gradients, in the program's
+    place, comes out not correct: the discriminators' first gradients turn
+    past their limits."""
+    line = helpers.run_control("train-wf1-bf16", RM.fake_fp8)
+    assert line["correct"] is False
+    c = line["checks"]
+    assert c["grad_cos_disc"]["value"] > c["grad_cos_disc"]["limit"]
+
+
+def test_volume_control_fails():
+    """The reference with TF32 operands, in the program's place, reads past
+    the share of voxels off."""
+    line = helpers.run_control("volume-wf8-f32", RM.fake_tf32)
+    assert line["correct"] is False
+    assert line["checks"]["off_share"]["value"] > line["checks"][
+        "off_share"]["limit"]
+
+
+def test_train_state_unchanged_is_caught(monkeypatch):
+    import transfer_em_tpu_torch.train as T
+    monkeypatch.setattr(T, "make_train_step",
+                        lambda config, device=None: (
+                            lambda state, x, y, seed: torch.zeros(7)))
+    line = helpers.run_cell("train-wf1-bf16")
+    assert line["correct"] is False
+    assert line["checks"]["change_gap"]["value"] == pytest.approx(1.0)
+
+
+def test_train_half_batch_is_caught(monkeypatch):
+    import transfer_em_tpu_torch.train as T
+    real = T.make_train_step
+
+    def half(config, device=None):
+        step = real(config, device=device)
+
+        def run(state, x, y, seed):
+            b = x.shape[0] // 2
+            return step(state, x[:b], y[:b], seed)
+        return run
+
+    monkeypatch.setattr(T, "make_train_step", half)
+    line = helpers.run_cell("train-wf1-bf16")
+    assert line["correct"] is False
+
+
+def test_volume_answer_altered_is_caught(monkeypatch):
+    import transfer_em_tpu_torch.infer.device_stitch as D
+    real = D.postprocess_to_u8
+
+    def altered(y, ms, tpad):
+        out = real(y, ms, tpad)
+        out[0] += 1  # one tile of every batch one level off
+        return out
+
+    monkeypatch.setattr(D, "postprocess_to_u8", altered)
+    line = helpers.run_cell("volume-wf8-f32")
+    assert line["correct"] is False
+
+
+def test_train_disc_backward_fault_is_caught(monkeypatch):
+    """A discriminator kernel's weight gradient off by half (a wgrad
+    fault): Adam's first update hardly feels a gradient's scale, so the
+    objective and the change pass it, and the first gradient catches it."""
+    import transfer_em_tpu_torch.train as T
+    real = T.create_state
+
+    def faulty(config, seed, **kw):
+        state = real(config, seed, **kw)
+        for net in (state.dx, state.dy):
+            p = dict(net.named_parameters())["down2.conv.kernel"]
+            p.register_hook(lambda g: g * 1.5)
+        return state
+
+    monkeypatch.setattr(T, "create_state", faulty)
+    line = helpers.run_cell("train-wf1-bf16")
+    assert line["correct"] is False
+    c = line["checks"]
+    assert c["grad_gap_disc"]["value"] > c["grad_gap_disc"]["limit"]
+    assert c["objective_gap_first"]["value"] < c["objective_gap_first"][
+        "limit"]
+
+
+def test_cells_run_on_the_card(card):
+    """Each cell once, briefly, on the card through the command itself."""
+    import json
+    import subprocess
+    import sys
+    for name in helpers.TINY:
+        res = subprocess.run(
+            [sys.executable, "benchmark/run.py", "--workload", name,
+             "--seed", str(2 ** 31 + 5), "--seconds", "3", "--trace", "0"],
+            cwd=harness.ROOT, capture_output=True, text=True, timeout=900)
+        assert res.returncode == 0, res.stderr[-2000:]
+        assert json.loads(res.stdout.strip().splitlines()[-1])["correct"]

@@ -1,0 +1,145 @@
+"""The frozen plain references against the port's plain CPU path at a
+small width (wf=32), and the benchmark's operation counts against the
+port's bench module."""
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import counts, inputs
+from benchmark.reference import infer as RI
+from benchmark.reference import models as RM
+from benchmark.reference import pipeline as RP
+from benchmark.reference import train as RT
+from benchmark.tests import helpers
+
+WF = 32
+
+
+def _ncdhw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+@pytest.mark.parametrize("gain", [1.0, RM.GAIN])  # the cells' two draws
+def test_generator_forward(gain):
+    from transfer_em_tpu_torch.models import UNetGenerator
+    w = RM.make_weights([RM.generator_spec(WF)], 3, "cpu", gain=gain)[0]
+    gen = UNetGenerator(wf=WF)
+    gen.load_state_dict(w, strict=True)
+    x = torch.randn(2, 74, 74, 74, 1, generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.no_grad():
+        want = gen(x, deterministic=False,
+                   dropout_generator=torch.Generator().manual_seed(5))
+        masks = RM.draw_masks(torch.Generator().manual_seed(5), 2, 74, WF,
+                              "cpu")
+        got = RM.generator(w, _ncdhw(x), masks)
+    torch.testing.assert_close(got, _ncdhw(want), rtol=1e-5, atol=1e-6)
+
+
+def test_discriminator_forward():
+    from transfer_em_tpu_torch.models import Discriminator
+    w = RM.make_weights([RM.discriminator_spec(WF)], 4, "cpu")[0]
+    w["out.bias"] = torch.tensor([0.25])
+    disc = Discriminator(wf=WF)
+    disc.load_state_dict(w, strict=True)
+    x = torch.randn(3, 40, 40, 40, 1, generator=torch.Generator()
+                    .manual_seed(2))
+    with torch.no_grad():
+        torch.testing.assert_close(RM.discriminator(w, _ncdhw(x)),
+                                   _ncdhw(disc(x)), rtol=1e-5, atol=1e-6)
+
+
+def test_pipeline_batches():
+    from transfer_em_tpu_torch.data.pipeline import \
+        create_dataset_from_tensors
+    vol = inputs.synth_volume(90, 3)
+    els = inputs.crops(vol, 6, 74, 4)
+    ds, ms = create_dataset_from_tensors(els, batch_size=2, randomize=True,
+                                         seed=11, device="cpu")
+    want = [b for _, b in zip(range(5), (x for _ in range(3) for x in ds))]
+    got = RP.batches([torch.from_numpy(e) for e in els], 2, 11, True, 5)
+    assert RP.meanstd([torch.from_numpy(e) for e in els]) == \
+        pytest.approx(ms, rel=1e-12)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, _ncdhw(w), rtol=0, atol=0)
+
+
+def test_train_step():
+    """Two steps of the port's train step (f32, dropout on, B=2, micro 1)
+    against the reference's."""
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    from transfer_em_tpu_torch.train import create_state, make_train_step
+    w = RM.make_weights([RM.generator_spec(WF)] * 2
+                        + [RM.discriminator_spec(WF)] * 2, 9, "cpu")
+    cfg = CycleGANConfig(wf=WF)
+    state = create_state(cfg, 0, device="cpu")
+    for k, net in zip(RT.NETS, w):
+        getattr(state, k).load_state_dict(net, strict=True)
+    step = make_train_step(cfg, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    bx = [0.5 * torch.randn(2, 74, 74, 74, 1, generator=g) for _ in range(2)]
+    by = [0.5 * torch.randn(2, 74, 74, 74, 1, generator=g) for _ in range(2)]
+    losses = [step(state, bx[0], by[0], 77)]
+    first = {k: {n: m.clone() / 0.5 for n, m in
+                 getattr(state, "opt_" + k).mu.items()} for k in RT.NETS}
+    losses.append(step(state, bx[1], by[1], 77))
+    prog = {"losses": torch.stack(losses).double().numpy(),
+            "first_grads": first,
+            "params": {k: dict(getattr(state, k).named_parameters())
+                       for k in RT.NETS}}
+    ref = RT.run_steps(w, [_ncdhw(x) for x in bx], [_ncdhw(y) for y in by],
+                       77, WF, micro=1)
+    np.testing.assert_allclose(prog["losses"], ref["losses"], rtol=1e-4)
+    gaps = RT.compare(prog, ref, w)
+    assert gaps["objective_gap_first"] < 1e-5 and gaps["grad_gap"] < 1e-3
+    # Adam's first steps move an element by the learning rate whatever its
+    # gradient's size, so f32 rounding that flips a tiny gradient's sign
+    # moves a small leaf's change by a few per cent (0.048 here)
+    assert gaps["change_gap"] < 0.1
+
+
+def test_tile_step():
+    """predict_volume's device mode (the tile step, on the CPU) against the
+    reference's tiled prediction, 1000 tiles' worth of a region cut small."""
+    from transfer_em_tpu_torch.infer import predict_volume
+    from transfer_em_tpu_torch.models import UNetGenerator
+    w = RM.make_weights([RM.generator_spec(WF)], 5, "cpu")[0]
+    gen = UNetGenerator(wf=WF).eval()
+    gen.load_state_dict(w, strict=True)
+    vol = inputs.device_volume(100, 6, "cpu")
+    ms_x, ms_y = inputs.meanstd(1, 0), inputs.meanstd(1, 1)
+    got = predict_volume(vol.numpy(), gen, (5, 10, 15), (80, 72, 76), ms_x,
+                         ms_y, device="cpu")
+    want = RI.predict_region(vol, w, (5, 10, 15), (80, 72, 76), ms_x, ms_y)
+    r = RI.compare_u8(got, want.numpy())
+    assert r["max_gap"] <= 1 and r["off"] / r["voxels"] < 1e-3
+    assert want.float().std() > 5  # the outputs span many levels
+
+
+@pytest.mark.parametrize("wf,tf_a_pair,gf_a_tile",
+                         [(1, 5.08, 277.4), (8, 0.084, 4.52)])
+def test_counts(wf, tf_a_pair, gf_a_tile):
+    from transfer_em_tpu_torch.bench.train import step_flops
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    ours = counts.train_step_flops(wf, 8)
+    assert ours["per_tile_pair"] / 1e12 == pytest.approx(tf_a_pair, rel=2e-3)
+    assert counts.forward_flops("gen", wf) / 1e9 == pytest.approx(
+        gf_a_tile, rel=2e-3)
+    port = step_flops(CycleGANConfig(wf=wf), 8)
+    for k in ("total", "forward", "backward_dw", "backward_dx"):
+        assert ours[k] == port[k]
+
+
+def test_roofline_at_most_the_work():
+    """conv3's count covers only k3 layers: under the forward's total."""
+    c3 = counts.conv3_work(counts.train_conv3_calls(8), 1, "bfloat16")
+    assert 0 < c3["flops"] < counts.train_step_flops(1, 8)["forward"]
+
+
+def test_cells_correct_on_the_cpu():
+    """Each cell's whole run at its small size: the port against the
+    reference comes out correct."""
+    for name in helpers.TINY:
+        line = helpers.run_cell(name)
+        assert line["correct"] is True, (name, line["checks"])

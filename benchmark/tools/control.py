@@ -1,0 +1,92 @@
+"""The readings that a cell's limits are set from, in one process:
+
+    python benchmark/tools/control.py --workload <cell> --seeds 1,2,3 \
+        [--seconds 3] [--control] [--fault half_batch] [--leaves]
+
+For each seed it makes one run of the cell through the harness, as
+``run.py`` does but with a short window, and prints one JSON line: the
+harness's own verdict (``correct``) and the numbers compared (``checks``).
+With ``--control`` the control takes the program's place: the reference in
+the precision below the configuration's (training, bf16: float8 e4m3
+operands and e5m2 output gradients on every conv; inference, float32: TF32
+operands), so ``correct`` has to read false; the program's own readings of
+the same run are printed under ``program``.  With ``--fault half_batch``
+(train cells) the system's step takes the first half of each batch only.
+``--leaves`` adds the train cell's per-leaf norms.  It needs the card, as
+the benchmark does."""
+
+import argparse
+import json
+import os
+import sys
+import time
+from types import SimpleNamespace
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+sys.path.insert(0, ROOT)
+
+from benchmark import harness  # noqa: E402
+
+
+def half_batch() -> None:
+    """The system's train step, given half of each batch."""
+    import transfer_em_tpu_torch.train as T
+    real = T.make_train_step
+
+    def half(config, device=None):
+        step = real(config, device=device)
+        return lambda s, x, y, seed: step(s, x[:len(x) // 2],
+                                          y[:len(y) // 2], seed)
+    T.make_train_step = half
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--seconds", type=float, default=3.0)
+    ap.add_argument("--control", action="store_true")
+    ap.add_argument("--fault", choices=("half_batch",), default=None)
+    ap.add_argument("--leaves", action="store_true")
+    args = ap.parse_args(argv)
+    harness.cache_env()
+    import gc
+
+    import torch
+
+    from benchmark.reference import models as RM
+    ctl = None
+    if args.control:
+        cell = harness.load_json("workloads", args.workload)
+        ctl = {"bfloat16": RM.fake_fp8, "float32": RM.fake_tf32}[
+            cell.get("dtype", "float32")]
+    if args.fault == "half_batch":
+        half_batch()
+    for seed in [int(s) for s in args.seeds.split(",")]:
+        t0 = time.perf_counter()
+        run = SimpleNamespace(workload=args.workload, seed=seed,
+                              seconds=args.seconds, trace=0)
+        line, out = harness.measure(run, t0, control=ctl)
+        if line is None:
+            print(f"refused: {out} loaded in this process", file=sys.stderr)
+            return 3
+        detail = dict(out.get("detail") or {})
+        rec = {"seed": seed, "seconds_total": time.perf_counter() - t0,
+               "correct": line["correct"], "metrics": line["metrics"],
+               "checks": {n: c["value"] for n, c in line["checks"].items()},
+               "program": detail.pop("program", None)}
+        leaves = {k: detail.pop(k) for k in list(detail)
+                  if k.endswith("leaves")}
+        rec["detail"] = detail
+        if args.leaves:
+            rec.update(leaves)
+        print(json.dumps(rec, default=str), flush=True)
+        del out, detail, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
