@@ -367,7 +367,8 @@ def test_model_service_disconnect_frees_slot(model_root, volume, tmp_path,
 
 def test_model_cache_eviction_keeps_lifetime_stats(tmp_path, monkeypatch):
     """capacity 1: loading a second model evicts (and closes) the first
-    one's batcher, and /stats keeps the evicted counters."""
+    one's batcher, and /stats keeps the evicted counters: sums, and the
+    larger of the longest queue waits."""
     from transfer_em_tpu_torch.serve import model_service as ms
 
     class FakeBatcher:
@@ -375,7 +376,8 @@ def test_model_cache_eviction_keeps_lifetime_stats(tmp_path, monkeypatch):
 
         def stats(self):
             return {"batches": 2, "tiles": 14, "padded": 2, "largest": 8,
-                    "errors": 0}
+                    "errors": 0, "queue_wait_s": 0.5,
+                    "queue_wait_max_s": 0.25, "linger_s": 0.125}
 
         def close(self, wait=True):
             self.closed = True
@@ -390,9 +392,12 @@ def test_model_cache_eviction_keeps_lifetime_stats(tmp_path, monkeypatch):
     lt = cache.stats()["batcher_lifetime"]
     assert lt["tiles"] == 28 and lt["padded"] == 4
     assert lt["occupancy"] == 28 / 32
+    assert lt["queue_wait_s"] == 1.0 and lt["linger_s"] == 0.25
+    assert lt["queue_wait_max_s"] == 0.25
     assert cache.get("b:v")[2] is not first  # cached: no reload
     cache.close()
     assert cache.stats() == {"model": None, "batcher_lifetime": {
         "batches": 2, "tiles": 14, "padded": 2, "errors": 0,
+        "queue_wait_s": 0.5, "queue_wait_max_s": 0.25, "linger_s": 0.125,
         "occupancy": 14 / 16}}
 

@@ -41,6 +41,7 @@ from ..device import resolve_device
 from ..ops.augment import batch_augment
 from ..ops.normalize import get_meanstd, scale_tensor, standardize_population
 from ..rng import derive_seed
+from ..telemetry import span
 
 BATCH_SIZE = 64     # reference datasets.py:10
 EPOCH_SIZE = 4096   # reference datasets.py:11
@@ -65,7 +66,9 @@ class _DevicePrefetcher:
     ``non_blocking=True``; the pinned buffer is held, with an event recorded
     after its copy, until the event has completed (the caching host
     allocator also defers reusing it until then).  On the CPU the batch is
-    wrapped without a copy."""
+    wrapped without a copy.  Its spans, ``data.gather`` (the host batch:
+    the in-memory gather, or the stream's queue) and on CUDA ``data.pin``
+    and ``data.h2d``, close before an item is handed out."""
 
     def __init__(self, it: Iterator, device: torch.device, depth: int = 2):
         self._it = it
@@ -80,20 +83,26 @@ class _DevicePrefetcher:
             return meta, t
         while self._in_flight and self._in_flight[0][0].query():
             self._in_flight.popleft()
-        pinned = t.pin_memory()
-        dev = pinned.to(self._device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with span("data.pin"):
+            pinned = t.pin_memory()
+        with span("data.h2d"):
+            dev = pinned.to(self._device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         self._in_flight.append((event, pinned))
         return meta, dev
 
+    def _pull(self, n: int) -> list:
+        """The next ``n`` host items (fewer at the end), each sent."""
+        with span("data.gather"):
+            items = list(itertools.islice(self._it, n))
+        return [self._transfer(x) for x in items]
+
     def __iter__(self):
-        buf: List = [self._transfer(x)
-                     for x in itertools.islice(self._it, self._depth)]
+        buf: List = self._pull(self._depth)
         while buf:
             nxt = buf.pop(0)
-            for x in itertools.islice(self._it, 1):
-                buf.append(self._transfer(x))
+            buf.extend(self._pull(1))
             yield nxt
 
 
@@ -113,6 +122,25 @@ class Dataset:
         """Exactly the first ``n`` batches of a new epoch (nothing is pulled
         beyond them)."""
         return list(itertools.islice(self, n))
+
+
+def _spanned(batches: Iterable, transform: Callable,
+             dev: torch.device) -> Iterator[torch.Tensor]:
+    """``transform(i, meta, batch)`` of each (meta, uint8 batch) item of
+    ``batches``, in order.  A ``data.batch`` span covers pulling an item
+    (``data.gather``, ``data.pin``, ``data.h2d``) and its ``data.transform``
+    and closes before the batch is handed out, so no span covers the
+    consumer's work."""
+    it = iter(batches)
+    for bi in itertools.count():
+        with span("data.batch"):
+            item = next(it, None)
+            if item is not None:
+                with span("data.transform", dev):
+                    x = transform(bi, *item)
+        if item is None:
+            return
+        yield x
 
 
 def _device_transform(custom_map, global_adjust, meanstd,
@@ -204,13 +232,12 @@ def create_dataset_from_tensors(
                 idx = order[s:s + batch_size]
                 yield idx, stacked[idx]
 
-        def device_batches():
-            for bi, (idx, hb) in enumerate(
-                    _DevicePrefetcher(host_batches(), dev)):
-                keys = [element_keys[i] for i in idx]
-                yield tx(hb, keys, derive_seed(seed, _EPOCHS, e, 1000 + bi))
+        def transform(bi, idx, hb):
+            keys = [element_keys[i] for i in idx]
+            return tx(hb, keys, derive_seed(seed, _EPOCHS, e, 1000 + bi))
 
-        return device_batches()
+        return _spanned(_DevicePrefetcher(host_batches(), dev), transform,
+                        dev)
 
     return Dataset(epoch), meanstd
 
@@ -280,14 +307,13 @@ def create_dataset_from_generator(
                     batch = []
             # drop remainder
 
-        def device_batches():
-            for bi, (_, hb) in enumerate(
-                    _DevicePrefetcher(host_batches(), dev)):
-                k = (seed, _EPOCHS, e, 1000 + bi)
-                keys = [derive_seed(*k, 1, j) for j in range(hb.shape[0])]
-                yield tx(hb, keys, derive_seed(*k, 2))
+        def transform(bi, _, hb):
+            k = (seed, _EPOCHS, e, 1000 + bi)
+            keys = [derive_seed(*k, 1, j) for j in range(hb.shape[0])]
+            return tx(hb, keys, derive_seed(*k, 2))
 
-        return device_batches()
+        return _spanned(_DevicePrefetcher(host_batches(), dev), transform,
+                        dev)
 
     return Dataset(epoch), meanstd
 

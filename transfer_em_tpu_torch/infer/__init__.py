@@ -8,6 +8,7 @@ import torch
 
 from ..device import resolve_device
 from ..native import gather_blocks
+from ..telemetry import span
 from .batcher import TileBatcher, make_tile_batcher
 from .device_stitch import device_predict_tiled
 from .export import (export_generator, load_generator,
@@ -58,6 +59,7 @@ def _host_volume(vol_zyx) -> np.ndarray:
     return np.ascontiguousarray(vol_zyx, np.uint8)
 
 
+@span("volume.call")
 def predict_volume(vol_zyx, gen: torch.nn.Module, start, size,
                    meanstd_x, meanstd_y, *, outdimsize=40, buffer=17,
                    mode="device", batch_size: Optional[int] = None,
@@ -99,6 +101,10 @@ def predict_volume(vol_zyx, gen: torch.nn.Module, start, size,
     ``parallel.halo_predict``).  ``batch_size=None``: width-aware
     (``infer.tiling.default_batch_size``).  ``device``: "cuda" (default)
     or "cpu"; CUDA absent raises.
+
+    Each call is a ``volume.call`` span (``telemetry``); device mode times
+    its parts under it: ``volume.upload``, ``volume.prepare``,
+    ``volume.tiles``, ``volume.wait`` and ``volume.download``.
     """
     dev = resolve_device(device)
     if batch_size is None:

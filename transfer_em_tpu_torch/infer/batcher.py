@@ -25,6 +25,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from ..telemetry import current, span
+
 _CLOSE = object()
 BUCKET = 8  # default bucket granule and smallest bucket, as in the JAX package
 
@@ -33,6 +35,8 @@ BUCKET = 8  # default bucket granule and smallest bucket, as in the JAX package
 class _Item:
     tile: np.ndarray
     future: cf.Future
+    submitted: float  # time.monotonic() at submit
+    request: Optional[int]  # the submitting request's id, if recorded
 
 
 class TileBatcher:
@@ -85,7 +89,8 @@ class TileBatcher:
         self._lock = threading.Lock()
         self._closed = False
         self._stats = {"batches": 0, "tiles": 0, "padded": 0, "largest": 0,
-                       "errors": 0}
+                       "errors": 0, "queue_wait_s": 0.0,
+                       "queue_wait_max_s": 0.0, "linger_s": 0.0}
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="TileBatcher")
         self._thread.start()
@@ -103,12 +108,15 @@ class TileBatcher:
                 f"{(self.insize,) * 3} — this batcher was built for a "
                 "different tile plan (outdimsize/buffer)")
         fut: cf.Future = cf.Future()
+        rec = current()
+        item = _Item(tile, fut, time.monotonic(),
+                     rec["request"] if rec is not None else None)
         # The closed-check and the put share close()'s lock, so no tile can
         # land behind the sentinel (a tile behind a dead worker would hang).
         with self._lock:
             if self._closed:
                 raise RuntimeError("TileBatcher is closed")
-            self._q.put(_Item(tile, fut))
+            self._q.put(item)
         return fut
 
     def run_direct(self, tile_u8: np.ndarray) -> np.ndarray:
@@ -121,7 +129,10 @@ class TileBatcher:
 
     def stats(self) -> dict:
         """Counters: batches run, tiles served, zero-pad slots, largest
-        batch, and occupancy = tiles / (tiles + padded)."""
+        batch, errors, occupancy = tiles / (tiles + padded), and seconds:
+        ``queue_wait_s`` (each tile's wait from submit until its batch is
+        dispatched, summed), ``queue_wait_max_s`` (the longest) and
+        ``linger_s`` (the worker's waits for a batch to fill, summed)."""
         with self._lock:
             s = dict(self._stats)
         total = s["tiles"] + s["padded"]
@@ -178,12 +189,20 @@ class TileBatcher:
             if not grp:
                 continue
             k = len(grp)
+            now = time.monotonic()
+            waits = [now - it.submitted for it in grp]
+            with self._lock:
+                self._stats["queue_wait_s"] += sum(waits)
+                self._stats["queue_wait_max_s"] = max(
+                    self._stats["queue_wait_max_s"], max(waits))
             try:
                 bucket = self._bucket(k)
                 arr = np.zeros((bucket,) + shape, np.uint8)
                 for i, item in enumerate(grp):
                     arr[i] = item.tile
-                pred = np.asarray(self._step(arr))
+                with span("batcher.step", self.device,
+                          request=grp[0].request):
+                    pred = np.asarray(self._step(arr))
             except BaseException as e:  # noqa: BLE001 — must not hang callers
                 for item in grp:
                     item.future.set_exception(e)
@@ -203,7 +222,11 @@ class TileBatcher:
             item = self._q.get()
             if item is _CLOSE:
                 return
-            batch = self._gather(item)
+            t0 = time.monotonic()
+            with span("batcher.linger", request=item.request):
+                batch = self._gather(item)
+            with self._lock:
+                self._stats["linger_s"] += time.monotonic() - t0
             try:
                 self._run(batch)
             except BaseException as e:  # noqa: BLE001 — worker must survive

@@ -42,6 +42,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
 from ..parallel.mesh import replicas
+from ..telemetry import span
 from .tiling import (_DEVICE_LOCK, TilePlan, check_3d_generator,
                      check_generator, data_sharding, meanstd_tuple,
                      plan_tiles, tile_batch)
@@ -56,9 +57,18 @@ def volume_on(vol_zyx, dev: torch.device) -> torch.Tensor:
 
 
 def to_result(out: torch.Tensor, as_numpy: bool):
-    """The exact-size result: a numpy array, or the tensor on its device."""
+    """The exact-size result: a numpy array, or the tensor on its device.
+    The copy to the host waits for the card first (``volume.wait``), so
+    ``volume.download`` times the copy itself: the D2H, page faults and
+    ``.numpy()``."""
     out = out.contiguous()
-    return out.cpu().numpy() if as_numpy else out
+    if not as_numpy:
+        return out
+    with span("volume.wait"):
+        if out.is_cuda:
+            torch.cuda.current_stream(out.device).synchronize()
+    with span("volume.download"):
+        return out.cpu().numpy()
 
 
 def device_predict_tiled(
@@ -109,13 +119,38 @@ def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
     the batches out over these (contiguous runs of equal length, the last
     padded by repeats of the last tile), each on its replica of ``gen``;
     every batch's result is stitched into the one output on ``dev``."""
-    s, od = plan.insize, plan.outdimsize
     sx, sy, sz = plan.size
-    T = plan.num_tiles
-    if T == 0:  # zero-extent request
+    if plan.num_tiles == 0:  # zero-extent request
         return torch.zeros((sz, sy, sx), dtype=torch.uint8, device=dev)
 
-    vol = volume_on(vol_zyx, dev)
+    with span("volume.upload"):
+        vol = volume_on(vol_zyx, dev)
+    with span("volume.prepare"):
+        shards, cells, out, out_tiles, per = _prepare(
+            vol, gen, plan, batch, prepadded, dev, devices)
+    ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
+    with _DEVICE_LOCK, torch.inference_mode(), span("volume.tiles", dev):
+        # step k of every device before step k + 1 of any, so the devices
+        # run together; device j takes batches [j per, (j + 1) per) and
+        # its results land in the one output on dev
+        for k in range(per):
+            for j, (g, (gz, gy, gx), windows) in enumerate(shards):
+                i = (j * per + k) * batch
+                y = g(preprocess_u8(windows[gz[i:i + batch], gy[i:i + batch],
+                                            gx[i:i + batch]], ms_x))
+                out_tiles[cells[0][i:i + batch], cells[1][i:i + batch],
+                          cells[2][i:i + batch]] = postprocess_to_u8(
+                              y, ms_y, plan.tpad).to(dev)
+    return out[:sz, :sy, :sx]
+
+
+def _prepare(vol, gen, plan: TilePlan, batch: int, prepadded: bool,
+             dev: torch.device, devices):
+    """The padding, the tiles' grid cells, the output and the unfolded
+    input windows of every device (``stitch_plan``); the batches a device
+    runs."""
+    s, od = plan.insize, plan.outdimsize
+    T = plan.num_tiles
     corners = np.asarray(plan.corners, np.int64)[:, ::-1]  # (T, 3) zyx
     if prepadded:
         pad = 0
@@ -158,18 +193,4 @@ def stitch_plan(vol_zyx, gen: nn.Module, plan: TilePlan, batch: int,
             g, tuple(c.to(d) for c in cells),
             vol.to(d)[first[0]:, first[1]:, first[2]:]
             .unfold(0, s, od).unfold(1, s, od).unfold(2, s, od)))
-
-    ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
-    with _DEVICE_LOCK, torch.inference_mode():
-        # step k of every device before step k + 1 of any, so the devices
-        # run together; device j takes batches [j per, (j + 1) per) and
-        # its results land in the one output on dev
-        for k in range(per):
-            for j, (g, (gz, gy, gx), windows) in enumerate(shards):
-                i = (j * per + k) * batch
-                y = g(preprocess_u8(windows[gz[i:i + batch], gy[i:i + batch],
-                                            gx[i:i + batch]], ms_x))
-                out_tiles[cells[0][i:i + batch], cells[1][i:i + batch],
-                          cells[2][i:i + batch]] = postprocess_to_u8(
-                              y, ms_y, plan.tpad).to(dev)
-    return out[:sz, :sy, :sx]
+    return shards, cells, out, out_tiles, per

@@ -38,6 +38,7 @@ from ..native import scatter_blocks
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
 from ..parallel.mesh import replicas
 from ..shapes import tile_plan_outdimsize
+from ..telemetry import span
 
 _DEVICE_LOCK = threading.Lock()
 FETCH_THREADS = 8  # predict_tiled default: tile fetches in flight 2x this
@@ -141,7 +142,9 @@ def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
     (B, s, s) -> (B, o, o), as the JAX package's step takes either rank.
     ``o`` is the generator's output side less ``2 * tpad``.  ``sharding``:
     devices (``data_sharding(mesh)``) to split every batch over, in equal
-    parts, each on a replica of ``gen``; B must divide by their count."""
+    parts, each on a replica of ``gen``; B must divide by their count.
+    A step's spans (``telemetry``): ``tile_step.h2d`` and
+    ``tile_step.forward`` for each part, then ``tile_step.d2h``."""
     dev = resolve_device(device)
     check_generator(gen, dev)
     ms_x, ms_y = meanstd_tuple(meanstd_x), meanstd_tuple(meanstd_y)
@@ -157,11 +160,16 @@ def make_tile_step(gen: nn.Module, meanstd_x, meanstd_y, tpad: int,
         with _DEVICE_LOCK, torch.inference_mode():
             # every part is launched before any is read back, so the
             # devices run together
-            outs = [postprocess_to_u8(g(preprocess_u8(
-                        torch.from_numpy(part).to(d), ms_x)), ms_y, tpad)
-                    for d, g, part in zip(devices, gens,
-                                          np.split(arr, len(devices)))]
-            return np.concatenate([o.cpu().numpy() for o in outs])
+            outs = []
+            for d, g, part in zip(devices, gens,
+                                  np.split(arr, len(devices))):
+                with span("tile_step.h2d"):
+                    x = torch.from_numpy(part).to(d)
+                with span("tile_step.forward", d):
+                    outs.append(postprocess_to_u8(g(preprocess_u8(x, ms_x)),
+                                                  ms_y, tpad))
+            with span("tile_step.d2h"):
+                return np.concatenate([o.cpu().numpy() for o in outs])
 
     return step
 

@@ -44,6 +44,7 @@ import torch
 from ..config import CycleGANConfig
 from ..models.blocks import RowDraw
 from ..shapes import generator_shapes
+from ..telemetry import span
 from ..train.cgan import _dropout_generators, cyclegan_losses
 from ..train.state import CycleGANState, make_optimizer
 from .distributed import all_reduce_sum, broadcast0
@@ -154,6 +155,7 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
     def sharded(x) -> ShardedTensor:
         return x if isinstance(x, ShardedTensor) else batch_sharding(mesh, x)
 
+    @span("train.step")
     def step(state: CycleGANState, real_x, real_y, seed: int) -> torch.Tensor:
         where = next(state.gg.parameters()).device
         if where != dev0:
@@ -179,7 +181,7 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
         for net, c in zip(_nets(state), copies):
             for m in [net] + c:
                 m.zero_grad(set_to_none=True)
-        loss = torch.zeros(7, device=dev0)
+        parts = []  # each position's weighted losses, on its device
         for sx, sy, nets in zip(xs.addressable_shards, ys.addressable_shards,
                                 nets_by_shard):
             lo, hi = sx.index[0].start, sx.index[0].stop
@@ -199,8 +201,13 @@ def make_dp_train_step(config: CycleGANConfig, mesh: Mesh,
                     deterministic=deterministic, remat=config.remat)
                 w = (b - a) / B
                 (combined * w).backward()
-                loss += (lv * w).to(dev0)
-        with torch.no_grad():
+                parts.append(lv * w)
+        # the exchange: the positions' losses and gradients summed on dev0,
+        # then across processes
+        with span("dp.exchange", dev0), torch.no_grad():
+            loss = torch.zeros(7, device=dev0)
+            for part in parts:
+                loss += part.to(dev0)
             for net, c in zip(_nets(state), copies):
                 params = list(net.parameters())
                 grads = []

@@ -37,10 +37,13 @@ from ..device import resolve_device
 from ..infer.export import load_generator
 from ..infer.tiling import (InferenceCancelled, check_3d_generator,
                             data_sharding, predict_tiled)
+from ..telemetry import current, span, totals
 from .backends import open_volume
 
 BLOCK = 64
 _NAME_RE = re.compile(r"[A-Za-z0-9._-]+")
+# the layers whose span totals GET /stats reports under "stages"
+STAGES = ("serve.", "batcher.", "tile_step.")
 
 
 def _sock_eof(sock) -> bool:
@@ -161,6 +164,14 @@ def _validate_model_name(model_name: str):
     return parts
 
 
+def _add_batcher_stats(total: dict, stats: dict) -> None:
+    """Add a batcher's counters and seconds to ``total``; of the longest
+    queue waits keep the larger."""
+    for k in total:
+        v = stats.get(k, 0)
+        total[k] = max(total[k], v) if k.endswith("_max_s") else total[k] + v
+
+
 class ModelCache:
     """LRU model cache keyed by model_name ("name:version" ->
     <root>/name/version/).  ``capacity`` 1 keeps the reference's single
@@ -193,7 +204,9 @@ class ModelCache:
         self._closed = False
         # Counters of evicted models' batchers, so /stats keeps the
         # service's history under eviction churn.
-        self._retired = {"batches": 0, "tiles": 0, "padded": 0, "errors": 0}
+        self._retired = {"batches": 0, "tiles": 0, "padded": 0, "errors": 0,
+                         "queue_wait_s": 0.0, "queue_wait_max_s": 0.0,
+                         "linger_s": 0.0}
 
     def _download_gcs_model(self, parts) -> str:
         """Stage ``<root-prefix>/<name>/<version>/`` from GCS into a fresh
@@ -299,8 +312,7 @@ class ModelCache:
             # degrades to run_direct (infer/tiling.py).
             ev_stats = evicted.stats()
             with self._lock:
-                for k in self._retired:
-                    self._retired[k] += ev_stats.get(k, 0)
+                _add_batcher_stats(self._retired, ev_stats)
             evicted.close(wait=False)
         if evicted_dir is not None:
             # The weights live on the device; the staged files are dead.
@@ -333,8 +345,7 @@ class ModelCache:
             s["batcher"] = batcher.stats()
         if any(retired.values()):
             total = dict(retired)
-            for k in total:
-                total[k] += s.get("batcher", {}).get(k, 0)
+            _add_batcher_stats(total, s.get("batcher", {}))
             tiles, padded = total["tiles"], total["padded"]
             total["occupancy"] = (tiles / (tiles + padded)
                                   if tiles + padded else 1.0)
@@ -382,6 +393,8 @@ def make_handler(cache: ModelCache, mesh=None,
                 s = cache.stats()
                 if limiter is not None:
                     s["requests"] = limiter.stats()
+                s["stages"] = {k: v for k, v in totals()["spans"].items()
+                               if k.startswith(STAGES)}
                 self._send(200, json.dumps(s).encode(), "application/json")
             elif self.path.rstrip("/") == "/healthz":
                 self._send(200, b"ok")
@@ -392,18 +405,20 @@ def make_handler(cache: ModelCache, mesh=None,
             if self.path.rstrip("/") not in ("", "/"):
                 self._send(404, b"unknown path")
                 return
-            # Read the body before any response, then admit.
-            length = int(self.headers.get("Content-Length", 0))
-            raw = self.rfile.read(length)
-            if limiter is not None and not limiter.try_acquire():
-                self._send(503, b"too many concurrent requests",
-                           headers=[("Retry-After", "2")])
-                return
-            try:
-                self._predict(raw)
-            finally:
-                if limiter is not None:
-                    limiter.release()
+            with span("serve.request"):
+                # Read the body before any response, then admit.
+                length = int(self.headers.get("Content-Length", 0))
+                with span("serve.read_body"):
+                    raw = self.rfile.read(length)
+                if limiter is not None and not limiter.try_acquire():
+                    self._send(503, b"too many concurrent requests",
+                               headers=[("Retry-After", "2")])
+                    return
+                try:
+                    self._predict(raw)
+                finally:
+                    if limiter is not None:
+                        limiter.release()
 
         def _predict(self, raw: bytes):
             deadline = (time.monotonic() + request_timeout_s
@@ -434,20 +449,25 @@ def make_handler(cache: ModelCache, mesh=None,
                         raise RuntimeError("size must be 64 block aligned")
 
                 gen, meta, batcher = cache.get(config["model_name"])
-                vol = open_volume(location)
+                request = current()  # the fetch threads' parent span
+                with span("serve.read_volume"):
+                    vol = open_volume(location)
 
                 def fetch_tile(corner, insize):
-                    return vol.read(corner, (insize,) * 3)  # zyx
+                    with span("serve.read_volume", parent=request):
+                        return vol.read(corner, (insize,) * 3)  # zyx
 
-                out_zyx = predict_tiled(
-                    fetch_tile, gen, start, size, meta.outdimsize,
-                    meta.buffer, meta.meanstd_x, meta.meanstd_y,
-                    batcher=batcher, should_cancel=should_cancel,
-                    device=cache.device,
-                    mesh=None if batcher is not None else mesh)
+                with span("serve.tiles"):
+                    out_zyx = predict_tiled(
+                        fetch_tile, gen, start, size, meta.outdimsize,
+                        meta.buffer, meta.meanstd_x, meta.meanstd_y,
+                        batcher=batcher, should_cancel=should_cancel,
+                        device=cache.device,
+                        mesh=None if batcher is not None else mesh)
                 offset = [start[d] - glbstart[d] for d in range(3)]
-                write_ng_blocks(out_zyx, config["dest"], offset)
-                self._send(200, b"success")
+                with span("serve.write"):
+                    write_ng_blocks(out_zyx, config["dest"], offset)
+                    self._send(200, b"success")
             except InferenceCancelled:
                 if cancel_reason[0] == "timeout":
                     try:
@@ -477,7 +497,13 @@ class ModelService:
     ``cache_size`` (env MODEL_CACHE_SIZE, default 1), ``max_inflight``
     (env MAX_INFLIGHT, default 8, 0 disables; excess requests get 503) and
     ``request_timeout_s`` (env REQUEST_TIMEOUT_S, default 600, 0 disables;
-    past it the client gets 504) as in the JAX service.  ``mesh``: a
+    past it the client gets 504) as in the JAX service.  GET /stats also
+    reports the batcher's queue wait and linger (``TileBatcher.stats``) and
+    under ``stages`` the span totals (``telemetry.totals``) of the
+    handler's ``serve.request`` > ``serve.read_body``,
+    ``serve.read_volume``, ``serve.tiles``, ``serve.write``, the batcher's
+    ``batcher.linger`` and ``batcher.step`` and the tile step's
+    ``tile_step.*``: count and seconds each, for the process.  ``mesh``: a
     ``parallel.make_mesh`` mesh with a 'data' axis; every request's tile
     batches are split over its devices, one generator replica each (the
     multi-card path for sources streamed from storage); a mesh without a

@@ -64,6 +64,7 @@ from ..ops import losses as L
 from ..ops.convs import center_crop, zero_pad
 from ..rng import derive_seed
 from ..shapes import generator_shapes, is_valid_dimsize
+from ..telemetry import span
 from .checkpoints import (CheckpointManager, load_into, read_checkpoint,
                           snapshot)
 from .state import CycleGANState, make_optimizer
@@ -423,6 +424,7 @@ def build_step_fn(config: CycleGANConfig,
     gamma = config.focal_gamma
     opt = make_optimizer(config.learning_rate, config.adam_beta1)
 
+    @span("train.step")
     def step(state: CycleGANState, real_x: torch.Tensor,
              real_y: torch.Tensor, seed: int) -> LossVector:
         _check_state_prior(disc_prior, state)
@@ -434,25 +436,30 @@ def build_step_fn(config: CycleGANConfig,
             net.zero_grad(set_to_none=True)
         micro = B // accum
         loss_sum = None
+        dev = real_x.device
         for i in range(accum):
             gens = None if deterministic else _dropout_generators(
-                real_x.device, seed, state.step, i if accum > 1 else None)
+                dev, seed, state.step, i if accum > 1 else None)
             part = slice(i * micro, (i + 1) * micro)
-            combined, lv = cyclegan_losses(
-                *nets, buffer, gamma, real_x[part], real_y[part], gens,
-                batched_apps=batched_apps, ensemble_apps=config.ensemble_apps,
-                deterministic=deterministic, remat=config.remat)
-            combined.backward()
+            with span("train.forward", dev):
+                combined, lv = cyclegan_losses(
+                    *nets, buffer, gamma, real_x[part], real_y[part], gens,
+                    batched_apps=batched_apps,
+                    ensemble_apps=config.ensemble_apps,
+                    deterministic=deterministic, remat=config.remat)
+            with span("train.backward", dev):
+                combined.backward()
             loss_sum = lv if loss_sum is None else loss_sum + lv
-        if accum > 1:
-            for net in nets:
-                for p in net.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(accum)
-            loss_sum = loss_sum / accum
-        for net, o in zip(nets, (state.opt_gg, state.opt_gf, state.opt_dx,
-                                 state.opt_dy)):
-            opt.update_module(net, o)
+        with span("train.adam", dev):
+            if accum > 1:
+                for net in nets:
+                    for p in net.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(accum)
+                loss_sum = loss_sum / accum
+            for net, o in zip(nets, (state.opt_gg, state.opt_gf,
+                                     state.opt_dx, state.opt_dy)):
+                opt.update_module(net, o)
         state.step += 1
         return loss_sum
 
@@ -729,12 +736,14 @@ class EM2EM:
         a ``sample`` the sample is predicted, scored against ``sample_gt``
         and written as ``<exp_name>_sample.png``.  ``metrics_log``: a JSONL
         path for per-epoch losses and timing; ``profile_dir``: a
-        torch.profiler trace of the run.  ``enable_eager`` is accepted and
-        changes nothing: the port runs eagerly anyway.  ``scan_window``: the
-        JAX package runs that many steps per device dispatch
-        (:func:`make_scan_train_step`); eager PyTorch has no dispatch to
-        save, so every batch runs as a single step, which gives the numbers
-        of a scan window."""
+        torch.profiler trace of the run, with the port's spans
+        (``telemetry``): ``train.data_wait`` around each wait for a batch
+        pair, ``train.step`` and the layers under it.  ``enable_eager`` is
+        accepted and changes nothing: the port runs eagerly anyway.
+        ``scan_window``: the JAX package runs that many steps per device
+        dispatch (:func:`make_scan_train_step`); eager PyTorch has no
+        dispatch to save, so every batch runs as a single step, which gives
+        the numbers of a scan window."""
         from .metrics import MetricsLogger, profile_trace
 
         del enable_eager
@@ -753,8 +762,13 @@ class EM2EM:
                         except ImportError:
                             pass
                     loss_acc, count = None, 0
-                    for data_f, data_g in zip(train_input, train_target):
-                        lv = self.train_step(data_f, data_g)
+                    pairs = zip(train_input, train_target)
+                    while True:
+                        with span("train.data_wait"):
+                            pair = next(pairs, None)
+                        if pair is None:
+                            break
+                        lv = self.train_step(*pair)
                         loss_acc = lv if loss_acc is None else loss_acc + lv
                         count += 1
                         if pbar is not None:

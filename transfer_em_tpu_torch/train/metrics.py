@@ -7,6 +7,10 @@ transfer_em_tpu/train/metrics.py).
 * ``profile_trace``: a ``torch.profiler`` trace of the block (CPU and, where
   CUDA is present, CUDA activities) exported as a Chrome trace into a
   directory.
+
+The port's spans and counters live in ``transfer_em_tpu_torch.telemetry``,
+the one registry: host totals always, and while a profiler records, a user
+annotation in its trace, a record and device time a span.
 """
 
 from __future__ import annotations
@@ -75,7 +79,9 @@ class MetricsLogger:
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str]):
     """A torch.profiler trace of the block, written to
-    ``<log_dir>/trace.json`` (no-op when log_dir is None)."""
+    ``<log_dir>/trace.json`` (no-op when log_dir is None).  The trace
+    carries the port's spans (``telemetry``) as user annotations, and
+    ``telemetry.records()`` holds them after the block."""
     if log_dir is None:
         yield
         return
