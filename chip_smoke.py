@@ -189,9 +189,11 @@ each printing one JSON line:
             independent float64 reference and to the plain versions on
             the CPU, each launching both kernels once; the int8
             goldens (PSNR >= 40 dB, the card's output within 1e-5 of the
-            CPU's); conv_transpose_nd(phase_decompose=True) against
-            cuDNN's default at up1.up / up0.up (B=128) and the slab's
-            B=1 up0.up, f32 (relative gap <= 1e-5) and bf16, timed; with
+            CPU's); the transposed conv's phase form on conv3
+            (phase_decompose=True, the default of an f32 inference call)
+            against cuDNN's (False), TF32 off, at up1.up / up0.up (B=128),
+            the slab's B=1 up0.up and wf=1's two up convs (B=16), f32 (at
+            conv3's f32 tolerance) and bf16, both timed; with
             TensorFlow, a Keras .h5 -> load_generator -> make_tile_step
             round trip (else listed under ``not_run``); then, counted,
             the int8 tile step (make_tile_step, tpad 2) against f32 and
@@ -899,7 +901,7 @@ def plain_versions(noise=0.0, seed=5):
     of a chosen relative size."""
     from transfer_em_tpu_torch.infer import device_stitch, slab, tiling
     from transfer_em_tpu_torch.models import blocks
-    from transfer_em_tpu_torch.ops import cuda_conv, cuda_int8, quant
+    from transfer_em_tpu_torch.ops import convs, cuda_conv, cuda_int8, quant
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -913,7 +915,7 @@ def plain_versions(noise=0.0, seed=5):
                                              device=y.device))).to(x.dtype)
         return y if leaky is None else torch.where(y >= 0, y, y * leaky)
 
-    swaps = [(blocks, "conv3", conv3),
+    swaps = [(blocks, "conv3", conv3), (convs, "conv3", conv3),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
              (quant, "conv_int8", cuda_int8.conv_int8_plain),
              (quant, "quantize_int8", quant.quantize_int8_plain),
@@ -1475,11 +1477,13 @@ def check_volume(dev, smi):
     """predict_volume on the card at bench_infer.py's request: device (the
     volume uploaded once), slab, stream (np.memmap source and out=, at two
     budgets) and tiles, f32, one warm and 3 timed calls each (wall, Mvox/s,
-    tiles/s, peak memory, launches) and one profiled call; under
+    tiles/s, peak memory, launches: every f32 mode's transposed convs on
+    the phase conv, none on cuDNN's) and one profiled call; under
     cudnn.deterministic stream (behind sentinels), auto and tiles bit-equal
     to device; device and slab within one level on at most 1e-3 of the
     voxels of the same mode through the plain versions; bf16 device against
-    f32 (PSNR >= 40 dB, not equal, bf16 conv3 launches only); every kernel
+    f32 (PSNR >= 40 dB, not equal, bf16 conv3 launches only, its transposed
+    convs on cuDNN's); every kernel
     call of one slab forward against its plain version at its shape;
     device mode at B in VOL_SWEEP."""
     from transfer_em_tpu_torch.infer import plan_tiles, predict_volume
@@ -1553,8 +1557,12 @@ def check_volume(dev, smi):
                            "profiled": profile_round(run)}
             emit({"phase": "volume_mode", "mode": name, **modes[name]})
         rec["modes"] = modes
-        launches_ok = all(m["launches"][k] > 0 for m in modes.values()
-                          for k in (*counters(), "conv3_tc", "conv3_direct"))
+        # every f32 mode runs its transposed convs as the phase conv
+        launches_ok = all(
+            m["launches"][k] > 0 for m in modes.values()
+            for k in (*counters(), "conv3_tc", "conv3_direct",
+                      "transpose_phase")) and all(
+            m["launches"]["transpose_cudnn"] == 0 for m in modes.values())
 
         # exactness: the tile-grid modes bit-equal under cuDNN's
         # deterministic algorithms (its defaults need not repeat bit for
@@ -1640,6 +1648,8 @@ def check_volume(dev, smi):
     # mode, and the output is not f32's
     bf16_ok = (rec["bf16_device"]["psnr_db_vs_f32"] >= 40
                and launches16["conv3_bf16"] == launches16["conv3"] > 0
+               and launches16["transpose_cudnn"] > 0
+               and launches16["transpose_phase"] == 0
                and modes["device"]["launches"]["conv3_bf16"] == 0
                and diff16[0] > 0)
     del gen16, out16
@@ -4120,37 +4130,66 @@ def _aten_counts(run, names):
     return counts
 
 
+# (layer, x shape without channels, Cin, Cout) of the up convs whose
+# transposed conv the phase form serves: wf=8 at the device batch, the
+# slab's B=1 up0.up, and wf=1 (64-256 channels) at its device batch
+PHASE_CONV_CASES = [("up1.up", (B, 13, 13, 13), 32, 16),
+                    ("up0.up", (B, 22, 22, 22), 16, 8),
+                    ("slab.up0.up", (1, 22, 182, 182), 16, 8),
+                    ("wf1.up1.up", (16, 13, 13, 13), 256, 128),
+                    ("wf1.up0.up", (16, 22, 22, 22), 128, 64)]
+
+
 def _phase_conv_cases(dev, gen):
-    """conv_transpose_nd(phase_decompose=True) against the default
-    (cuDNN's transposed conv) at up1.up and up0.up of the wf=8 tile step
-    (B=128) and at the slab's B=1 up0.up (1, 22, 182, 182, 16): f32
-    relative gap (gated at 1e-5) and bf16 (read), ms of both by events."""
-    from transfer_em_tpu_torch.ops.convs import conv_transpose_nd
+    """The transposed conv's two forms at PHASE_CONV_CASES, TF32 off: the
+    phase conv on conv3 (phase_decompose=True) against cuDNN's transposed
+    conv (False), f32 gated at conv3's f32 tolerance (1e-4 max(1, |ref|))
+    and bf16 read, ms of both by events; and the default of each call
+    under inference_mode counted: f32 below PHASE_CIN_COUT_LIMIT the phase
+    conv (its k3 conv one conv3 launch), the rest cuDNN's."""
+    from transfer_em_tpu_torch.ops.convs import (PHASE_CIN_COUT_LIMIT,
+                                                 conv_transpose_nd)
+
+    def want_route(dtype, cin, cout):
+        phase = (dtype == torch.float32
+                 and cin * cout < PHASE_CIN_COUT_LIMIT)
+        return {"transpose_phase": int(phase),
+                "transpose_cudnn": int(not phase), "conv3": int(phase)}
 
     out = []
-    for name, shape, cin, cout in (
-            ("up1.up", (B, 13, 13, 13), 32, 16),
-            ("up0.up", (B, 22, 22, 22), 16, 8),
-            ("slab.up0.up", (1, 22, 182, 182), 16, 8)):
+    for name, shape, cin, cout in PHASE_CONV_CASES:
         x = torch.randn(shape + (cin,), generator=gen, device=dev)
         w = torch.randn((4, 4, 4, cin, cout), generator=gen,
                         device=dev) / (64 * cin) ** 0.5
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
-            ref = conv_transpose_nd(xd, w)
-            got = conv_transpose_nd(xd, w, phase_decompose=True)
-            rel = float((got.float() - ref.float()).abs().max()
-                        / ref.float().abs().max())
-            out.append({
-                "layer": name, "x": list(xd.shape), "cout": cout,
-                "dtype": str(dtype).replace("torch.", ""), "rel_err": rel,
-                "ms_phase": cuda_ms(lambda: conv_transpose_nd(
-                    xd, w, phase_decompose=True)),
-                "ms_default": cuda_ms(lambda: conv_transpose_nd(xd, w))})
-            del ref, got
-    torch.cuda.empty_cache()
-    return {"cases": out, "ok": all(r["rel_err"] <= 1e-5 for r in out
-                                    if r["dtype"] == "float32")}
+            with cudnn_tf32(False), torch.inference_mode():
+                ref = conv_transpose_nd(xd, w, phase_decompose=False)
+                got = conv_transpose_nd(xd, w, phase_decompose=True)
+                err = float((got.float() - ref.float()).abs().max())
+                ref_max = float(ref.float().abs().max())
+                del ref, got
+                reset_counts()
+                conv_transpose_nd(xd, w)
+                route = {k: read_counts()[k] for k in (
+                    "transpose_phase", "transpose_cudnn", "conv3")}
+                out.append({
+                    "layer": name, "x": list(xd.shape), "cout": cout,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": err, "ref_max_abs": ref_max,
+                    "rel_err": err / ref_max,
+                    "tol": 1e-4 * max(1.0, ref_max),
+                    "default_route": route,
+                    "route_ok": route == want_route(dtype, cin, cout),
+                    "ms_phase": cuda_ms(lambda: conv_transpose_nd(
+                        xd, w, phase_decompose=True)),
+                    "ms_cudnn": cuda_ms(lambda: conv_transpose_nd(
+                        xd, w, phase_decompose=False))})
+        del x, w, xd
+        torch.cuda.empty_cache()
+    return {"cases": out, "ok": all(
+        (r["max_abs_err"] <= r["tol"] or r["dtype"] != "float32")
+        and r["route_ok"] for r in out)}
 
 
 def _int8_tf_interop(dev, vol):

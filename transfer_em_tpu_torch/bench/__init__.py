@@ -63,8 +63,9 @@ def card(dev: torch.device) -> dict:
 
 
 def launch_counts() -> Dict[str, int]:
-    """The launch counts of the port's hand-written kernels
-    (:func:`..ops.counts.read_counts`, without the weight packs)."""
+    """The launch counts of the port's hand-written kernels, and the
+    transposed convs by form (:func:`..ops.counts.read_counts`, without the
+    weight packs)."""
     from ..ops.counts import PACKS, read_counts
     return {k: v for k, v in read_counts().items() if k not in PACKS}
 

@@ -11,10 +11,13 @@ from the input, the port builds its kernels up front.
 * 3x3x3 stride-1 convs run on the hand-written conv3 kernel
   (ops/cuda_conv.py), with LeakyReLU fused into its epilogue where the
   block has one.
-* k4 stride-2 down convs, the TF-SAME transposed convs, 1x1 convs and
-  every 2D conv run on ``torch.nn.functional`` (ops/convs.py), as the JAX
-  package gates its Pallas conv on ``ndim == 3`` (models/blocks.py:69,
-  :113); the LeakyReLU after each runs on the hand-written leaky_relu
+* The 3D TF-SAME transposed convs run, in float32 where no gradient is
+  recorded (inference), as the phase conv on the conv3 kernel
+  (ops/convs.py ``phase_route``); elsewhere on cuDNN's transposed conv.
+* k4 stride-2 down convs, 1x1 convs and every 2D conv run on
+  ``torch.nn.functional`` (ops/convs.py), as the JAX package gates its
+  Pallas conv on ``ndim == 3`` (models/blocks.py:69, :113).  The LeakyReLU
+  after each down or transposed conv runs on the hand-written leaky_relu
   kernel (ops/cuda_kernels.py).
 * Both kernels carry autograd Functions (forward on the kernel, backward in
   plain torch), so the same modules train.

@@ -1,10 +1,13 @@
 """k4 stride-2 convolutions and crop helpers, channels last, 2D or 3D.
 
 Counterpart of ``transfer_em_tpu/ops/convs.py``.  The JAX package computes
-these convs with XLA outside any Pallas kernel, so the port leaves them to
-``torch.nn.functional`` (cuDNN on the card).  Activations stay channels-last
-(NHWC / NDHWC) and kernels in the JAX layout (HWIO / DHWIO), so both
-packages take the same tensors at their public functions:
+these convs with XLA outside any Pallas kernel.  The port leaves the down
+convs, the 1x1 convs and every 2D conv to ``torch.nn.functional`` (cuDNN on
+the card); the generator's 3D k4 stride-2 transposed conv runs in float32
+inference as the phase conv on the hand-written conv3 kernel
+(``ops/cuda_conv.py``), and everywhere else on cuDNN.  Activations stay
+channels-last (NHWC / NDHWC) and kernels in the JAX layout (HWIO / DHWIO),
+so both packages take the same tensors at their public functions:
 
 * ``conv_nd``: VALID or SAME (XLA's split, at any stride) strided conv;
   the kernel's (k.., Cin, Cout) -> (Cout, Cin, k..) is ``permute(n + 1,
@@ -17,17 +20,20 @@ packages take the same tensors at their public functions:
   because it writes the transposed conv as a forward conv on the dilated
   input; ``conv_transpose{2,3}d`` is the adjoint itself).  Pinned against
   the JAX function in tests/test_torch_ops.py (3D) and
-  tests/test_torch_2d_models.py (2D).  ``phase_decompose=True`` computes it
-  as the JAX package's subpixel formulation (convs.py:135-189): one k3
-  VALID conv over x padded by 1, with 2^n * Cout output channels
+  tests/test_torch_2d_models.py (2D).  The phase form computes the same
+  function as the JAX package's subpixel formulation (convs.py:135-189):
+  one k3 VALID conv over x padded by 1, with 2^n * Cout output channels
   (:func:`phase_kernel`), then interleaved (:func:`interleave_phases`).
+  ``phase_decompose`` picks the form; its default picks it from the call
+  (:func:`phase_route`).  ``conv_transpose_nd.phase_calls`` and
+  ``.cudnn_calls`` count the two forms (``ops/counts.py``
+  ``transpose_phase`` / ``transpose_cudnn``).
 
 An NDHWC (NHWC) tensor permuted to NCDHW (NCHW) is a channels_last view,
 which cuDNN takes without a copy.  On the CPU the permuted kernel is made
 contiguous: there PyTorch's ``slow_conv2d``, which it picks for some shapes
 (a 2D batch of one), refuses a strided weight gradient.
 """
-
 from __future__ import annotations
 
 import itertools
@@ -35,6 +41,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from .cuda_conv import conv3, storage_cached
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 _CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
@@ -112,6 +120,58 @@ def same_transpose_padding(k: int, s: int) -> Tuple[int, int]:
     return (k - 1 - p_lo, k - 1 - p_hi)
 
 
+# The phase route takes a transposed conv whose Cin * Cout is below this.
+# Float32 with TF32 off on an H100 80GB HBM3 (700 W), B=16: at the wf=1
+# generator's up1.up (256 -> 128, 13^3 in) the phase conv takes 7.12 ms and
+# cuDNN 5.01, at its up0.up (128 -> 64, 22^3 in) 6.56 against 10.79.  With
+# 13^3 in, the phase conv wins up to 128 -> 96 (12,288) and loses from
+# 192 -> 96 (18,432) on, at B=4, 16 and 128 alike; with 22^3 in, and in the
+# slab's B=1 planes, it wins at every width up to 256 -> 128 (PERF.md §6).
+PHASE_CIN_COUT_LIMIT = 16384
+
+
+def _records_grad(x: torch.Tensor, kernel: torch.Tensor) -> bool:
+    """Whether a forward on x and kernel records an autograd graph."""
+    return torch.is_grad_enabled() and (x.requires_grad
+                                        or kernel.requires_grad)
+
+
+def _func_wrapped(t: torch.Tensor) -> bool:
+    """t is wrapped by a ``torch.func`` transform (the train step's vmap
+    over stacked networks, ``ensemble_apps``): the wrapper does not show
+    whether the tensor under it requires grad, and has no storage."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def phase_route(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> bool:
+    """The default of ``conv_transpose_nd(phase_decompose=None)``: the phase
+    conv on conv3 for a 3D k4 stride-2 float32 call that records no
+    gradient (inference: every inference mode runs under
+    ``inference_mode``), with Cin * Cout below :data:`PHASE_CIN_COUT_LIMIT`;
+    cuDNN's transposed conv for the rest.
+
+    * float32 with TF32 off: cuDNN's transposed conv runs on the CUDA cores,
+      conv3's phase conv on the tensor cores as 3xTF32, at float32's
+      accuracy, so the phase form's 27/8 times the MACs (19 of its 27 taps
+      a phase are zero) take less time: at the wf=8 generator's up convs
+      (B=128) 1.2 and 1.4 ms against cuDNN's 3.3 and 9.4 on an H100.  At
+      wide channels and small extents cuDNN's engine catches up
+      (:data:`PHASE_CIN_COUT_LIMIT`).
+    * bfloat16: cuDNN's transposed conv already runs on the tensor cores.
+      The phase form beats it at some shapes and loses at others (at
+      wf=8 B=128 0.51 against 0.29 ms at up1.up, 0.83 against 2.29 at
+      up0.up; chip_smoke.py phase 12); bf16 stays on cuDNN.
+    * 2D: conv3 is 3D only.
+    * A forward that records a gradient, or may (an operand wrapped by a
+      ``torch.func`` transform): the phase form's backward would be cuDNN's
+      k3 backward on 27/8 times the work."""
+    return (x.dim() == 5 and kernel.shape[0] == 4 and stride == 2
+            and x.dtype == torch.float32
+            and kernel.shape[-2] * kernel.shape[-1] < PHASE_CIN_COUT_LIMIT
+            and not _records_grad(x, kernel)
+            and not (_func_wrapped(x) or _func_wrapped(kernel)))
+
+
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
                       stride: int = 2,
                       phase_decompose: Optional[bool] = None) -> torch.Tensor:
@@ -122,17 +182,22 @@ def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
     ``conv_transpose`` with padding 1; any other (k, s) is ``conv_transpose``
     unpadded, cropped by :func:`same_transpose_padding`'s split of
     max(k - s, 0) (the low side ``p_lo``, the high side the rest).
-    ``phase_decompose`` (default off, as in the JAX package; k4 s2 only):
-    one stride-1 k3 conv with 2^n * Cout outputs, then interleaved; the
-    same function, summed in another order."""
+    ``phase_decompose`` (k4 s2 only): True computes it as the phase conv,
+    one stride-1 k3 conv with 2^n * Cout outputs (on conv3 in 3D), then
+    interleaved, the same function summed in another order; False as
+    cuDNN's transposed conv; None (default) picks by :func:`phase_route`."""
     n = _spatial_rank(x, kernel)
     k = kernel.shape[0]
+    if phase_decompose is None:
+        phase_decompose = phase_route(x, kernel, stride)
     if phase_decompose:
         if stride != 2 or k != 4:
             raise ValueError("phase_decompose supports stride=2, k=4 only")
+        conv_transpose_nd.phase_calls += 1
         return _conv_transpose_phase(x, kernel)
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
+    conv_transpose_nd.cudnn_calls += 1
     w = _weight(kernel.to(x.dtype).permute(n, n + 1, *range(n)))
     xc = _to_channels_first(x)
     if stride == 2 and k == 4:  # the generator's up convs
@@ -145,6 +210,10 @@ def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
     y = y[(slice(None), slice(None))
           + tuple(slice(lo, y.shape[2 + ax] - hi) for ax in range(n))]
     return _to_channels_last(y)
+
+
+conv_transpose_nd.phase_calls = 0  # the phase conv (conv3 in 3D)
+conv_transpose_nd.cudnn_calls = 0  # cuDNN's conv_transpose{2,3}d
 
 
 # Per axis, the TF SAME stride-2 k4 transposed conv is
@@ -185,9 +254,26 @@ def interleave_phases(y: torch.Tensor, p: int = 2) -> torch.Tensor:
     return y.reshape((bsz,) + tuple(p * s for s in sp) + (cout,))
 
 
+def _cached_phase_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """phase_kernel(kernel) for a forward that records no gradient, cached
+    per parameter (``cuda_conv.storage_cached``): repeated forwards reuse
+    it, and so conv3's tensor-core pack of it, cached on its own storage;
+    an in-place update of the parameter (``p.add_`` under ``no_grad``)
+    rebuilds both.  It is built outside inference mode, so that it has a
+    version counter and its pack is cached too."""
+    def make():
+        with torch.inference_mode(False), torch.no_grad():
+            return phase_kernel(kernel.detach())
+
+    return storage_cached(kernel, "_phase_kernels", (), make)
+
+
 def _conv_transpose_phase(x: torch.Tensor, kernel: torch.Tensor
                           ) -> torch.Tensor:
-    y = conv_nd(zero_pad(x, 1), phase_kernel(kernel))
+    k3 = (phase_kernel(kernel) if _records_grad(x, kernel)
+          else _cached_phase_kernel(kernel))
+    xp = zero_pad(x, 1)
+    y = conv3(xp, k3) if x.dim() == 5 else conv_nd(xp, k3)
     return interleave_phases(y).contiguous()
 
 

@@ -2,8 +2,9 @@
 
 Each wrapper adds one to its count where it launches its kernel, and
 nowhere else (``ops/cuda_conv.py``, ``ops/cuda_kernels.py``,
-``ops/cuda_int8.py``, ``ops/quant.py``).  The benches and ``chip_smoke.py``
-read and reset them here, so a new kernel or counter is added once."""
+``ops/cuda_int8.py``, ``ops/quant.py``); ``ops/convs.py`` counts which form
+each transposed conv took.  The benches and ``chip_smoke.py`` read and
+reset them here, so a new kernel or counter is added once."""
 
 from __future__ import annotations
 
@@ -17,8 +18,11 @@ def read_counts() -> Dict[str, int]:
     """Launches per kernel: conv3 (also by path, tc and direct, and those on
     bfloat16 operands), preprocess_u8, postprocess_u8, leaky_relu (and on
     bfloat16), conv_int8 and quantize_int8; beside them the weight packs
-    (:data:`PACKS`)."""
-    from . import cuda_conv, cuda_int8, cuda_kernels, quant
+    (:data:`PACKS`), and the transposed convs by form: ``transpose_phase``
+    (the phase conv, whose k3 conv counts under conv3 in 3D) and
+    ``transpose_cudnn`` (cuDNN's transposed conv; the int8 transposed conv
+    is neither)."""
+    from . import convs, cuda_conv, cuda_int8, cuda_kernels, quant
     c3, lr = cuda_conv.conv3, cuda_kernels.leaky_relu
     return {"conv3": c3.launches,
             "preprocess_u8": cuda_kernels.preprocess_u8.launches,
@@ -30,12 +34,14 @@ def read_counts() -> Dict[str, int]:
             "conv3_tc": c3.launches_tc, "conv3_direct": c3.launches_direct,
             "conv3_bf16": c3.launches_bf16,
             "leaky_relu_bf16": lr.launches_bf16,
-            "conv3_weight_packs": cuda_conv.packed_weights.packs}
+            "conv3_weight_packs": cuda_conv.packed_weights.packs,
+            "transpose_phase": convs.conv_transpose_nd.phase_calls,
+            "transpose_cudnn": convs.conv_transpose_nd.cudnn_calls}
 
 
 def reset_counts() -> None:
     """Every count of :func:`read_counts` to 0."""
-    from . import cuda_conv, cuda_int8, cuda_kernels, quant
+    from . import convs, cuda_conv, cuda_int8, cuda_kernels, quant
     c3, lr = cuda_conv.conv3, cuda_kernels.leaky_relu
     c3.launches = c3.launches_tc = c3.launches_direct = c3.launches_bf16 = 0
     lr.launches = lr.launches_bf16 = 0
@@ -45,3 +51,5 @@ def reset_counts() -> None:
     quant.quantize_int8.launches = 0
     quant.int8_weights.packs = 0
     cuda_conv.packed_weights.packs = 0
+    convs.conv_transpose_nd.phase_calls = 0
+    convs.conv_transpose_nd.cudnn_calls = 0

@@ -5,7 +5,9 @@ the Pallas Toeplitz-GEMM ``_tconv3_kernel`` (pallas_conv.py:69-114,
 ``pallas_call`` at :174) reached through ``tconv3`` (138-159), ``tconv3_op``
 (196-219) and ``tconv3_act_op`` (224-246).  Unlike the TPU kernel, whose
 ``supported()`` (42-53) needs W >= 128/C and so leaves the C=1 stem to XLA
-at 74^3, they serve every k3 conv of the generator, the stem included.
+at 74^3, they serve every k3 conv of the generator, the stem included, and
+the phase conv of its transposed convs in float32 inference
+(``ops/convs.py`` ``phase_route``).
 
 The wrapper picks one of two kernels by shape (:func:`conv3_path`):
 
@@ -182,24 +184,39 @@ def packed_weights(w: torch.Tensor,
 
     ``packed_weights.packs`` counts the packs."""
     dtype = w.dtype if dtype is None else dtype
-    if w.is_inference():
+
+    def pack():
         packed_weights.packs += 1
-        return pack_conv3_weights(w, dtype)
-    storage = w.untyped_storage()
-    view = (w.storage_offset(), tuple(w.shape), w.stride(), w.dtype, dtype)
-    cache = getattr(storage, "_conv3_packs", None)
-    if cache is None:
-        cache = storage._conv3_packs = {}
-    hit = cache.get(view)
-    if hit is not None and hit[0] == w._version:
-        return hit[1]
-    packed = pack_conv3_weights(w.detach(), dtype)
-    packed_weights.packs += 1
-    cache[view] = (w._version, packed)
-    return packed
+        return pack_conv3_weights(w.detach(), dtype)
+
+    return storage_cached(w, "_conv3_packs", (dtype,), pack)
 
 
 packed_weights.packs = 0
+
+
+def storage_cached(w: torch.Tensor, name: str, key: tuple, make):
+    """make(), cached on w's STORAGE (in a dict at its attribute ``name``),
+    keyed by w's view (offset, shape, strides, dtype) and ``key``, and
+    stamped with w's version counter: an in-place update of w remakes it,
+    and it lives as long as w's memory.  A tensor made in inference mode
+    keeps no version counter, so make() runs on every call.  The one cache
+    of what is derived from a parameter: conv3's packs, the int8 weights
+    (``ops/quant.py``), the phase kernels (``ops/convs.py``)."""
+    if w.is_inference():
+        return make()
+    storage = w.untyped_storage()
+    key = (w.storage_offset(), tuple(w.shape), w.stride(), w.dtype) + key
+    cache = getattr(storage, name, None)
+    if cache is None:
+        cache = {}
+        setattr(storage, name, cache)
+    hit = cache.get(key)
+    if hit is not None and hit[0] == w._version:
+        return hit[1]
+    made = make()
+    cache[key] = (w._version, made)
+    return made
 
 
 # -- the conv ----------------------------------------------------------------

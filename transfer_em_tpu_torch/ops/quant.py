@@ -66,6 +66,7 @@ import torch.nn.functional as F
 from .. import kernels
 from .convs import (interleave_phases, phase_kernel, same_padding,
                     same_transpose_padding)
+from .cuda_conv import storage_cached
 from .cuda_int8 import conv_int8, pack_int8_weights
 
 __all__ = ["quantize_sym", "conv_nd_int8", "conv_transpose_nd_int8",
@@ -393,8 +394,8 @@ def int8_weights(kernel: torch.Tensor, layout: Layout,
     """The kernel's :class:`Int8Weights` for ``layout`` (and ``plans``,
     :func:`phase_plans`, for the convs that take them), made once and
     cached on the kernel's STORAGE, keyed by its view (offset, shape,
-    strides, dtype) and the layout, and stamped with its version counter,
-    as ``ops/cuda_conv.packed_weights`` caches conv3's packs:
+    strides, dtype) and the layout, and stamped with its version counter
+    (``ops/cuda_conv.storage_cached``):
 
     * an in-place update (an optimizer step, ``load_state_dict`` copying
       into the parameter) bumps the version, so the next call remakes it;
@@ -405,23 +406,13 @@ def int8_weights(kernel: torch.Tensor, layout: Layout,
       remade on every call.
 
     ``int8_weights.packs`` counts the makes."""
-    if kernel.is_inference():
+    def make():
         _made.packs += 1
         return _make_weights(kernel, layout, transpose, plans)
-    storage = kernel.untyped_storage()
-    key = (kernel.storage_offset(), tuple(kernel.shape), kernel.stride(),
-           kernel.dtype, layout.stride, layout.wtaps, layout.channels,
-           transpose, plans)
-    cache = getattr(storage, "_int8_weights", None)
-    if cache is None:
-        cache = storage._int8_weights = {}
-    hit = cache.get(key)
-    if hit is not None and hit[0] == kernel._version:
-        return hit[1]
-    made = _make_weights(kernel, layout, transpose, plans)
-    _made.packs += 1
-    cache[key] = (kernel._version, made)
-    return made
+
+    return storage_cached(kernel, "_int8_weights",
+                          (layout.stride, layout.wtaps, layout.channels,
+                           transpose, plans), make)
 
 
 int8_weights.packs = 0
