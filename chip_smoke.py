@@ -72,13 +72,16 @@ each printing one JSON line:
             printed, not gated); bf16 device against f32 >= 40 dB, not
             equal to it, with every conv3 launch on bf16 operands, its
             weights packed on the first call only (6 packs, then 0) and its
-            output bit-equal to a call with the pack cache cleared; device
+            output bit-equal to a call with the pack cache cleared, its
+            transposed and down convs on cuDNN's; device
             mode at the 40-tile chunks' batch bit-equal to B=128; every
             kernel call of one slab forward (conv3 at all 8 layers,
-            LeakyReLU at 4, preprocess, postprocess), recorded at its own
-            shape, against its plain version, with times beside the bound;
-            device mode at B = 64, 128, 256; every kernel must launch in
-            every mode.
+            LeakyReLU at 2, after the up convs, preprocess, postprocess),
+            recorded at its own shape, against its plain version, with
+            times beside the bound; device mode at B = 64, 128, 256; every
+            kernel must launch in every mode, every f32 mode's transposed
+            convs as the phase conv and its down convs as the s2d conv
+            (none on cuDNN's), with no weight packed after its warm call.
 7. train_check  one CycleGAN train step (wf=8, B=4, dropout off) through
             the kernels and one through the plain versions on the card, from
             the same state: 7-loss vectors within rtol 1e-4, every
@@ -193,7 +196,11 @@ each printing one JSON line:
             (phase_decompose=True, the default of an f32 inference call)
             against cuDNN's (False), TF32 off, at up1.up / up0.up (B=128),
             the slab's B=1 up0.up and wf=1's two up convs (B=16), f32 (at
-            conv3's f32 tolerance) and bf16, both timed; with
+            conv3's f32 tolerance) and bf16, both timed; the k4 stride-2
+            down conv's s2d form on conv3 (the default of an f32
+            inference call) against F.conv3d, TF32 off, at down1.down /
+            down2.down (B=128), in the slab's B=1 planes and at wf=1's
+            two down convs (B=16), the same way; with
             TensorFlow, a Keras .h5 -> load_generator -> make_tile_step
             round trip (else listed under ``not_run``); then, counted,
             the int8 tile step (make_tile_step, tpad 2) against f32 and
@@ -917,6 +924,7 @@ def plain_versions(noise=0.0, seed=5):
 
     swaps = [(blocks, "conv3", conv3), (convs, "conv3", conv3),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
+             (convs, "leaky_relu", ck.leaky_relu_plain),
              (quant, "conv_int8", cuda_int8.conv_int8_plain),
              (quant, "quantize_int8", quant.quantize_int8_plain),
              *[(m, n, f) for m in (tiling, device_stitch, slab)
@@ -940,6 +948,7 @@ def recorded_calls():
     shape, tpad) in the order of their first call."""
     from transfer_em_tpu_torch.infer import slab
     from transfer_em_tpu_torch.models import blocks
+    from transfer_em_tpu_torch.ops import convs
 
     calls = []
 
@@ -957,6 +966,7 @@ def recorded_calls():
         (blocks, "conv3", lambda x, w, leaky=None: (
             "conv3", tuple(x.shape), w.shape[-1], leaky is not None)),
         (blocks, "leaky_relu", lambda v, *_: ("leaky_relu", tuple(v.shape))),
+        (convs, "leaky_relu", lambda v, *_: ("leaky_relu", tuple(v.shape))),
         (slab, "preprocess_u8", lambda x, ms: ("preprocess_u8",
                                                tuple(x.shape))),
         (slab, "postprocess_to_u8", lambda y, ms, tpad=0: (
@@ -1478,12 +1488,13 @@ def check_volume(dev, smi):
     volume uploaded once), slab, stream (np.memmap source and out=, at two
     budgets) and tiles, f32, one warm and 3 timed calls each (wall, Mvox/s,
     tiles/s, peak memory, launches: every f32 mode's transposed convs on
-    the phase conv, none on cuDNN's) and one profiled call; under
+    the phase conv and its down convs on the s2d conv, none on cuDNN's,
+    and no weight packed after the warm call) and one profiled call; under
     cudnn.deterministic stream (behind sentinels), auto and tiles bit-equal
     to device; device and slab within one level on at most 1e-3 of the
     voxels of the same mode through the plain versions; bf16 device against
     f32 (PSNR >= 40 dB, not equal, bf16 conv3 launches only, its transposed
-    convs on cuDNN's); every kernel
+    and down convs on cuDNN's); every kernel
     call of one slab forward against its plain version at its shape;
     device mode at B in VOL_SWEEP."""
     from transfer_em_tpu_torch.infer import plan_tiles, predict_volume
@@ -1557,12 +1568,15 @@ def check_volume(dev, smi):
                            "profiled": profile_round(run)}
             emit({"phase": "volume_mode", "mode": name, **modes[name]})
         rec["modes"] = modes
-        # every f32 mode runs its transposed convs as the phase conv
+        # every f32 mode runs its transposed convs as the phase conv and
+        # its down convs as the s2d conv, and packs no weight after its
+        # warm call
         launches_ok = all(
             m["launches"][k] > 0 for m in modes.values()
             for k in (*counters(), "conv3_tc", "conv3_direct",
-                      "transpose_phase")) and all(
-            m["launches"]["transpose_cudnn"] == 0 for m in modes.values())
+                      "transpose_phase", "down_s2d")) and all(
+            m["launches"][k] == 0 for m in modes.values()
+            for k in ("transpose_cudnn", "down_cudnn", "conv3_weight_packs"))
 
         # exactness: the tile-grid modes bit-equal under cuDNN's
         # deterministic algorithms (its defaults need not repeat bit for
@@ -1650,6 +1664,8 @@ def check_volume(dev, smi):
                and launches16["conv3_bf16"] == launches16["conv3"] > 0
                and launches16["transpose_cudnn"] > 0
                and launches16["transpose_phase"] == 0
+               and launches16["down_cudnn"] > 0
+               and launches16["down_s2d"] == 0
                and modes["device"]["launches"]["conv3_bf16"] == 0
                and diff16[0] > 0)
     del gen16, out16
@@ -1895,31 +1911,40 @@ def leaky_gates(gates, replay=False):
     pre-activation v, which is the plain versions' function wherever the
     gate agrees with v >= 0, and has the same gradient rule."""
     from transfer_em_tpu_torch.models import blocks
+    from transfer_em_tpu_torch.ops import convs
 
-    conv3, leaky = blocks.conv3, blocks.leaky_relu
     replayed = iter(gates)
 
-    def gated_conv3(x, w, slope=None):
-        if slope is None:
-            return conv3(x, w)
-        if not replay:
-            y = conv3(x, w, slope)
-            gates.append(y >= 0)
-            return y
-        v = conv3(x, w)
-        return torch.where(next(replayed), v, v * slope)
+    def gated_conv3(conv3):
+        def f(x, w, slope=None):
+            if slope is None:
+                return conv3(x, w)
+            if not replay:
+                y = conv3(x, w, slope)
+                gates.append(y >= 0)
+                return y
+            v = conv3(x, w)
+            return torch.where(next(replayed), v, v * slope)
+        return f
 
-    def gated_leaky(x, slope):
-        if not replay:
-            gates.append(x >= 0)
-            return leaky(x, slope)
-        return torch.where(next(replayed), x, x * slope)
+    def gated_leaky(leaky):
+        def f(x, slope):
+            if not replay:
+                gates.append(x >= 0)
+                return leaky(x, slope)
+            return torch.where(next(replayed), x, x * slope)
+        return f
 
-    blocks.conv3, blocks.leaky_relu = gated_conv3, gated_leaky
+    # the blocks' calls and conv_nd's (the LeakyReLU after a down conv)
+    saved = [(m, n, getattr(m, n)) for m in (blocks, convs)
+             for n in ("conv3", "leaky_relu")]
+    for m, n, f in saved:
+        setattr(m, n, (gated_conv3 if n == "conv3" else gated_leaky)(f))
     try:
         yield gates
     finally:
-        blocks.conv3, blocks.leaky_relu = conv3, leaky
+        for m, n, f in saved:
+            setattr(m, n, f)
 
 
 # The f32 sums' error bound of a bf16 conv3 output, as a multiple of
@@ -4140,39 +4165,31 @@ PHASE_CONV_CASES = [("up1.up", (B, 13, 13, 13), 32, 16),
                     ("wf1.up0.up", (16, 22, 22, 22), 128, 64)]
 
 
-def _phase_conv_cases(dev, gen):
-    """The transposed conv's two forms at PHASE_CONV_CASES, TF32 off: the
-    phase conv on conv3 (phase_decompose=True) against cuDNN's transposed
-    conv (False), f32 gated at conv3's f32 tolerance (1e-4 max(1, |ref|))
-    and bf16 read, ms of both by events; and the default of each call
-    under inference_mode counted: f32 below PHASE_CIN_COUT_LIMIT the phase
-    conv (its k3 conv one conv3 launch), the rest cuDNN's."""
-    from transfer_em_tpu_torch.ops.convs import (PHASE_CIN_COUT_LIMIT,
-                                                 conv_transpose_nd)
-
-    def want_route(dtype, cin, cout):
-        phase = (dtype == torch.float32
-                 and cin * cout < PHASE_CIN_COUT_LIMIT)
-        return {"transpose_phase": int(phase),
-                "transpose_cudnn": int(not phase), "conv3": int(phase)}
-
+def _conv_form_cases(dev, gen, cases, form, forms, default, counts, want):
+    """A k4 stride-2 conv's two forms at ``cases``, TF32 off: ``forms`` =
+    (the form on conv3, cuDNN's), each a function of (x, w); the first
+    against the second, f32 gated at conv3's f32 tolerance (1e-4 max(1,
+    |ref|)) and bf16 read, ms of both by events (``ms_<form>``,
+    ``ms_cudnn``); and ``default(x, w)`` under inference_mode with the
+    ``counts`` it launched, which must be ``want(dtype, x shape, Cin,
+    Cout)``."""
+    on_conv3, cudnn = forms
     out = []
-    for name, shape, cin, cout in PHASE_CONV_CASES:
+    for name, shape, cin, cout in cases:
         x = torch.randn(shape + (cin,), generator=gen, device=dev)
         w = torch.randn((4, 4, 4, cin, cout), generator=gen,
                         device=dev) / (64 * cin) ** 0.5
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
             with cudnn_tf32(False), torch.inference_mode():
-                ref = conv_transpose_nd(xd, w, phase_decompose=False)
-                got = conv_transpose_nd(xd, w, phase_decompose=True)
+                ref = cudnn(xd, w)
+                got = on_conv3(xd, w)
                 err = float((got.float() - ref.float()).abs().max())
                 ref_max = float(ref.float().abs().max())
                 del ref, got
                 reset_counts()
-                conv_transpose_nd(xd, w)
-                route = {k: read_counts()[k] for k in (
-                    "transpose_phase", "transpose_cudnn", "conv3")}
+                default(xd, w)
+                route = {k: read_counts()[k] for k in counts}
                 out.append({
                     "layer": name, "x": list(xd.shape), "cout": cout,
                     "dtype": str(dtype).replace("torch.", ""),
@@ -4180,16 +4197,74 @@ def _phase_conv_cases(dev, gen):
                     "rel_err": err / ref_max,
                     "tol": 1e-4 * max(1.0, ref_max),
                     "default_route": route,
-                    "route_ok": route == want_route(dtype, cin, cout),
-                    "ms_phase": cuda_ms(lambda: conv_transpose_nd(
-                        xd, w, phase_decompose=True)),
-                    "ms_cudnn": cuda_ms(lambda: conv_transpose_nd(
-                        xd, w, phase_decompose=False))})
+                    "route_ok": route == want(dtype, shape, cin, cout),
+                    "ms_" + form: cuda_ms(lambda: on_conv3(xd, w)),
+                    "ms_cudnn": cuda_ms(lambda: cudnn(xd, w))})
+            emit({"phase": form + "_conv", **out[-1]})
         del x, w, xd
         torch.cuda.empty_cache()
     return {"cases": out, "ok": all(
         (r["max_abs_err"] <= r["tol"] or r["dtype"] != "float32")
         and r["route_ok"] for r in out)}
+
+
+def _phase_conv_cases(dev, gen):
+    """The transposed conv at PHASE_CONV_CASES (_conv_form_cases): the
+    phase conv on conv3 (phase_decompose=True) against cuDNN's transposed
+    conv (False); by default f32 below PHASE_CIN_COUT_LIMIT the phase conv
+    (its k3 conv one conv3 launch), the rest cuDNN's."""
+    from transfer_em_tpu_torch.ops.convs import (PHASE_CIN_COUT_LIMIT,
+                                                 conv_transpose_nd)
+
+    def want(dtype, shape, cin, cout):
+        phase = (dtype == torch.float32
+                 and cin * cout < PHASE_CIN_COUT_LIMIT)
+        return {"transpose_phase": int(phase),
+                "transpose_cudnn": int(not phase), "conv3": int(phase)}
+
+    return _conv_form_cases(
+        dev, gen, PHASE_CONV_CASES, "phase",
+        (lambda x, w: conv_transpose_nd(x, w, phase_decompose=True),
+         lambda x, w: conv_transpose_nd(x, w, phase_decompose=False)),
+        conv_transpose_nd, ("transpose_phase", "transpose_cudnn", "conv3"),
+        want)
+
+
+# (layer, x shape without channels, Cin, Cout) of the k4 stride-2 down convs
+# that the s2d form serves: wf=8 at the device batch, the slab's B=1 planes
+# and wf=1 (64-128 channels) at its device batch; and the discriminator's
+# down2.down (6^3 out), which the route leaves to cuDNN
+DOWN_CONV_CASES = [("down1.down", (B, 70, 70, 70), 8, 8),
+                   ("down2.down", (B, 32, 32, 32), 16, 16),
+                   ("slab.down1.down", (1, 70, 390, 390), 8, 8),
+                   ("slab.down2.down", (1, 32, 192, 192), 16, 16),
+                   ("wf1.down1.down", (16, 70, 70, 70), 64, 64),
+                   ("wf1.down2.down", (16, 32, 32, 32), 128, 128),
+                   ("disc.down2.down", (B, 14, 14, 14), 32, 32)]
+
+
+def _down_conv_cases(dev, gen):
+    """The k4 stride-2 VALID conv at DOWN_CONV_CASES (_conv_form_cases):
+    the space-to-depth conv on conv3 (``ops/convs._conv_down_s2d``) against
+    ``F.conv3d`` (cuDNN); by default f32 with at least DOWN_MIN_OUT
+    outputs an axis the s2d conv (one conv3 launch), the rest cuDNN's."""
+    from transfer_em_tpu_torch.ops import convs
+
+    def cudnn(x, w):
+        return convs._to_channels_last(F.conv3d(
+            convs._to_channels_first(x),
+            w.to(x.dtype).permute(4, 3, 0, 1, 2), stride=2))
+
+    def want(dtype, shape, cin, cout):
+        s2d = (dtype == torch.float32
+               and min(shape[1:]) // 2 - 1 >= convs.DOWN_MIN_OUT)
+        return {"down_s2d": int(s2d), "down_cudnn": int(not s2d),
+                "conv3": int(s2d)}
+
+    return _conv_form_cases(
+        dev, gen, DOWN_CONV_CASES, "s2d", (convs._conv_down_s2d, cudnn),
+        lambda x, w: convs.conv_nd(x, w, stride=2),
+        ("down_s2d", "down_cudnn", "conv3"), want)
 
 
 def _int8_tf_interop(dev, vol):
@@ -4225,7 +4300,8 @@ def check_int8(dev, smi):
     """int8 serving (phase 12): conv_int8 against its plain version at
     every int8 layer (INT8_CHECKS), the int8 convs against an independent
     reference with three planted faults, the int8 goldens, the
-    phase-decomposed transposed conv against cuDNN's default, TF interop
+    phase-decomposed transposed conv against cuDNN's default, the down
+    convs' s2d form against cuDNN's, TF interop
     where TensorFlow imports, then the int8 tile step against f32 and bf16
     (INT8_STEPS; the first's int8 timed calls are the main path, counted)."""
     t_phase = time.perf_counter()
@@ -4239,6 +4315,7 @@ def check_int8(dev, smi):
     rec["c12"] = _int8_c12_checks(dev, gen)
     rec["golden"] = _int8_goldens(dev)
     rec["phase_conv"] = _phase_conv_cases(dev, gen)
+    rec["down_conv"] = _down_conv_cases(dev, gen)
     vol = smooth_volume(INT8_VOL, seed=63, dev=dev)
     tf_found = has_module("tensorflow")
     rec["packages"] = {"tensorflow": tf_found}
@@ -4261,7 +4338,7 @@ def check_int8(dev, smi):
         and rec["c12"]["ok"] and rec["quant_faults"]["ok"]
         and all(g["psnr_db"] >= 40 and g["card_vs_cpu_max_abs"] <= 1e-5
                 for g in rec["golden"].values())
-        and rec["phase_conv"]["ok"]
+        and rec["phase_conv"]["ok"] and rec["down_conv"]["ok"]
         and rec.get("tf_interop", {"ok": True})["ok"]
         and all(s["ok"] for s in rec["steps"])
         and all(launches[k] > 0 for k in ("conv_int8", "quantize_int8",

@@ -14,11 +14,15 @@ from the input, the port builds its kernels up front.
 * The 3D TF-SAME transposed convs run, in float32 where no gradient is
   recorded (inference), as the phase conv on the conv3 kernel
   (ops/convs.py ``phase_route``); elsewhere on cuDNN's transposed conv.
-* k4 stride-2 down convs, 1x1 convs and every 2D conv run on
-  ``torch.nn.functional`` (ops/convs.py), as the JAX package gates its
-  Pallas conv on ``ndim == 3`` (models/blocks.py:69, :113).  The LeakyReLU
-  after each down or transposed conv runs on the hand-written leaky_relu
-  kernel (ops/cuda_kernels.py).
+* The 3D k4 stride-2 down convs run, in float32 where no gradient is
+  recorded, as a space-to-depth conv on the conv3 kernel, the LeakyReLU
+  after them in its epilogue (ops/convs.py ``down_route``); elsewhere on
+  ``torch.nn.functional``.
+* 1x1 convs and every 2D conv run on ``torch.nn.functional``
+  (ops/convs.py), as the JAX package gates its Pallas conv on ``ndim ==
+  3`` (models/blocks.py:69, :113).  The LeakyReLU after each transposed
+  conv, and after each down conv off the route, runs on the hand-written
+  leaky_relu kernel (ops/cuda_kernels.py).
 * Both kernels carry autograd Functions (forward on the kernel, backward in
   plain torch), so the same modules train.
 * ``int8_conv`` (serving only, as in the JAX package, models/blocks.py:
@@ -150,7 +154,10 @@ class ConvND(nn.Module):
                             out_dtype=self.compute_dtype or torch.float32,
                             leaky=leaky_slope)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
+        """The conv, then with ``act`` LeakyReLU(0.3) (DownBlock's down
+        conv): ``conv_nd`` applies it where there is no bias, fused into
+        conv3's epilogue on its down route."""
         if self.int8_conv:
             y = self._int8(x)
         # conv3 takes the float32 parameter itself under a bf16 x: its
@@ -158,11 +165,15 @@ class ConvND(nn.Module):
         elif self._is_conv3():
             y = conv3(self._conv3_input(x), self.kernel)
         else:
-            y = conv_nd(self._cast(x), self.kernel, stride=self.stride,
-                        padding=self.padding)
+            x = self._cast(x)
+            fuse = act and self.bias is None
+            act = act and not fuse
+            y = conv_nd(x, self.kernel, stride=self.stride,
+                        padding=self.padding,
+                        leaky=slope_in(x.dtype) if fuse else None)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        return y
+        return leaky(y) if act else y
 
 
 class ConvActND(ConvND):
@@ -339,7 +350,7 @@ class DownBlock(nn.Module):
             skip = leaky(self.norm1(self.conv(x)))
             return leaky(self.norm2(self.down(skip))), skip
         skip = self.conv(x)
-        return leaky(self.down(skip)), skip
+        return self.down(skip, act=True), skip
 
 
 class UpBlock(nn.Module):

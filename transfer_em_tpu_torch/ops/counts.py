@@ -3,8 +3,9 @@
 Each wrapper adds one to its count where it launches its kernel, and
 nowhere else (``ops/cuda_conv.py``, ``ops/cuda_kernels.py``,
 ``ops/cuda_int8.py``, ``ops/quant.py``); ``ops/convs.py`` counts which form
-each transposed conv took.  The benches and ``chip_smoke.py`` read and
-reset them here, so a new kernel or counter is added once."""
+each transposed conv and each k4 stride-2 down conv took.  The benches and
+``chip_smoke.py`` read and reset them here, so a new kernel or counter is
+added once."""
 
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ def read_counts() -> Dict[str, int]:
     (:data:`PACKS`), and the transposed convs by form: ``transpose_phase``
     (the phase conv, whose k3 conv counts under conv3 in 3D) and
     ``transpose_cudnn`` (cuDNN's transposed conv; the int8 transposed conv
-    is neither)."""
+    is neither), and the k4 stride-2 VALID convs by form: ``down_s2d`` (the
+    space-to-depth conv, whose k3 conv counts under conv3) and
+    ``down_cudnn`` (``F.conv{2,3}d``; the int8 down conv is neither)."""
     from . import convs, cuda_conv, cuda_int8, cuda_kernels, quant
     c3, lr = cuda_conv.conv3, cuda_kernels.leaky_relu
     return {"conv3": c3.launches,
@@ -36,7 +39,9 @@ def read_counts() -> Dict[str, int]:
             "leaky_relu_bf16": lr.launches_bf16,
             "conv3_weight_packs": cuda_conv.packed_weights.packs,
             "transpose_phase": convs.conv_transpose_nd.phase_calls,
-            "transpose_cudnn": convs.conv_transpose_nd.cudnn_calls}
+            "transpose_cudnn": convs.conv_transpose_nd.cudnn_calls,
+            "down_s2d": convs.conv_nd.s2d_calls,
+            "down_cudnn": convs.conv_nd.cudnn_calls}
 
 
 def reset_counts() -> None:
@@ -53,3 +58,4 @@ def reset_counts() -> None:
     cuda_conv.packed_weights.packs = 0
     convs.conv_transpose_nd.phase_calls = 0
     convs.conv_transpose_nd.cudnn_calls = 0
+    convs.conv_nd.s2d_calls = convs.conv_nd.cudnn_calls = 0

@@ -25,8 +25,10 @@ The JAX package's convs reduce to that stride-1 conv exactly, since
 integer sums do not depend on their order:
 
 * a stride-s VALID conv (the k4 stride-2 down convs): the kernel padded to
-  a multiple of s per axis, input and kernel space-to-depth by s, then a
-  stride-1 conv with ceil(k/s) taps per axis and s^n * C channels;
+  a multiple of s per axis, input and kernel space-to-depth by s
+  (``ops/convs.py`` :func:`space_to_depth`, :func:`kernel_to_depth`, which
+  the float32 down convs' route shares), then a stride-1 conv with
+  ceil(k/s) taps per axis and s^n * C channels;
 * SAME at stride 1: the input zero-padded as ``lax`` pads it;
 * the TF-SAME stride-2 k4 transposed conv: its phase decomposition
   (``ops/convs.py`` :func:`phase_kernel`), one k3 conv over the codes
@@ -64,8 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .convs import (interleave_phases, phase_kernel, same_padding,
-                    same_transpose_padding)
+from .convs import (interleave_phases, kernel_to_depth, phase_kernel,
+                    same_padding, same_transpose_padding, space_to_depth)
 from .cuda_conv import storage_cached
 from .cuda_int8 import conv_int8, pack_int8_weights
 
@@ -90,35 +92,6 @@ def quantize_sym(a: torch.Tensor, axes: Sequence[int]
     scale = torch.clamp(amax, min=1e-12) / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
     return q, scale
-
-
-def space_to_depth(x: torch.Tensor, s: int) -> torch.Tensor:
-    """(B, *S, C) with every S divisible by s -> (B, *(S/s), s^n * C), the
-    channel index (p_1, .., p_n, c) with p_i the offset along axis i."""
-    n = x.dim() - 2
-    bsz, sp, c = x.shape[0], tuple(x.shape[1:-1]), x.shape[-1]
-    shape = [bsz]
-    for d in sp:
-        shape += [d // s, s]
-    x = x.reshape(shape + [c])
-    perm = [0] + [1 + 2 * i for i in range(n)] + [2 + 2 * i
-                                                  for i in range(n)]
-    return x.permute(perm + [1 + 2 * n]).reshape(
-        (bsz,) + tuple(d // s for d in sp) + (s ** n * c,))
-
-
-def kernel_to_depth(k: torch.Tensor, s: int) -> torch.Tensor:
-    """(k,)*n + (C, O), k divisible by s -> (k/s,)*n + (s^n * C, O), the
-    input channels ordered as :func:`space_to_depth` orders them."""
-    n = k.dim() - 2
-    kk, c, o = k.shape[0], k.shape[-2], k.shape[-1]
-    shape = []
-    for _ in range(n):
-        shape += [kk // s, s]
-    k = k.reshape(shape + [c, o])
-    perm = [2 * i for i in range(n)] + [1 + 2 * i for i in range(n)]
-    return k.permute(perm + [2 * n, 2 * n + 1]).reshape(
-        (kk // s,) * n + (s ** n * c, o))
 
 
 def _words(c: int) -> int:
