@@ -76,11 +76,12 @@ each printing one JSON line:
             transposed and down convs on cuDNN's; device
             mode at the 40-tile chunks' batch bit-equal to B=128; every
             kernel call of one slab forward (conv3 at all 8 layers,
-            LeakyReLU at 2, after the up convs, preprocess, postprocess),
+            down4 at both down convs, LeakyReLU at 2, after the up convs,
+            preprocess, postprocess),
             recorded at its own shape, against its plain version, with
             times beside the bound; device mode at B = 64, 128, 256; every
             kernel must launch in every mode, every f32 mode's transposed
-            convs as the phase conv and its down convs as the s2d conv
+            convs as the phase conv and its down convs on the down4 kernel
             (none on cuDNN's), with no weight packed after its warm call.
 7. train_check  one CycleGAN train step (wf=8, B=4, dropout off) through
             the kernels and one through the plain versions on the card, from
@@ -197,10 +198,13 @@ each printing one JSON line:
             against cuDNN's (False), TF32 off, at up1.up / up0.up (B=128),
             the slab's B=1 up0.up and wf=1's two up convs (B=16), f32 (at
             conv3's f32 tolerance) and bf16, both timed; the k4 stride-2
-            down conv's s2d form on conv3 (the default of an f32
-            inference call) against F.conv3d, TF32 off, at down1.down /
-            down2.down (B=128), in the slab's B=1 planes and at wf=1's
-            two down convs (B=16), the same way; with
+            down conv on the down4 kernel (the default of an f32
+            inference call) against its plain version, TF32 off, at
+            conv3's f32 tolerance, at down1.down / down2.down /
+            disc.down1.down (B=128) and wf=1's two down convs (B=16),
+            timed beside its bound, its plain version and F.conv3d,
+            bf16's default cuDNN (the slab's B=1 planes are checked in
+            the volume phase at their own shapes); with
             TensorFlow, a Keras .h5 -> load_generator -> make_tile_step
             round trip (else listed under ``not_run``); then, counted,
             the int8 tile step (make_tile_step, tpad 2) against f32 and
@@ -322,7 +326,8 @@ each printing one JSON line:
    ``twod_launches`` from the twod phase's quick start,
    ``train_bf16_launches`` from the bf16 quick start, ``int8_launches``
    from the int8 tile step (``launches`` for conv_int8 and
-   quantize_int8), ``twod`` the 2D
+   quantize_int8; down4's times and bound from the int8 phase's down conv
+   cases, the generator's two at B=128 summed), ``twod`` the 2D
    shapes' kernel times, ``train_bf16`` conv3's and LeakyReLU's bf16 times
    at the train step's shapes, ``slab_shapes`` from the volume phase's
    kernel checks, ``parallel_launches`` from phase 14's meshed calls,
@@ -535,6 +540,66 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act,
         rec["library_graph_ms"] = graph_ms(lib)
     rec.update(extra or {})
     emit(rec)
+    return rec
+
+
+def _down4_case(dev, gen, name, shape, c, o, dtype=torch.float32,
+                act=True):
+    """The k4 stride-2 VALID conv at (``shape`` + (c,)) x (4, 4, 4, c, o),
+    TF32 off, under inference_mode: the counts of conv_nd's default route
+    (``default_route``), F.conv3d's time (``library_ms``, its LeakyReLU
+    after it with ``act``); in float32 also the down4 kernel against its
+    plain version (``down4_plain``, the 2x2x2-tap conv over x's
+    space-to-depth) without and with the epilogue at conv3's f32 tolerance
+    (1e-4 max(1, |ref|)), and the kernel's and the plain version's times
+    (with ``act``'s epilogue) beside the bound (bytes of x, w and y once at
+    HBM_BYTES_PER_S, or the 64 taps' products at 495 TFLOP/s)."""
+    from transfer_em_tpu_torch.ops import convs, cuda_down
+    from transfer_em_tpu_torch.ops.cuda_kernels import LEAKY_SLOPE
+
+    x = torch.randn(shape + (c,), generator=gen, device=dev).to(dtype)
+    w = torch.randn((4, 4, 4, c, o), generator=gen,
+                    device=dev) / (64 * c) ** 0.5
+    leaky = LEAKY_SLOPE if act else None
+    x_lib, w_lib = x.permute(0, 4, 1, 2, 3), w.to(dtype).permute(4, 3, 0, 1, 2)
+
+    def lib():
+        y = F.conv3d(x_lib, w_lib, stride=2)
+        return F.leaky_relu(y, LEAKY_SLOPE) if act else y
+
+    rec = {"kernel": "down4", "layer": name, "shape": list(x.shape),
+           "out_channels": o, "dtype": str(dtype).replace("torch.", ""),
+           "epilogue": act}
+    with cudnn_tf32(False), torch.inference_mode():
+        reset_counts()
+        convs.conv_nd(x, w, stride=2)
+        rec["default_route"] = {k: read_counts()[k]
+                                for k in ("down_k4", "down_cudnn", "down4")}
+        rec["library_ms"] = cuda_ms(lib)
+        if dtype != torch.float32:
+            rec["ok"] = True
+            return rec
+        errs = []
+        for slope in (None, LEAKY_SLOPE):
+            ref = cuda_down.down4_plain(x, w, slope)
+            got = cuda_down.down4(x, w, slope)
+            ref_max = float(ref.abs().max())
+            errs.append((float((got - ref).abs().max()), ref_max,
+                         1e-4 * max(1.0, ref_max)))
+            del ref, got
+        n_out = shape[0] * math.prod(s // 2 - 1 for s in shape[1:]) * o
+        b_ms, b_by = bound(4 * (x.numel() + w.numel() + n_out),
+                           2.0 * n_out * 64 * c, dtype, peak=495e12)
+        rec.update({
+            "max_abs_err": max(e for e, _, _ in errs),
+            "ref_max_abs": errs[0][1],
+            "rel_err": max(e / m for e, m, _ in errs),
+            "tol": errs[0][2], "ok": all(e <= t for e, _, t in errs),
+            "errs_by_epilogue": {"none": errs[0][0], "leaky": errs[1][0]},
+            "ms": cuda_ms(lambda: cuda_down.down4(x, w, leaky)),
+            "plain_ms": cuda_ms(lambda: cuda_down.down4_plain(x, w, leaky)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "nc": cuda_down.down4_plan(c, o).nc})
     return rec
 
 
@@ -903,26 +968,31 @@ def plain_versions(noise=0.0, seed=5):
     """Route the models and the tile step through the plain PyTorch versions
     (on CUDA tensors too, differentiable by autograd): the reference path of
     the serving and train checks.  ``noise`` > 0 multiplies every conv3's
-    f32 sums by (1 + noise * N(0, 1)), drawn from ``seed``, before they
-    round to the input's dtype: a perturbation of the plain path's forward
-    of a chosen relative size."""
+    and down4's f32 sums by (1 + noise * N(0, 1)), drawn from ``seed``,
+    before they round to the input's dtype: a perturbation of the plain
+    path's forward of a chosen relative size."""
     from transfer_em_tpu_torch.infer import device_stitch, slab, tiling
     from transfer_em_tpu_torch.models import blocks
-    from transfer_em_tpu_torch.ops import convs, cuda_conv, cuda_int8, quant
+    from transfer_em_tpu_torch.ops import (convs, cuda_conv, cuda_down,
+                                           cuda_int8, quant)
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def conv3(x, w, leaky=None):
-        if not noise:
-            return cuda_conv.conv3_plain(x, w, leaky)
-        # the noise on the f32 sums, before they round to x's dtype
-        y = cuda_conv.conv3_plain(x.float(), w.to(x.dtype).float())
-        y = (y * (1.0 + noise * torch.randn(y.shape, generator=gen,
-                                             device=y.device))).to(x.dtype)
-        return y if leaky is None else torch.where(y >= 0, y, y * leaky)
+    def noisy(plain):
+        def conv(x, w, leaky=None):
+            if not noise:
+                return plain(x, w, leaky)
+            # the noise on the f32 sums, before they round to x's dtype
+            y = plain(x.float(), w.to(x.dtype).float())
+            y = (y * (1.0 + noise * torch.randn(
+                y.shape, generator=gen, device=y.device))).to(x.dtype)
+            return y if leaky is None else torch.where(y >= 0, y, y * leaky)
+        return conv
 
+    conv3 = noisy(cuda_conv.conv3_plain)
     swaps = [(blocks, "conv3", conv3), (convs, "conv3", conv3),
+             (convs, "down4", noisy(cuda_down.down4_plain)),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
              (convs, "leaky_relu", ck.leaky_relu_plain),
              (quant, "conv_int8", cuda_int8.conv_int8_plain),
@@ -943,9 +1013,10 @@ def plain_versions(noise=0.0, seed=5):
 @contextlib.contextmanager
 def recorded_calls():
     """Record the distinct kernel-wrapper calls of the generator and the
-    slab path: yields a list of ("conv3", x shape, O, epilogue),
-    ("leaky_relu", shape), ("preprocess_u8", shape) and ("postprocess_u8",
-    shape, tpad) in the order of their first call."""
+    slab path: yields a list of ("conv3", x shape, O, epilogue), ("down4",
+    x shape, O, epilogue), ("leaky_relu", shape), ("preprocess_u8", shape)
+    and ("postprocess_u8", shape, tpad) in the order of their first
+    call."""
     from transfer_em_tpu_torch.infer import slab
     from transfer_em_tpu_torch.models import blocks
     from transfer_em_tpu_torch.ops import convs
@@ -965,6 +1036,8 @@ def recorded_calls():
     swaps = [
         (blocks, "conv3", lambda x, w, leaky=None: (
             "conv3", tuple(x.shape), w.shape[-1], leaky is not None)),
+        (convs, "down4", lambda x, w, leaky=None: (
+            "down4", tuple(x.shape), w.shape[-1], leaky is not None)),
         (blocks, "leaky_relu", lambda v, *_: ("leaky_relu", tuple(v.shape))),
         (convs, "leaky_relu", lambda v, *_: ("leaky_relu", tuple(v.shape))),
         (slab, "preprocess_u8", lambda x, ms: ("preprocess_u8",
@@ -1488,7 +1561,7 @@ def check_volume(dev, smi):
     volume uploaded once), slab, stream (np.memmap source and out=, at two
     budgets) and tiles, f32, one warm and 3 timed calls each (wall, Mvox/s,
     tiles/s, peak memory, launches: every f32 mode's transposed convs on
-    the phase conv and its down convs on the s2d conv, none on cuDNN's,
+    the phase conv and its down convs on the down4 kernel, none on cuDNN's,
     and no weight packed after the warm call) and one profiled call; under
     cudnn.deterministic stream (behind sentinels), auto and tiles bit-equal
     to device; device and slab within one level on at most 1e-3 of the
@@ -1569,14 +1642,15 @@ def check_volume(dev, smi):
             emit({"phase": "volume_mode", "mode": name, **modes[name]})
         rec["modes"] = modes
         # every f32 mode runs its transposed convs as the phase conv and
-        # its down convs as the s2d conv, and packs no weight after its
+        # its down convs on the down4 kernel, and packs no weight after its
         # warm call
         launches_ok = all(
             m["launches"][k] > 0 for m in modes.values()
             for k in (*counters(), "conv3_tc", "conv3_direct",
-                      "transpose_phase", "down_s2d")) and all(
+                      "transpose_phase", "down_k4", "down4")) and all(
             m["launches"][k] == 0 for m in modes.values()
-            for k in ("transpose_cudnn", "down_cudnn", "conv3_weight_packs"))
+            for k in ("transpose_cudnn", "down_cudnn", "conv3_weight_packs",
+                      "down4_weight_packs"))
 
         # exactness: the tile-grid modes bit-equal under cuDNN's
         # deterministic algorithms (its defaults need not repeat bit for
@@ -1665,7 +1739,7 @@ def check_volume(dev, smi):
                and launches16["transpose_cudnn"] > 0
                and launches16["transpose_phase"] == 0
                and launches16["down_cudnn"] > 0
-               and launches16["down_s2d"] == 0
+               and launches16["down_k4"] == launches16["down4"] == 0
                and modes["device"]["launches"]["conv3_bf16"] == 0
                and diff16[0] > 0)
     del gen16, out16
@@ -1680,8 +1754,9 @@ def check_volume(dev, smi):
                                    "peak_memory_gb": peak / 1e9}
 
     # every kernel call of one slab forward, at its own shape, against its
-    # plain version: conv3 f32 (each layer's epilogue; 1e-4 max(1, |ref|)),
-    # LeakyReLU (bit-identical), preprocess (1e-6), postprocess (ties)
+    # plain version: conv3 and down4 f32 (each layer's epilogue; 1e-4
+    # max(1, |ref|)), LeakyReLU (bit-identical), preprocess (1e-6),
+    # postprocess (ties)
     with recorded_calls() as calls:
         predict_volume(vol_d, gen, VOL_START, VOL_SIZE[:2] + (40,), MS_X,
                        MS_Y, mode="slab", device=dev)
@@ -1689,6 +1764,7 @@ def check_volume(dev, smi):
     del vol_d, gen
     torch.cuda.empty_cache()
     layer = {(c, o): n for n, _, c, o, _ in CONV_LAYERS}
+    down = {(c, o): n for n, _, c, o in DOWN_CONV_CASES[:2]}
     g = torch.Generator(device=dev).manual_seed(41)
     slab_kernels = []
     for call in calls:
@@ -1699,6 +1775,14 @@ def check_volume(dev, smi):
                 dev, g, torch.float32, 1e-4,
                 "slab." + layer.get((c, o), f"{c}to{o}"),
                 shape[:-1], c, o, act))
+            continue
+        if kind == "down4":
+            c, o, act = shape[-1], call[2], call[3]
+            k = _down4_case(dev, g, "slab." + down.get((c, o), f"{c}to{o}"),
+                            shape[:-1], c, o, act=act)
+            emit({"phase": "kernel", **k})
+            slab_kernels.append(k)
+            torch.cuda.empty_cache()
             continue
         if kind == "leaky_relu":
             k = _leaky_case(torch.randn(shape, generator=g, device=dev))
@@ -1731,9 +1815,11 @@ def check_volume(dev, smi):
     rec["slab_kernels"] = slab_kernels
     slab_counts = {n: sum(k["kernel"] == n for k in slab_kernels)
                    for n in counters()}
+    slab_counts["down4"] = sum(k["kernel"] == "down4" for k in slab_kernels)
     rec["slab_kernel_checks"] = slab_counts
     slab_ok = (all(k["ok"] for k in slab_kernels)
                and slab_counts["conv3"] == len(CONV_LAYERS)
+               and slab_counts["down4"] == len(down)
                and all(slab_counts.values()))
 
     rec["launches"] = {k: sum(m["launches"][k] for m in modes.values())
@@ -4165,31 +4251,41 @@ PHASE_CONV_CASES = [("up1.up", (B, 13, 13, 13), 32, 16),
                     ("wf1.up0.up", (16, 22, 22, 22), 128, 64)]
 
 
-def _conv_form_cases(dev, gen, cases, form, forms, default, counts, want):
-    """A k4 stride-2 conv's two forms at ``cases``, TF32 off: ``forms`` =
-    (the form on conv3, cuDNN's), each a function of (x, w); the first
-    against the second, f32 gated at conv3's f32 tolerance (1e-4 max(1,
-    |ref|)) and bf16 read, ms of both by events (``ms_<form>``,
-    ``ms_cudnn``); and ``default(x, w)`` under inference_mode with the
-    ``counts`` it launched, which must be ``want(dtype, x shape, Cin,
-    Cout)``."""
-    on_conv3, cudnn = forms
+def _phase_conv_cases(dev, gen):
+    """The transposed conv at PHASE_CONV_CASES, TF32 off: the phase conv on
+    conv3 (phase_decompose=True) against cuDNN's transposed conv (False),
+    f32 gated at conv3's f32 tolerance (1e-4 max(1, |ref|)) and bf16 read,
+    ms of both by events (``ms_phase``, ``ms_cudnn``); and the default form
+    under inference_mode with the counts it launched, which must be: f32
+    below PHASE_CIN_COUT_LIMIT the phase conv (its k3 conv one conv3
+    launch), the rest cuDNN's."""
+    from transfer_em_tpu_torch.ops.convs import (PHASE_CIN_COUT_LIMIT,
+                                                 conv_transpose_nd)
+
+    def phase(x, w):
+        return conv_transpose_nd(x, w, phase_decompose=True)
+
+    def cudnn(x, w):
+        return conv_transpose_nd(x, w, phase_decompose=False)
+
     out = []
-    for name, shape, cin, cout in cases:
+    for name, shape, cin, cout in PHASE_CONV_CASES:
         x = torch.randn(shape + (cin,), generator=gen, device=dev)
         w = torch.randn((4, 4, 4, cin, cout), generator=gen,
                         device=dev) / (64 * cin) ** 0.5
         for dtype in (torch.float32, torch.bfloat16):
             xd = x.to(dtype)
+            on = dtype == torch.float32 and cin * cout < PHASE_CIN_COUT_LIMIT
             with cudnn_tf32(False), torch.inference_mode():
                 ref = cudnn(xd, w)
-                got = on_conv3(xd, w)
+                got = phase(xd, w)
                 err = float((got.float() - ref.float()).abs().max())
                 ref_max = float(ref.float().abs().max())
                 del ref, got
                 reset_counts()
-                default(xd, w)
-                route = {k: read_counts()[k] for k in counts}
+                conv_transpose_nd(xd, w)
+                route = {k: read_counts()[k] for k in (
+                    "transpose_phase", "transpose_cudnn", "conv3")}
                 out.append({
                     "layer": name, "x": list(xd.shape), "cout": cout,
                     "dtype": str(dtype).replace("torch.", ""),
@@ -4197,10 +4293,12 @@ def _conv_form_cases(dev, gen, cases, form, forms, default, counts, want):
                     "rel_err": err / ref_max,
                     "tol": 1e-4 * max(1.0, ref_max),
                     "default_route": route,
-                    "route_ok": route == want(dtype, shape, cin, cout),
-                    "ms_" + form: cuda_ms(lambda: on_conv3(xd, w)),
+                    "route_ok": route == {"transpose_phase": int(on),
+                                          "transpose_cudnn": int(not on),
+                                          "conv3": int(on)},
+                    "ms_phase": cuda_ms(lambda: phase(xd, w)),
                     "ms_cudnn": cuda_ms(lambda: cudnn(xd, w))})
-            emit({"phase": form + "_conv", **out[-1]})
+            emit({"phase": "phase_conv", **out[-1]})
         del x, w, xd
         torch.cuda.empty_cache()
     return {"cases": out, "ok": all(
@@ -4208,63 +4306,41 @@ def _conv_form_cases(dev, gen, cases, form, forms, default, counts, want):
         and r["route_ok"] for r in out)}
 
 
-def _phase_conv_cases(dev, gen):
-    """The transposed conv at PHASE_CONV_CASES (_conv_form_cases): the
-    phase conv on conv3 (phase_decompose=True) against cuDNN's transposed
-    conv (False); by default f32 below PHASE_CIN_COUT_LIMIT the phase conv
-    (its k3 conv one conv3 launch), the rest cuDNN's."""
-    from transfer_em_tpu_torch.ops.convs import (PHASE_CIN_COUT_LIMIT,
-                                                 conv_transpose_nd)
-
-    def want(dtype, shape, cin, cout):
-        phase = (dtype == torch.float32
-                 and cin * cout < PHASE_CIN_COUT_LIMIT)
-        return {"transpose_phase": int(phase),
-                "transpose_cudnn": int(not phase), "conv3": int(phase)}
-
-    return _conv_form_cases(
-        dev, gen, PHASE_CONV_CASES, "phase",
-        (lambda x, w: conv_transpose_nd(x, w, phase_decompose=True),
-         lambda x, w: conv_transpose_nd(x, w, phase_decompose=False)),
-        conv_transpose_nd, ("transpose_phase", "transpose_cudnn", "conv3"),
-        want)
-
-
 # (layer, x shape without channels, Cin, Cout) of the k4 stride-2 down convs
-# that the s2d form serves: wf=8 at the device batch, the slab's B=1 planes
-# and wf=1 (64-128 channels) at its device batch; and the discriminator's
-# down2.down (6^3 out), which the route leaves to cuDNN
+# that the down4 kernel serves: wf=8 at the device batch (the generator's
+# two, which name the slab's calls in the volume phase, and the
+# discriminator's first) and wf=1 (64-128 channels) at its device batch;
+# and the discriminator's down2.down (6^3 out), which the route leaves to
+# cuDNN.  The slab's B=1 planes are checked at their own shapes in the
+# volume phase.
 DOWN_CONV_CASES = [("down1.down", (B, 70, 70, 70), 8, 8),
                    ("down2.down", (B, 32, 32, 32), 16, 16),
-                   ("slab.down1.down", (1, 70, 390, 390), 8, 8),
-                   ("slab.down2.down", (1, 32, 192, 192), 16, 16),
+                   ("disc.down1.down", (B, 38, 38, 38), 8, 8),
                    ("wf1.down1.down", (16, 70, 70, 70), 64, 64),
                    ("wf1.down2.down", (16, 32, 32, 32), 128, 128),
                    ("disc.down2.down", (B, 14, 14, 14), 32, 32)]
 
 
 def _down_conv_cases(dev, gen):
-    """The k4 stride-2 VALID conv at DOWN_CONV_CASES (_conv_form_cases):
-    the space-to-depth conv on conv3 (``ops/convs._conv_down_s2d``) against
-    ``F.conv3d`` (cuDNN); by default f32 with at least DOWN_MIN_OUT
-    outputs an axis the s2d conv (one conv3 launch), the rest cuDNN's."""
-    from transfer_em_tpu_torch.ops import convs
+    """The k4 stride-2 VALID conv at DOWN_CONV_CASES in f32 and bf16
+    (:func:`_down4_case`): f32 with at least DOWN_MIN_OUT outputs an axis
+    must take the down4 kernel by default (one down4 launch), the rest and
+    bf16 cuDNN's; in f32 the kernel must match its plain version."""
+    from transfer_em_tpu_torch.ops.convs import DOWN_MIN_OUT
 
-    def cudnn(x, w):
-        return convs._to_channels_last(F.conv3d(
-            convs._to_channels_first(x),
-            w.to(x.dtype).permute(4, 3, 0, 1, 2), stride=2))
-
-    def want(dtype, shape, cin, cout):
-        s2d = (dtype == torch.float32
-               and min(shape[1:]) // 2 - 1 >= convs.DOWN_MIN_OUT)
-        return {"down_s2d": int(s2d), "down_cudnn": int(not s2d),
-                "conv3": int(s2d)}
-
-    return _conv_form_cases(
-        dev, gen, DOWN_CONV_CASES, "s2d", (convs._conv_down_s2d, cudnn),
-        lambda x, w: convs.conv_nd(x, w, stride=2),
-        ("down_s2d", "down_cudnn", "conv3"), want)
+    out = []
+    for name, shape, cin, cout in DOWN_CONV_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = _down4_case(dev, gen, name, shape, cin, cout, dtype)
+            k4 = int(dtype == torch.float32
+                     and min(shape[1:]) // 2 - 1 >= DOWN_MIN_OUT)
+            rec["route_ok"] = rec["default_route"] == {
+                "down_k4": k4, "down_cudnn": 1 - k4, "down4": k4}
+            rec["ok"] = rec["ok"] and rec["route_ok"]
+            out.append(rec)
+            emit({"phase": "down_conv", **rec})
+            torch.cuda.empty_cache()
+    return {"cases": out, "ok": all(r["ok"] for r in out)}
 
 
 def _int8_tf_interop(dev, vol):
@@ -4301,7 +4377,7 @@ def check_int8(dev, smi):
     every int8 layer (INT8_CHECKS), the int8 convs against an independent
     reference with three planted faults, the int8 goldens, the
     phase-decomposed transposed conv against cuDNN's default, the down
-    convs' s2d form against cuDNN's, TF interop
+    convs' down4 kernel against its plain version, TF interop
     where TensorFlow imports, then the int8 tile step against f32 and bf16
     (INT8_STEPS; the first's int8 timed calls are the main path, counted)."""
     t_phase = time.perf_counter()
@@ -4360,6 +4436,43 @@ def _int8_sums(rows, peak=INT8_TOPS):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "library_ms": None}
+
+
+def down4_kernel_line(cases, served, trained):
+    """The ``kernels`` line's down4 entry from the int8 phase's
+    DOWN_CONV_CASES (:func:`_down_conv_cases`): times, plain and library
+    times and bound summed over the generator's two down convs of one
+    B=128 tile batch (f32), the wf=1 pair at B=16 beside them; launches
+    of the serving phase (``served``) and the train phase (``trained``).
+    The slab's calls join it as ``slab_shapes`` from the volume phase."""
+    f32 = {r["layer"]: r for r in cases if r["dtype"] == "float32"}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+
+    def summed(names):
+        rows = [f32[n] for n in names]
+        return {**{k: sum(r[k] for r in rows) for k in keys},
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "bound_by": "+".join(sorted({r["bound_by"] for r in rows}))}
+
+    gen_names = [c[0] for c in DOWN_CONV_CASES[:2]]
+    checked = [r for r in f32.values() if "ms" in r]
+    return {"name": "down4", "route": "cuda",
+            "source": "transfer_em_tpu_torch/csrc/down4_tc.cu",
+            "replaces": "transfer_em_tpu/ops/convs.py:62 (not a Pallas "
+                        "kernel: XLA's conv, lax.conv_general_dilated, of "
+                        "conv_nd's k4 stride-2 down convs)",
+            "launches": served["down4"], **summed(gen_names),
+            "train_launches": trained["down4"],
+            "weight_packs": served["down4_weight_packs"],
+            "per": "the generator's 2 down convs of one B=128 tile batch "
+                   "(down1.down, down2.down), float32, LeakyReLU fused",
+            "wf1_b16": summed(["wf1.down1.down", "wf1.down2.down"]),
+            "checks": len(checked),
+            "passed": sum(r["ok"] for r in checked),
+            "layers": [{k: r.get(k) for k in (
+                "layer", "shape", "out_channels", "nc", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                "default_route")} for r in f32.values()]}
 
 
 def int8_kernel_lines(int8):
@@ -6139,6 +6252,7 @@ def main():
                               "per": "the discriminator's 5 activations "
                                      "at B=128, float32"}}),
     ]
+    lines.append(down4_kernel_line(int8["down_conv"]["cases"], la, lt))
     le, lv, ln = em2em["launches"], volume["launches"], serve_ng["launches"]
     l2, lb = twod["launches"], bf16["launches"]
     for line in lines:

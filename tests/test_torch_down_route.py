@@ -1,17 +1,22 @@
 """Which form the port's k4 stride-2 down conv takes by default
-(``ops/convs.py`` ``down_route``): the space-to-depth conv on conv3 for a
-3D VALID float32 call that records no gradient, ``F.conv{2,3}d`` for every
-other call; the s2d form against ``F.conv3d`` and the JAX package's
-``conv_nd`` at the generator's and discriminator's down shapes; the fused
-LeakyReLU; the s2d kernel cached per parameter; the counts by form.
+(``ops/convs.py`` ``down_route``): the down4 kernel (``ops/cuda_down.py``,
+``csrc/down4_tc.cu``) for a 3D VALID float32 call that records no
+gradient, ``F.conv{2,3}d`` for every other call; the kernel's plain
+version against ``F.conv3d`` and the JAX package's ``conv_nd`` at the
+generator's and discriminator's down shapes; the kernel's walk (its input
+patch, gather and packed weights, as ``csrc/down4_tc.cu`` indexes them)
+against ``F.conv3d``; the fused LeakyReLU; the weight pack cached per
+parameter; the counts by form.
 
-Tolerances: each output of a k4 conv sums 64 * Cin products, and the s2d
-form sums them in another order (8 * Cin channels a tap over 8 taps) than
-``F.conv3d`` or XLA does.  At these shapes, with weights of std
+Tolerances: each output of a k4 conv sums 64 * Cin products, and the
+plain version sums them in another order (8 * Cin channels a tap over 8
+taps) than ``F.conv3d`` or XLA does.  At these shapes, with weights of std
 1/sqrt(64 * Cin) (outputs O(1)), either float32 form lies within 3.3e-6
 of the largest value of a float64 reference, so the forms are held to
 each other within 1e-5 of the largest value: about three times the widest
 float32 gap, and far under an error of one term."""
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,14 +27,14 @@ import torch.nn.functional as F
 from transfer_em_tpu.ops import convs as jconvs
 from transfer_em_tpu_torch.models import Discriminator, UNetGenerator
 from transfer_em_tpu_torch.models.blocks import DownBlock, leaky
-from transfer_em_tpu_torch.ops import convs, quant
+from transfer_em_tpu_torch.ops import convs, cuda_down, quant
 from transfer_em_tpu_torch.ops.counts import read_counts, reset_counts
 from transfer_em_tpu_torch.ops.cuda_kernels import slope_in
 
 torch.set_num_threads(1)
 
-# (layer, x shape without channels, Cin, Cout, default route the s2d
-# form) at B=1: the wf=8 generator's and discriminator's down convs, a
+# (layer, x shape without channels, Cin, Cout, default route the down4
+# kernel) at B=1: the wf=8 generator's and discriminator's down convs, a
 # wf=1 width (64 channels), odd extents, and small odd and even extents
 # (under DOWN_MIN_OUT outputs an axis: F.conv3d by default)
 DOWN_CONVS = [("gen.down1.down", (1, 70, 70, 70), 8, 8, True),
@@ -63,7 +68,7 @@ def _cudnn_form(x, w):
 
 def _routes():
     c = read_counts()
-    return c["down_s2d"], c["down_cudnn"]
+    return c["down_k4"], c["down_cudnn"]
 
 
 def _assert_parity(got, want):
@@ -74,21 +79,21 @@ def _assert_parity(got, want):
                                atol=REL_TOL * scale)
 
 
-@pytest.mark.parametrize("layer,shape,cin,cout,s2d", DOWN_CONVS,
+@pytest.mark.parametrize("layer,shape,cin,cout,k4", DOWN_CONVS,
                          ids=[c[0] for c in DOWN_CONVS])
-def test_s2d_form_matches_cudnn_and_jax(layer, shape, cin, cout, s2d):
-    """The s2d form (the private helper, forced) against F.conv3d and the
-    JAX package's conv_nd; the default of a call that records no gradient
-    bit-equal to the forced form where the rule takes it (the generator's
-    down convs), to F.conv3d where not; the output extent n//2 - 1 an
-    axis, an odd extent's last voxel unread."""
+def test_k4_form_matches_cudnn_and_jax(layer, shape, cin, cout, k4):
+    """The down4 kernel's plain version against F.conv3d and the JAX
+    package's conv_nd; the default of a call that records no gradient
+    bit-equal to it where the rule takes it (the generator's down convs),
+    to F.conv3d where not; the output extent n//2 - 1 an axis, an odd
+    extent's last voxel unread."""
     x, w = _x(shape, cin), _kernel(cin, cout)
     with torch.inference_mode():
-        got = convs._conv_down_s2d(x, w)
+        got = cuda_down.down4_plain(x, w)
         reset_counts()
         routed = convs.conv_nd(x, w, stride=2)
-        assert _routes() == ((1, 0) if s2d else (0, 1))
-    assert torch.equal(routed, got if s2d else _cudnn_form(x, w))
+        assert _routes() == ((1, 0) if k4 else (0, 1))
+    assert torch.equal(routed, got if k4 else _cudnn_form(x, w))
     want = np.asarray(jconvs.conv_nd(jnp.asarray(x.numpy()),
                                      jnp.asarray(w.numpy()), stride=2))
     assert got.shape == want.shape == (shape[0],) + tuple(
@@ -110,23 +115,65 @@ def test_planted_channel_order_fault_is_caught(monkeypatch):
 
     _, shape, cin, cout, _ = DOWN_CONVS[1]
     x, w = _x(shape, cin), _kernel(cin, cout)
-    monkeypatch.setattr(convs, "kernel_to_depth", swapped)
+    monkeypatch.setattr(cuda_down, "kernel_to_depth", swapped)
     with torch.inference_mode():
-        got = convs._conv_down_s2d(x, w)
+        got = cuda_down.down4_plain(x, w)
     with pytest.raises(AssertionError):
         _assert_parity(got, _cudnn_form(x, w))
 
 
-def test_space_to_depth_padded_is_one_block_larger():
-    """The padded buffer: the crop's space_to_depth, then zeros on each
-    high face, bit for bit; quant.py's names are convs.py's."""
-    x = _x((2, 9, 6, 7), 3)
-    got = convs.space_to_depth_padded(x)
-    want = F.pad(convs.space_to_depth(x[:, :8, :6, :6], 2),
-                 (0, 0, 0, 1, 0, 1, 0, 1))
-    assert torch.equal(got, want)
-    assert quant.space_to_depth is convs.space_to_depth
-    assert quant.kernel_to_depth is convs.kernel_to_depth
+def _tap_order_fault(k, s):
+    """kernel_to_depth with the taps of each axis ordered (r, j) where
+    space_to_depth's blocks run (j, r): w[2j + r] read as w[2r + j]."""
+    n = k.dim() - 2
+    kk, c, o = k.shape[0], k.shape[-2], k.shape[-1]
+    k = k.reshape([s, kk // s] * n + [c, o])
+    perm = [1 + 2 * i for i in range(n)] + [2 * i for i in range(n)]
+    return k.permute(perm + [2 * n, 2 * n + 1]).reshape(
+        (kk // s,) * n + (s ** n * c, o))
+
+
+def _stride_offset_fault(x, s):
+    """space_to_depth of x one voxel on along W: the stride-2 blocks start
+    at odd offsets."""
+    shifted = torch.cat([x[:, :, :, 1:], x[:, :, :, :1]], dim=3)
+    return _real_space_to_depth(shifted, s)
+
+
+_real_space_to_depth = cuda_down.space_to_depth
+
+
+@pytest.mark.parametrize("fault", ["tap_order", "stride_offset"])
+def test_planted_plain_fault_is_caught(monkeypatch, fault):
+    """The plain version with a tap-order fault (each axis's taps read
+    (r, j) for (j, r)) or a stride-2 offset fault (the blocks one voxel on
+    along W) fails the parity check against F.conv3d, at the generator's
+    down1.down and down2.down."""
+    if fault == "tap_order":
+        monkeypatch.setattr(cuda_down, "kernel_to_depth", _tap_order_fault)
+    else:
+        monkeypatch.setattr(cuda_down, "space_to_depth", _stride_offset_fault)
+    for _, shape, cin, cout, _ in DOWN_CONVS[:2]:
+        x, w = _x(shape, cin), _kernel(cin, cout)
+        with torch.inference_mode():
+            got = cuda_down.down4_plain(x, w)
+        with pytest.raises(AssertionError):
+            _assert_parity(got, _cudnn_form(x, w))
+
+
+def test_space_to_depth_pair_is_shared():
+    """The plain version's space-to-depth pair is the int8 path's (quant.py
+    imports cuda_down's), and it pairs: a 2-tap stride-1 conv over
+    space_to_depth(x) by kernel_to_depth(w) is the k4 stride-2 conv of the
+    even crop (an odd extent's last voxel unread)."""
+    assert quant.space_to_depth is cuda_down.space_to_depth
+    assert quant.kernel_to_depth is cuda_down.kernel_to_depth
+    x, w = _x((2, 9, 6, 7), 3), _kernel(3, 5)
+    xs = cuda_down.space_to_depth(x[:, :8, :6, :6], 2)
+    assert xs.shape == (2, 4, 3, 3, 24)
+    # block (1, 2, 0), offsets (0, 1, 1): channels 3 * 3 .. 3 * 3 + 2
+    assert torch.equal(xs[0, 1, 2, 0, 9:12], x[0, 2, 5, 1])
+    _assert_parity(cuda_down.down4_plain(x, w), _cudnn_form(x, w))
 
 
 def test_route_rule_reads_only_the_call():
@@ -184,8 +231,8 @@ def _vmapped(x, w):
 def test_other_down_calls_stay_on_cudnn(call):
     """bf16, a forward that records a gradient (or may, under vmap), and
     2D each run F.conv{2,3}d, as before, at an extent the route takes in
-    f32 inference: the s2d count stays, the other rises (once a vmapped
-    call)."""
+    f32 inference: the down_k4 count stays, the other rises (once a
+    vmapped call)."""
     x, w = _x((1, 32, 32, 32), 8), _kernel(8, 8)
     reset_counts()
     call(x, w)
@@ -207,14 +254,15 @@ def test_same_and_other_convs_count_neither():
 
 
 def test_fused_leaky_equals_leaky_after_cudnn_form():
-    """conv_nd(leaky=) on the route: the LeakyReLU of conv3's epilogue is
-    exactly leaky after the s2d form, and within the parity tolerance of
-    leaky after the cuDNN form; off the route, exactly leaky after it."""
+    """conv_nd(leaky=) on the route: the LeakyReLU of the kernel's epilogue
+    is exactly leaky after the plain version, and within the parity
+    tolerance of leaky after the cuDNN form; off the route, exactly leaky
+    after it."""
     x, w = _x((1, 32, 34, 32), 8), _kernel(8, 16)
     slope = slope_in(torch.float32)
     with torch.inference_mode():
         fused = convs.conv_nd(x, w, stride=2, leaky=slope)
-        plain = convs._conv_down_s2d(x, w)
+        plain = cuda_down.down4_plain(x, w)
     assert torch.equal(fused, leaky(plain))
     _assert_parity(fused, leaky(_cudnn_form(x, w)))
     wg = w.clone().requires_grad_()
@@ -250,8 +298,8 @@ def test_down_block_fuses_its_leaky_on_the_route():
 
 def test_counts_through_the_generator_under_inference_mode():
     """An f32 UNetGenerator forward under inference_mode runs both down
-    convs as the s2d conv, none on F.conv3d (on the card each is one more
-    conv3 launch; the CPU's conv3 is its plain version, uncounted); the
+    convs on the down4 route, none on F.conv3d (on the card each is one
+    down4 launch; the CPU's is its plain version, uncounted); the
     discriminator its first (18^3 out), its 6^3 and 1^3 ones on F.conv3d;
     bf16 and a recorded gradient take F.conv3d."""
     gen = UNetGenerator(wf=8).eval()
@@ -260,7 +308,7 @@ def test_counts_through_the_generator_under_inference_mode():
     with torch.inference_mode():
         gen(x)
     c = read_counts()
-    assert (c["down_s2d"], c["down_cudnn"]) == (2, 0)
+    assert (c["down_k4"], c["down_cudnn"], c["down4"]) == (2, 0, 0)
     assert (c["transpose_phase"], c["transpose_cudnn"]) == (2, 0)
     reset_counts()
     with torch.inference_mode():
@@ -275,31 +323,169 @@ def test_counts_through_the_generator_under_inference_mode():
     assert _routes() == (0, 2)
 
 
-def test_s2d_kernel_built_once_and_rebuilt_after_update(monkeypatch):
-    """A second forward builds no s2d kernel; an in-place update of one
-    down conv's kernel under no_grad rebuilds that one alone, and the
-    route then computes with the updated kernel."""
-    built = []
-    real = convs.down_kernel
+# -- the kernel's own walk (csrc/down4_tc.cu), on the CPU ------------------
 
-    def counting(kernel):
-        built.append(tuple(kernel.shape))
-        return real(kernel)
+def _unpack(packed, c, o):
+    """pack_down4_weights' inverse: (4, 4, 4, C, O), hi + lo summed."""
+    p = cuda_down.down4_plan(c, o)
+    v = packed.sum(5)  # (chunk, cb, kd, kh, kw, j, h, row, a)
+    v = v.permute(2, 3, 4, 1, 8, 6, 0, 5, 7)  # kd kh kw cb a h chunk j row
+    v = v.reshape(4, 4, 4, p.n_cb * 8, p.n_chunks * p.nc)
+    return v[:, :, :, :c, :o]
 
-    monkeypatch.setattr(convs, "down_kernel", counting)
+
+@pytest.mark.parametrize("c,o", [(1, 1), (3, 5), (8, 8), (16, 16), (20, 85),
+                                 (64, 64), (128, 128)])
+def test_pack_roundtrip(c, o):
+    """The pack's shape, hi a TF32 value, hi + lo the weight exactly, and
+    the zero padding of C and O."""
+    g = torch.Generator().manual_seed(c * 131 + o)
+    w = torch.randn((4, 4, 4, c, o), generator=g)
+    p = cuda_down.down4_plan(c, o)
+    packed = cuda_down.pack_down4_weights(w)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert tuple(packed.shape) == (p.n_chunks, p.n_cb, 4, 4, 4, 2,
+                                   p.nc // 8, 2, 8, 4)
+    assert torch.equal(_unpack(packed, c, o), w)
+    hi = packed[:, :, :, :, :, 0].contiguous().view(torch.int32)
+    assert (hi & 0x1FFF).eq(0).all()
+    assert int((packed.sum(5) != 0).sum()) == w.numel()  # padding zero
+
+
+def _walk_down4(x, w, tiles, leaky_slope=None):
+    """csrc/down4_tc.cu walked as it walks, in float64: for each block
+    (sample, 4x4x(4 tiles) outputs, output chunk) and channel block, the
+    input patch stored in its slots (W's parities apart), each thread's A
+    words read at the kernel's offsets (its base, the tap's offset, the
+    tile's, kRow8 for the second row set), each B word read where the
+    kernel reads it in the pack, and the sums stored by the epilogue's
+    mapping of rows to outputs; tiles wholly past the edge skipped."""
+    kt, kin, cb = cuda_down.TILE, 2 * cuda_down.TILE + 2, 8
+    bsz, d, h, wd, c = x.shape
+    o = w.shape[-1]
+    plan = cuda_down.down4_plan(c, o)
+    wp = cuda_down.pack_down4_weights(w).double()
+    iw = 2 * kt * tiles + 2
+    wb = iw // 2
+    od_, oh_, ow_ = d // 2 - 1, h // 2 - 1, wd // 2 - 1
+    n_td, n_th = -(-od_ // kt), -(-oh_ // kt)
+    n_tw = -(-ow_ // (kt * tiles))
+    nn = plan.n_chunks * plan.nc
+
+    def slot(sd, sh, sw):
+        return ((sd * kin + sh) * 2 + (sw & 1)) * wb + (sw >> 1)
+
+    warp = torch.arange(4).view(4, 1, 1)
+    g = torch.arange(8).view(1, 8, 1)
+    t = torch.arange(4).view(1, 1, 4)
+    base = slot(2 * warp, 2 * (g >> 2), 2 * (g & 3)) * cb + 2 * t
+    row8 = 4 * 2 * wb * cb
+    rows = (16 * warp + g).expand(4, 8, 4)
+    tt = t.expand(4, 8, 4)
+    sd, sh, sw = torch.meshgrid(torch.arange(kin), torch.arange(kin),
+                                torch.arange(iw), indexing="ij")
+    slots = slot(sd, sh, sw).reshape(-1)
+    # B[k, n] as the kernel reads core matrix j of a part: b0 = (k t,
+    # n 8j + g) at word 64j + 4g + t, b1 = (k t + 4, n 8j + g) 32 words on
+    k_, n_ = torch.meshgrid(torch.arange(8), torch.arange(nn), indexing="ij")
+    b_chunk, b_j = n_ // plan.nc, n_ % plan.nc // 8
+    b_word = k_ // 4 * 32 + n_ % 8 * 4 + k_ % 4
+    xd = torch.zeros((bsz, d + kin, h + kin, wd + iw, plan.n_cb * cb),
+                     dtype=torch.float64)
+    xd[:, :d, :h, :wd, :c] = x.double()
+    y = torch.zeros((bsz, od_, oh_, ow_, nn), dtype=torch.float64)
+    for b, td, th, tw in itertools.product(range(bsz), range(n_td),
+                                           range(n_th), range(n_tw)):
+        od0, oh0, ow0 = td * kt, th * kt, tw * kt * tiles
+        live = min(tiles, -(-(ow_ - ow0) // kt))
+        acc = torch.zeros((tiles, 64, nn), dtype=torch.float64)
+        for cbi in range(plan.n_cb):
+            patch = xd[b, 2 * od0:2 * od0 + kin, 2 * oh0:2 * oh0 + kin,
+                       2 * ow0:2 * ow0 + iw, cbi * cb:(cbi + 1) * cb]
+            smem = torch.zeros((kin * kin * iw, cb), dtype=torch.float64)
+            smem[slots] = patch.reshape(-1, cb)
+            smem = smem.reshape(-1)
+            for st, kw in itertools.product(range(16), range(4)):
+                kd, kh = st >> 2, st & 3
+                src0 = base + (((kd * kin + kh) * 2 + (kw & 1)) * wb
+                               + (kw >> 1)) * cb
+                step = wp[:, cbi, kd, kh, kw].sum(1).reshape(
+                    plan.n_chunks, plan.nc // 8, 64)  # hi + lo
+                bmat = step[b_chunk, b_j, b_word]
+                for p in range(live):
+                    src = src0 + p * kt * cb
+                    a = torch.zeros((64, 8), dtype=torch.float64)
+                    a[rows, tt] = smem[src]
+                    a[rows + 8, tt] = smem[src + row8]
+                    a[rows, tt + 4] = smem[src + 1]
+                    a[rows + 8, tt + 4] = smem[src + row8 + 1]
+                    acc[p] += a @ bmat
+        for p, half in itertools.product(range(tiles), range(2)):
+            od = od0 + warp.expand(4, 8, 1)
+            oh = oh0 + (g >> 2).expand(4, 8, 1) + 2 * half
+            ow = ow0 + p * kt + (g & 3).expand(4, 8, 1)
+            m = (16 * warp + g + 8 * half).expand(4, 8, 1)
+            ok = (od < od_) & (oh < oh_) & (ow < ow_)
+            y[b, od[ok], oh[ok], ow[ok]] = acc[p, m[ok]]
+    y = y[..., :o]
+    if leaky_slope is not None:
+        y = torch.where(y >= 0, y, y * leaky_slope)
+    return y
+
+
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("shape,c,o", [((1, 13, 11, 21), 8, 8),
+                                       ((1, 10, 12, 19), 3, 5),
+                                       ((2, 9, 10, 11), 20, 20)],
+                         ids=["c8o8", "c3o5_odd", "c20_two_blocks"])
+def test_kernel_walk_drives_the_conv(shape, c, o, tiles):
+    """The kernel's walk (_walk_down4) against F.conv3d in float64 at odd
+    extents, partial tiles along every axis, a tile wholly past the edge
+    (tiles=2 at 9 outputs along W), C under one channel block and over
+    one, O under one chunk; then with the epilogue's LeakyReLU."""
+    x = _x(shape, c, seed=5)
+    w = _kernel(c, o, seed=6)
+    want = _cudnn_form(x.double(), w.double())
+    got = _walk_down4(x, w, tiles)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12)
+    slope = slope_in(torch.float32)
+    act = _walk_down4(x, w, tiles, slope)
+    assert torch.equal(act, torch.where(got >= 0, got, got * slope))
+
+
+@pytest.mark.parametrize("wf", [1, 2, 4, 8, 16, 32])
+def test_down4_plan_covers_the_channels(wf):
+    """The plan of each down conv of the generator and discriminator at
+    ``wf``: O in chunks of the narrowest of the kernel's instantiations
+    (csrc/down4_tc.cu ``tem_down4_tc``: 8, 16, 32, 64) that holds it, or of
+    64 past it, and C in blocks of 8, each covering its channels with less
+    than one chunk (block) of padding."""
+    for c in (max(64 // wf, 1), max(128 // wf, 1), max(256 // wf, 1)):
+        p = cuda_down.down4_plan(c, c)
+        assert p.nc == min(n for n in (8, 16, 32, 64) if n >= min(c, 64))
+        assert c <= p.nc * p.n_chunks < c + p.nc
+        assert c <= p.n_cb * 8 < c + 8
+
+
+def test_down4_pack_built_once_and_rebuilt_after_update():
+    """The down4 pack of a parameter: built once over repeated calls (in
+    inference_mode too), again after an in-place update, each pack the
+    current weight's; apart from conv3's packs."""
     gen = UNetGenerator(wf=32).eval()
-    x = _x((1, 74, 74, 74), 1)
+    kern = gen.down2.down.kernel
+    reset_counts()
+    p1 = cuda_down.packed_down4_weights(kern)
     with torch.inference_mode():
-        gen(x)
-        assert len(built) == 2
-        gen(x)
-        assert len(built) == 2
-    down = gen.down2.down
+        assert cuda_down.packed_down4_weights(kern) is p1
+    assert read_counts()["down4_weight_packs"] == 1
     with torch.no_grad():
-        down.kernel.mul_(1.5)
-    xd = _x((1, 32, 32, 32), down.kernel.shape[3])
+        kern.mul_(1.5)
+    p2 = cuda_down.packed_down4_weights(kern)
+    assert p2 is not p1 and read_counts()["down4_weight_packs"] == 2
+    assert torch.equal(_unpack(p2, *kern.shape[3:]), kern.detach())
+    assert read_counts()["conv3_weight_packs"] == 0
     with torch.inference_mode():
-        y = down(xd)
-        gen.down1.down(_x((1, 32, 32, 32), gen.down1.down.kernel.shape[3]))
-    assert built[2:] == [tuple(down.kernel.shape)]
-    _assert_parity(y, _cudnn_form(xd, down.kernel.detach()))
+        y = gen.down2.down(_x((1, 32, 32, 32), kern.shape[3]))
+    _assert_parity(y, _cudnn_form(_x((1, 32, 32, 32), kern.shape[3]),
+                                  kern.detach()))

@@ -41,6 +41,7 @@ _SIGNATURES = {
                      _i, _f, _vp],
     "tem_conv3_direct": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _f,
                          _vp],
+    "tem_down4_tc": [_vp] * 3 + [_i] * 8 + [_f, _vp],
     "tem_preprocess_u8": [_vp, _vp, _ll, _f, _f, _vp],
     "tem_postprocess_u8": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f,
                            _vp],

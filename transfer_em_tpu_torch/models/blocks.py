@@ -15,9 +15,9 @@ from the input, the port builds its kernels up front.
   recorded (inference), as the phase conv on the conv3 kernel
   (ops/convs.py ``phase_route``); elsewhere on cuDNN's transposed conv.
 * The 3D k4 stride-2 down convs run, in float32 where no gradient is
-  recorded, as a space-to-depth conv on the conv3 kernel, the LeakyReLU
-  after them in its epilogue (ops/convs.py ``down_route``); elsewhere on
-  ``torch.nn.functional``.
+  recorded, on the hand-written down4 kernel (ops/cuda_down.py,
+  csrc/down4_tc.cu), the LeakyReLU after them in its epilogue
+  (ops/convs.py ``down_route``); elsewhere on ``torch.nn.functional``.
 * 1x1 convs and every 2D conv run on ``torch.nn.functional``
   (ops/convs.py), as the JAX package gates its Pallas conv on ``ndim ==
   3`` (models/blocks.py:69, :113).  The LeakyReLU after each transposed

@@ -4,24 +4,21 @@ Counterpart of ``transfer_em_tpu/ops/convs.py``.  The JAX package computes
 these convs with XLA outside any Pallas kernel.  The port leaves the 1x1
 convs and every 2D conv to ``torch.nn.functional`` (cuDNN on the card).
 The 3D k4 stride-2 convs, down and transposed, run in float32 inference on
-the hand-written conv3 kernel (``ops/cuda_conv.py``): the down convs as a
-space-to-depth conv (:func:`down_route`), the transposed convs as the
-phase conv (:func:`phase_route`); everywhere else on cuDNN.  Activations
+hand-written kernels: the down convs on the down4 kernel
+(``ops/cuda_down.py``, :func:`down_route`), the transposed convs as the
+phase conv on conv3 (``ops/cuda_conv.py``, :func:`phase_route`);
+everywhere else on cuDNN.  Activations
 stay channels-last (NHWC / NDHWC) and kernels in the JAX layout (HWIO /
 DHWIO), so both packages take the same tensors at their public functions:
 
 * ``conv_nd``: VALID or SAME (XLA's split, at any stride) strided conv;
   the kernel's (k.., Cin, Cout) -> (Cout, Cin, k..) is ``permute(n + 1,
   n, 0, .., n - 1)`` for n spatial axes.  ``leaky`` applies LeakyReLU
-  after it (in conv3's epilogue on the space-to-depth form).  A 3D k4
-  stride-2 VALID conv is, per axis, o[m] = sum_{j, r in {0, 1}} x[2(m +
-  j) + r] w[2j + r]: the input space-to-depth by 2 (:func:`space_to_depth`)
-  and a stride-1 conv with 2 taps an axis and 8 * Cin channels
-  (:func:`kernel_to_depth`), which conv3 computes with those taps in taps
-  0-1 of a zero k3 kernel over the input padded by one block on each high
-  face (:func:`down_kernel`).  ``conv_nd.s2d_calls`` and ``.cudnn_calls``
-  count the k4 stride-2 VALID convs by form (``ops/counts.py``
-  ``down_s2d`` / ``down_cudnn``).
+  after it (in the down4 kernel's epilogue on its route).  A 3D k4
+  stride-2 VALID conv that :func:`down_route` takes runs on the down4
+  kernel (``ops/cuda_down.py``), which reads x in place at stride 2.
+  ``conv_nd.k4_calls`` and ``.cudnn_calls`` count the k4 stride-2 VALID
+  convs by form (``ops/counts.py`` ``down_k4`` / ``down_cudnn``).
 * ``conv_transpose_nd``: TF-SAME transposed conv at any k and s; the
   generator's k4 stride-2 one (reference
   Keras ``Conv2DTranspose`` / ``Conv3DTranspose``, convs.py:84-132) ==
@@ -53,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_conv import conv3, storage_cached
+from .cuda_down import down4
 from .cuda_kernels import leaky_relu
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
@@ -102,15 +100,15 @@ def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     ``padding="same"`` at stride 1, at a larger stride an explicit pad and
     a VALID conv (torch refuses "same" there).  ``leaky`` applies
     LeakyReLU(negative_slope=leaky) to the result.  A call that
-    :func:`down_route` takes runs as the space-to-depth conv on conv3, the
-    LeakyReLU in its epilogue; every other call on ``F.conv{2,3}d``, then
-    the leaky_relu kernel."""
+    :func:`down_route` takes runs on the down4 kernel, the LeakyReLU in its
+    epilogue; every other call on ``F.conv{2,3}d``, then the leaky_relu
+    kernel."""
     n = _spatial_rank(x, kernel)
     if padding not in ("VALID", "SAME"):
         raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
     if down_route(x, kernel, stride, padding):
-        conv_nd.s2d_calls += 1
-        return _conv_down_s2d(x, kernel, leaky)
+        conv_nd.k4_calls += 1
+        return down4(x, kernel, leaky)
     if _is_down(kernel, stride, padding):
         conv_nd.cudnn_calls += 1
     w = _weight(kernel.to(x.dtype).permute(n + 1, n, *range(n)))
@@ -127,7 +125,7 @@ def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     return y if leaky is None else leaky_relu(y, leaky)
 
 
-conv_nd.s2d_calls = 0    # k4 stride-2 VALID convs as the s2d conv on conv3
+conv_nd.k4_calls = 0     # k4 stride-2 VALID convs on the down4 kernel
 conv_nd.cudnn_calls = 0  # k4 stride-2 VALID convs on F.conv{2,3}d
 
 
@@ -206,111 +204,40 @@ def phase_route(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> bool:
 
 
 # The down route takes a k4 stride-2 conv whose output has at least this
-# many voxels on every axis.  Float32 with TF32 off on an H100 80GB HBM3
-# (700 W): with 15^3 out and more the s2d form wins at every width measured
-# (up to 256 -> 256 at 32^3 in, B=16: 16.5 ms against 22.9; the wf=8
-# generator's down convs at B=128 6.74 against 11.51 and 1.21 against
-# 1.74; in the slab's B=1 planes 1.4-2.1x), where its conv has work enough
-# (its losses there: 0.27 against 0.19 ms at 8 -> 8, B=16, and 0.84x and
-# 0.93x at 32 and 96 channels, 70^3 in, B=4).  With 6^3 and 1^3 out (the
-# discriminator's down2 and down3) it loses at every width, 0.29-0.86x,
-# since conv3 tiles small extents poorly.  So the bound is on the extent,
-# not on the width (PERF.md §6).
+# many voxels on every axis: every down conv of the generator at its tile
+# and in slabs, and the discriminator's first.  Float32 with TF32 off on an
+# H100 80GB HBM3 (700 W), the down4 kernel against cuDNN: the wf=8
+# generator's down convs at B=128 2.16 and 0.46 ms against 11.36 and 1.74,
+# wf=1's (B=16) 4.23 and 1.53 against 17.58 and 6.08.  With 6^3 out (the
+# discriminator's down2) it wins too (0.17 against 0.31 ms at wf=8, B=128),
+# but at wf=1's 256 -> 256 its 3xTF32 sums of 16,384 terms are 1.2e-4 of
+# the largest value from float64, over conv3's float32 tolerance, so that
+# extent stays on cuDNN (PERF.md §6, §7).
 DOWN_MIN_OUT = 15
 
 
 def down_route(x: torch.Tensor, kernel: torch.Tensor, stride: int,
                padding: str) -> bool:
-    """Whether ``conv_nd`` runs the call as the space-to-depth conv on
-    conv3: a 3D k4 stride-2 VALID float32 call that records no gradient
-    (inference: every inference mode runs under ``inference_mode``), with
-    at least :data:`DOWN_MIN_OUT` output voxels an axis (every down conv
-    of the generator at its 74^3 tile and in slabs, the discriminator's
-    first); ``F.conv{2,3}d`` for the rest.
+    """Whether ``conv_nd`` runs the call on the down4 kernel
+    (``ops/cuda_down.py``): a 3D k4 stride-2 VALID float32 call that
+    records no gradient (inference: every inference mode runs under
+    ``inference_mode``), with at least :data:`DOWN_MIN_OUT` output voxels
+    an axis (every down conv of the generator at its 74^3 tile and in
+    slabs, the discriminator's first); ``F.conv{2,3}d`` for the rest.
 
     * float32 with TF32 off: cuDNN's k4 stride-2 conv runs on the CUDA
-      cores (3.6 TFLOP/s at 8 channels, 19 at 64-256), conv3 on the tensor
-      cores as 3xTF32, at float32's accuracy, so the s2d form's 27/8 times
-      the MACs (tap 2 of each axis is zero) take less time.
+      cores (3.6 TFLOP/s at 8 channels, 19 at 64-256), the down4 kernel on
+      the tensor cores as 3xTF32, at float32's accuracy.
     * bfloat16: cuDNN's conv already runs on the tensor cores.
-    * 2D: conv3 is 3D only.  SAME: the U-Net's down convs are VALID.
+    * 2D: the kernel is 3D only.  SAME: the U-Net's down convs are VALID.
     * A forward that records a gradient, or may (an operand wrapped by a
-      ``torch.func`` transform): the s2d form's backward would be cuDNN's
-      k3 backward on 27/8 times the work."""
+      ``torch.func`` transform): the kernel has no backward, and training
+      keeps cuDNN's forward and backward together."""
     return (x.dim() == 5 and _is_down(kernel, stride, padding)
             and x.dtype == torch.float32
             and min(x.shape[1:4]) // 2 - 1 >= DOWN_MIN_OUT
             and not _records_grad(x, kernel)
             and not (_func_wrapped(x) or _func_wrapped(kernel)))
-
-
-def space_to_depth(x: torch.Tensor, s: int) -> torch.Tensor:
-    """(B, *S, C) with every S divisible by s -> (B, *(S/s), s^n * C), the
-    channel index (p_1, .., p_n, c) with p_i the offset along axis i."""
-    n = x.dim() - 2
-    bsz, sp, c = x.shape[0], tuple(x.shape[1:-1]), x.shape[-1]
-    shape = [bsz]
-    for d in sp:
-        shape += [d // s, s]
-    x = x.reshape(shape + [c])
-    perm = [0] + [1 + 2 * i for i in range(n)] + [2 + 2 * i
-                                                  for i in range(n)]
-    return x.permute(perm + [1 + 2 * n]).reshape(
-        (bsz,) + tuple(d // s for d in sp) + (s ** n * c,))
-
-
-def kernel_to_depth(k: torch.Tensor, s: int) -> torch.Tensor:
-    """(k,)*n + (C, O), k divisible by s -> (k/s,)*n + (s^n * C, O), the
-    input channels ordered as :func:`space_to_depth` orders them."""
-    n = k.dim() - 2
-    kk, c, o = k.shape[0], k.shape[-2], k.shape[-1]
-    shape = []
-    for _ in range(n):
-        shape += [kk // s, s]
-    k = k.reshape(shape + [c, o])
-    perm = [2 * i for i in range(n)] + [1 + 2 * i for i in range(n)]
-    return k.permute(perm + [2 * n, 2 * n + 1]).reshape(
-        (kk // s,) * n + (s ** n * c, o))
-
-
-def down_kernel(kernel: torch.Tensor) -> torch.Tensor:
-    """(4, 4, 4, Cin, Cout) -> the s2d conv's (3, 3, 3, 8 * Cin, Cout)
-    kernel: :func:`kernel_to_depth` by 2 in taps 0-1 of each axis, zeros in
-    tap 2 (which meets the pad block of :func:`space_to_depth_padded`).
-    Each value is copied once, so the conv's terms are the k4 conv's."""
-    k2 = kernel_to_depth(kernel, 2)
-    k3 = k2.new_zeros((3, 3, 3) + tuple(k2.shape[3:]))
-    k3[:2, :2, :2] = k2
-    return k3
-
-
-def space_to_depth_padded(x: torch.Tensor) -> torch.Tensor:
-    """(B, D, H, W, C) -> (B, D//2 + 1, H//2 + 1, W//2 + 1, 8 * C): x's
-    :func:`space_to_depth` by 2 (an odd extent's last voxel, which a VALID
-    k4 stride-2 conv never reads, dropped) in a buffer one block larger on
-    each high face, that face zero: one copy and three fills of a face."""
-    bsz, c = x.shape[0], x.shape[-1]
-    sp = tuple(d // 2 for d in x.shape[1:-1])
-    buf = x.new_empty((bsz,) + tuple(d + 1 for d in sp) + (8 * c,))
-    for ax, d in enumerate(sp):
-        buf.select(1 + ax, d).zero_()
-    blocks = x[(slice(None),) + tuple(slice(0, 2 * d) for d in sp)].view(
-        bsz, sp[0], 2, sp[1], 2, sp[2], 2, c).permute(0, 1, 3, 5, 2, 4, 6, 7)
-    buf[:, :sp[0], :sp[1], :sp[2]].unflatten(-1, (2, 2, 2, c)).copy_(blocks)
-    return buf
-
-
-def _conv_down_s2d(x: torch.Tensor, kernel: torch.Tensor,
-                   leaky: Optional[float] = None) -> torch.Tensor:
-    """The 3D k4 stride-2 VALID conv as conv3 over
-    :func:`space_to_depth_padded` x by :func:`down_kernel` (built from the
-    float32 kernel, which conv3 rounds to a bfloat16 x), ``leaky`` in its
-    epilogue: (B, D, H, W, Cin) -> (B, D//2 - 1, H//2 - 1, W//2 - 1,
-    Cout), as ``F.conv3d`` gives."""
-    k3 = (down_kernel(kernel.float()) if _records_grad(x, kernel)
-          else _derived_kernel(kernel, "_down_kernels",
-                               lambda k: down_kernel(k.float())))
-    return conv3(space_to_depth_padded(x), k3, leaky)
 
 
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
@@ -397,8 +324,8 @@ def interleave_phases(y: torch.Tensor, p: int = 2) -> torch.Tensor:
 
 def _derived_kernel(kernel: torch.Tensor, name: str, build
                     ) -> torch.Tensor:
-    """build(kernel) (the phase or the s2d conv's kernel) for a forward
-    that records no gradient, cached per parameter under ``name``
+    """build(kernel) (the phase conv's kernel) for a forward that records
+    no gradient, cached per parameter under ``name``
     (``cuda_conv.storage_cached``): repeated forwards reuse it, and so
     conv3's tensor-core pack of it, cached on its own storage; an in-place
     update of the parameter (``p.add_`` under ``no_grad``) rebuilds both.

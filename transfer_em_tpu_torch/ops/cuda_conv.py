@@ -7,8 +7,8 @@ the Pallas Toeplitz-GEMM ``_tconv3_kernel`` (pallas_conv.py:69-114,
 ``supported()`` (42-53) needs W >= 128/C and so leaves the C=1 stem to XLA
 at 74^3, they serve every k3 conv of the generator, the stem included, and
 in float32 inference the phase conv of its transposed convs
-(``ops/convs.py`` ``phase_route``) and the space-to-depth conv of its k4
-stride-2 down convs (``down_route``).
+(``ops/convs.py`` ``phase_route``).  Its k4 stride-2 down convs have a
+kernel of their own (``ops/cuda_down.py``, ``csrc/down4_tc.cu``).
 
 The wrapper picks one of two kernels by shape (:func:`conv3_path`):
 
@@ -203,7 +203,8 @@ def storage_cached(w: torch.Tensor, name: str, key: tuple, make):
     and it lives as long as w's memory.  A tensor made in inference mode
     keeps no version counter, so make() runs on every call.  The one cache
     of what is derived from a parameter: conv3's packs, the int8 weights
-    (``ops/quant.py``), the phase and s2d kernels (``ops/convs.py``)."""
+    (``ops/quant.py``), the phase kernel (``ops/convs.py``) and the down4
+    kernel's packs (``ops/cuda_down.py`` ``packed_down4_weights``)."""
     if w.is_inference():
         return make()
     storage = w.untyped_storage()

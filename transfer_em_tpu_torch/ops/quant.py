@@ -26,9 +26,9 @@ integer sums do not depend on their order:
 
 * a stride-s VALID conv (the k4 stride-2 down convs): the kernel padded to
   a multiple of s per axis, input and kernel space-to-depth by s
-  (``ops/convs.py`` :func:`space_to_depth`, :func:`kernel_to_depth`, which
-  the float32 down convs' route shares), then a stride-1 conv with
-  ceil(k/s) taps per axis and s^n * C channels;
+  (``ops/cuda_down.py`` :func:`space_to_depth`, :func:`kernel_to_depth`,
+  which the float32 down conv's plain version shares), then a stride-1
+  conv with ceil(k/s) taps per axis and s^n * C channels;
 * SAME at stride 1: the input zero-padded as ``lax`` pads it;
 * the TF-SAME stride-2 k4 transposed conv: its phase decomposition
   (``ops/convs.py`` :func:`phase_kernel`), one k3 conv over the codes
@@ -66,9 +66,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .convs import (interleave_phases, kernel_to_depth, phase_kernel,
-                    same_padding, same_transpose_padding, space_to_depth)
+from .convs import (interleave_phases, phase_kernel, same_padding,
+                    same_transpose_padding)
 from .cuda_conv import storage_cached
+from .cuda_down import kernel_to_depth, space_to_depth
 from .cuda_int8 import conv_int8, pack_int8_weights
 
 __all__ = ["quantize_sym", "conv_nd_int8", "conv_transpose_nd_int8",
