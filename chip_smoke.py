@@ -991,7 +991,7 @@ def plain_versions(noise=0.0, seed=5):
         return conv
 
     conv3 = noisy(cuda_conv.conv3_plain)
-    swaps = [(blocks, "conv3", conv3), (convs, "conv3", conv3),
+    swaps = [(convs, "conv3", conv3),
              (convs, "down4", noisy(cuda_down.down4_plain)),
              (blocks, "leaky_relu", ck.leaky_relu_plain),
              (convs, "leaky_relu", ck.leaky_relu_plain),
@@ -1016,7 +1016,9 @@ def recorded_calls():
     slab path: yields a list of ("conv3", x shape, O, epilogue), ("down4",
     x shape, O, epilogue), ("leaky_relu", shape), ("preprocess_u8", shape)
     and ("postprocess_u8", shape, tpad) in the order of their first
-    call."""
+    call.  conv3's calls are the model's k3 convs, whose kernel is a
+    parameter; the phase conv's, on a kernel derived from one, are held
+    in phase 12."""
     from transfer_em_tpu_torch.infer import slab
     from transfer_em_tpu_torch.models import blocks
     from transfer_em_tpu_torch.ops import convs
@@ -1028,14 +1030,15 @@ def recorded_calls():
 
         def wrapped(*args):
             k = key(*args)
-            if k not in calls:
+            if k is not None and k not in calls:
                 calls.append(k)
             return f(*args)
         return wrapped
 
     swaps = [
-        (blocks, "conv3", lambda x, w, leaky=None: (
-            "conv3", tuple(x.shape), w.shape[-1], leaky is not None)),
+        (convs, "conv3", lambda x, w, leaky=None: (
+            "conv3", tuple(x.shape), w.shape[-1], leaky is not None)
+         if isinstance(w, torch.nn.Parameter) else None),
         (convs, "down4", lambda x, w, leaky=None: (
             "down4", tuple(x.shape), w.shape[-1], leaky is not None)),
         (blocks, "leaky_relu", lambda v, *_: ("leaky_relu", tuple(v.shape))),
@@ -1093,10 +1096,8 @@ def profile_round(run):
 
 
 def counters():
-    from transfer_em_tpu_torch.ops import cuda_conv
-    from transfer_em_tpu_torch.ops import cuda_kernels as ck
-    return {"conv3": cuda_conv.conv3, "preprocess_u8": ck.preprocess_u8,
-            "postprocess_u8": ck.postprocess_u8, "leaky_relu": ck.leaky_relu}
+    """The four kernels of the main path, as ``read_counts()`` keys."""
+    return ("conv3", "preprocess_u8", "postprocess_u8", "leaky_relu")
 
 
 def reset_counts():
@@ -1574,7 +1575,6 @@ def check_volume(dev, smi):
     from transfer_em_tpu_torch.infer.stream import plan_chunks
     from transfer_em_tpu_torch.infer.tiling import tile_batch
     from transfer_em_tpu_torch.models import UNetGenerator
-    from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.ops import cuda_kernels as ck
 
     t_phase = time.perf_counter()
@@ -1713,9 +1713,9 @@ def check_volume(dev, smi):
             if clear:
                 for p in gen16.parameters():
                     getattr(p.untyped_storage(), "_conv3_packs", {}).clear()
-            cuda_conv.packed_weights.packs = 0
+            packs0 = read_counts()["conv3_weight_packs"]
             outs16.append(np.array(run16()))
-            packs16.append(cuda_conv.packed_weights.packs)
+            packs16.append(read_counts()["conv3_weight_packs"] - packs0)
     rec["c1_bf16_packs"] = {
         "packs_per_call": packs16[:3], "packs_cache_cleared": packs16[3],
         "bit_equal_to_cache_cleared": all(
@@ -1877,7 +1877,12 @@ def expected_step_counts(state):
     from transfer_em_tpu_torch.models import Discriminator
     from transfer_em_tpu_torch.models.blocks import (ConvActND, ConvND,
                                                      DownBlock, UpBlock)
+    from transfer_em_tpu_torch.ops.convs import conv_form
     from transfer_em_tpu_torch.ops.cuda_conv import conv3_path
+
+    def on_conv3(m):
+        x = torch.empty((1, 8, 8, 8, m.kernel.shape[-2]), device="meta")
+        return conv_form(x, m.kernel, m.stride, m.padding) == "conv3"
 
     out = dict.fromkeys(("conv3_tc", "conv3_direct", "leaky_relu",
                          "conv3_weight_packs"), 0)
@@ -1885,7 +1890,7 @@ def expected_step_counts(state):
         net = getattr(state, t)
         per_app = dict.fromkeys(("conv3_tc", "conv3_direct", "leaky_relu"), 0)
         for m in net.modules():
-            if isinstance(m, ConvND) and m._is_conv3():
+            if isinstance(m, ConvND) and on_conv3(m):
                 per_app["conv3_" + conv3_path(*m.kernel.shape[3:])] += 1
             elif isinstance(m, ConvActND):
                 per_app["leaky_relu"] += 1
@@ -2021,9 +2026,10 @@ def leaky_gates(gates, replay=False):
             return torch.where(next(replayed), x, x * slope)
         return f
 
-    # the blocks' calls and conv_nd's (the LeakyReLU after a down conv)
-    saved = [(m, n, getattr(m, n)) for m in (blocks, convs)
-             for n in ("conv3", "leaky_relu")]
+    # conv_nd's calls, and the blocks' LeakyReLU (after a transposed conv)
+    saved = [(convs, "conv3", convs.conv3),
+             (blocks, "leaky_relu", blocks.leaky_relu),
+             (convs, "leaky_relu", convs.leaky_relu)]
     for m, n, f in saved:
         setattr(m, n, (gated_conv3 if n == "conv3" else gated_leaky)(f))
     try:
@@ -2076,10 +2082,9 @@ def conv3_rounding(outputs, replay=False, misses=None, fault=None):
     (the recorded value enters as a constant offset).  ``fault``
     ("tap_dropped"): the recorded kernels' conv3 runs with every kernel's
     first tap zeroed, for the check to show that the replay flags it."""
-    from transfer_em_tpu_torch.models import blocks
-    from transfer_em_tpu_torch.ops import cuda_conv
+    from transfer_em_tpu_torch.ops import convs, cuda_conv
 
-    conv3 = blocks.conv3
+    conv3 = convs.conv3
     replayed = iter(outputs)
 
     def recorded(x, w, slope=None):
@@ -2109,11 +2114,11 @@ def conv3_rounding(outputs, replay=False, misses=None, fault=None):
 
     if replay:
         misses.update(n=0, of=0)
-    blocks.conv3 = replaying if replay else recorded
+    convs.conv3 = replaying if replay else recorded
     try:
         yield outputs
     finally:
-        blocks.conv3 = conv3
+        convs.conv3 = conv3
 
 
 def check_train_plain(dev, kernel_rel_err, wf=8, batch=4,
@@ -2503,7 +2508,6 @@ def check_em2em(dev, smi):
     from transfer_em_tpu_torch.infer import (load_generator, predict_tiled,
                                              save_model)
     from transfer_em_tpu_torch.native import gather_box
-    from transfer_em_tpu_torch.ops import cuda_conv
     from transfer_em_tpu_torch.ops.warp import make_warp_map
 
     torch.cuda.empty_cache()
@@ -2606,10 +2610,10 @@ def check_em2em(dev, smi):
         x = target.take_batches(1)[0][:4]
         with cudnn_deterministic():
             before = model.predict(x)
-            packs0 = cuda_conv.packed_weights.packs
+            packs0 = read_counts()["conv3_weight_packs"]
             model.restore(1)
             got = model.predict(x)
-            packs = cuda_conv.packed_weights.packs - packs0
+            packs = read_counts()["conv3_weight_packs"] - packs0
             fresh = EM2EM(74, "fresh", wf=EM_WF, checkpoint_root=root,
                           device=dev, ckpt_restore=os.path.join(
                               model.checkpoint_path, "1"))

@@ -31,6 +31,7 @@ from transfer_em_tpu_torch.models.convert import (DISC_ORDER_2D as PORT_ORDER,
                                                   params_from_jax,
                                                   params_from_tf_order,
                                                   params_geometry)
+from transfer_em_tpu_torch.models.blocks import ConvND
 from transfer_em_tpu_torch.models.discriminator import discriminator
 from transfer_em_tpu_torch.ops import convs, cuda_kernels
 from transfer_em_tpu_torch.train.cgan import _tap_prior
@@ -239,15 +240,22 @@ def test_convs_take_rank_4_and_5_only():
                                 torch.zeros(4, 4, 4, 1, 1))
 
 
+def _on_conv3(m):
+    """Whether ``ops/convs.py`` runs ConvND ``m``'s float32 conv on conv3."""
+    n = m.kernel.dim() - 2
+    x = torch.empty((1,) + (8,) * n + (m.kernel.shape[-2],), device="meta")
+    return convs.conv_form(x, m.kernel, m.stride, m.padding) == "conv3"
+
+
 def test_2d_convs_stay_off_conv3():
     """A 2D 3x3 stride-1 conv is not conv3's (JAX gates its Pallas conv on
     ndim == 3): it goes to conv_nd, and ConvActND's LeakyReLU to the
     leaky_relu wrapper."""
     gen = UNetGenerator(wf=32, is3d=False)
-    conv_modules = [m for m in gen.modules() if hasattr(m, "_is_conv3")]
-    assert conv_modules and not any(m._is_conv3() for m in conv_modules)
-    assert all(m._is_conv3() for m in UNetGenerator(wf=32).modules()
-               if hasattr(m, "_is_conv3") and m.kernel.shape[0] == 3
+    conv_modules = [m for m in gen.modules() if isinstance(m, ConvND)]
+    assert conv_modules and not any(_on_conv3(m) for m in conv_modules)
+    assert all(_on_conv3(m) for m in UNetGenerator(wf=32).modules()
+               if isinstance(m, ConvND) and m.kernel.shape[0] == 3
                and m.stride == 1)
 
 

@@ -191,11 +191,11 @@ def test_same_conv3_block_pads_then_keeps_the_kernel_route():
     card) on x zero-padded by 1; VALID is unchanged."""
     same = blocks.ConvND(3, 4, 3, padding="SAME")
     valid = blocks.ConvND(3, 4, 3)
-    assert same._is_conv3() and valid._is_conv3()
+    x = torch.randn(1, 6, 6, 6, 3)
+    assert convs.conv_form(x, same.kernel, 1, "SAME") == "conv3"
+    assert convs.conv_form(x, valid.kernel, 1, "VALID") == "conv3"
     with torch.no_grad():
         valid.kernel.copy_(same.kernel)
-    x = torch.randn(1, 6, 6, 6, 3)
-    with torch.no_grad():
         torch.testing.assert_close(same(x), valid(convs.zero_pad(x, 1)),
                                    rtol=0, atol=0)
     with pytest.raises(ValueError, match="VALID or SAME"):

@@ -336,7 +336,7 @@ def test_bf16_conv_inputs_are_bf16():
     from transfer_em_tpu_torch.ops import convs
 
     calls = []
-    saved = (blocks.conv3, blocks.conv_nd, convs.conv_transpose_nd)
+    saved = (convs.conv3, blocks.conv_nd, convs.conv_transpose_nd)
 
     def rec(name, f):
         def wrapped(x, w, *a, **k):
@@ -344,7 +344,7 @@ def test_bf16_conv_inputs_are_bf16():
             return f(x, w, *a, **k)
         return wrapped
 
-    blocks.conv3 = rec("conv3", saved[0])
+    convs.conv3 = rec("conv3", saved[0])
     blocks.conv_nd = rec("conv_nd", saved[1])
     blocks.conv_transpose_nd = rec("conv_transpose_nd", saved[2])
     try:
@@ -356,7 +356,7 @@ def test_bf16_conv_inputs_are_bf16():
             out = net(torch.zeros((1, side, side, side, 1)))
             assert out.dtype == torch.float32
     finally:
-        blocks.conv3, blocks.conv_nd, blocks.conv_transpose_nd = saved
+        convs.conv3, blocks.conv_nd, blocks.conv_transpose_nd = saved
     assert {n for n, _, _ in calls} == {"conv3", "conv_nd",
                                         "conv_transpose_nd"}
     assert all(xd == torch.bfloat16 and wd == torch.float32

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from transfer_em_tpu.ops import convs as jconvs
 from transfer_em_tpu_torch.models import UNetGenerator
 from transfer_em_tpu_torch.models.blocks import ConvND
-from transfer_em_tpu_torch.ops import cuda_conv
+from transfer_em_tpu_torch.ops import convs, cuda_conv
+from transfer_em_tpu_torch.ops.counts import read_counts
 from transfer_em_tpu_torch.ops.cuda_kernels import slope_in
 
 torch.set_num_threads(1)
@@ -204,13 +205,14 @@ def test_packed_weights_cache():
     rng = np.random.default_rng(15)
     w = torch.from_numpy(rng.normal(0, 1, (3, 3, 3, 8, 16)).astype(
         np.float32))
-    before = cuda_conv.packed_weights.packs
+    before = read_counts()["conv3_weight_packs"]
     p1 = cuda_conv.packed_weights(w)
     assert cuda_conv.packed_weights(w) is p1           # hit
-    assert cuda_conv.packed_weights.packs == before + 1
+    assert read_counts()["conv3_weight_packs"] == before + 1
     w.mul_(2.0)                                        # in place: new version
     p2 = cuda_conv.packed_weights(w)
-    assert p2 is not p1 and cuda_conv.packed_weights.packs == before + 2
+    assert p2 is not p1
+    assert read_counts()["conv3_weight_packs"] == before + 2
     assert torch.equal(_unpack(p2, 8, 16, torch.float32), w)
 
 
@@ -224,23 +226,23 @@ def test_packed_weights_bf16_target_packs_once_per_version():
     w = torch.nn.Parameter(torch.from_numpy(
         rng.normal(0, 1, (3, 3, 3, 8, 16)).astype(np.float32)))
     bf16 = torch.bfloat16
-    before = cuda_conv.packed_weights.packs
+    before = read_counts()["conv3_weight_packs"]
     p1 = cuda_conv.packed_weights(w, bf16)
     with torch.inference_mode():
         assert cuda_conv.packed_weights(w, bf16) is p1
     assert cuda_conv.packed_weights(w, bf16) is p1
-    assert cuda_conv.packed_weights.packs == before + 1
+    assert read_counts()["conv3_weight_packs"] == before + 1
     assert p1.dtype == bf16
     assert torch.equal(p1.view(torch.int16), cuda_conv.pack_conv3_weights(
         w.detach().to(bf16), bf16).view(torch.int16))
     p32 = cuda_conv.packed_weights(w)
     assert p32.dtype == torch.float32
-    assert cuda_conv.packed_weights.packs == before + 2
+    assert read_counts()["conv3_weight_packs"] == before + 2
     with torch.no_grad():
         w.add_(1e-2)
     p2 = cuda_conv.packed_weights(w, bf16)
     assert cuda_conv.packed_weights(w, bf16) is p2 is not p1
-    assert cuda_conv.packed_weights.packs == before + 3
+    assert read_counts()["conv3_weight_packs"] == before + 3
     assert torch.equal(p2.view(torch.int16), cuda_conv.pack_conv3_weights(
         w.detach().to(bf16), bf16).view(torch.int16))
 
@@ -275,13 +277,20 @@ def test_bf16_forward_takes_the_f32_parameter(c, o, act):
 
 # -- (4) the dispatch rule -----------------------------------------------------
 
+def _on_conv3(m):
+    """Whether ``ops/convs.py`` runs ConvND ``m``'s float32 conv on conv3."""
+    n = m.kernel.dim() - 2
+    x = torch.empty((1,) + (8,) * n + (m.kernel.shape[-2],), device="meta")
+    return convs.conv_form(x, m.kernel, m.stride, m.padding) == "conv3"
+
+
 @pytest.mark.parametrize("wf", [1, 2, 4, 8, 16, 32])
 def test_every_generator_layer_has_a_kernel(wf):
     with torch.device("meta"):
         gen = UNetGenerator(wf=wf)
     pairs = [(m.kernel.shape[3], m.kernel.shape[4])
              for m in gen.modules()
-             if isinstance(m, ConvND) and m._is_conv3()]
+             if isinstance(m, ConvND) and _on_conv3(m)]
     assert len(pairs) == 8
     for c, o in pairs:
         path = cuda_conv.conv3_path(c, o)

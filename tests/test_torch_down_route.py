@@ -1,5 +1,5 @@
 """Which form the port's k4 stride-2 down conv takes by default
-(``ops/convs.py`` ``down_route``): the down4 kernel (``ops/cuda_down.py``,
+(``ops/convs.py`` ``conv_form``): the down4 kernel (``ops/cuda_down.py``,
 ``csrc/down4_tc.cu``) for a 3D VALID float32 call that records no
 gradient, ``F.conv{2,3}d`` for every other call; the kernel's plain
 version against ``F.conv3d`` and the JAX package's ``conv_nd`` at the
@@ -64,6 +64,11 @@ def _cudnn_form(x, w):
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
                  stride=2)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def _down(x, w, stride, padding):
+    """Whether ``conv_form`` picks the down4 kernel for the call."""
+    return convs.conv_form(x, w, stride, padding) == "down4"
 
 
 def _routes():
@@ -177,32 +182,32 @@ def test_space_to_depth_pair_is_shared():
 
 
 def test_route_rule_reads_only_the_call():
-    """down_route: 3D, k4, s2, VALID, float32, DOWN_MIN_OUT outputs an
-    axis and no recorded gradient, each needed; grad enabled alone does
-    not count, a requires_grad operand does; no width bound."""
+    """conv_form's down4 rule: 3D, k4, s2, VALID, float32, DOWN_MIN_OUT
+    outputs an axis and no recorded gradient, each needed; grad enabled
+    alone does not count, a requires_grad operand does; no width bound."""
     x, w = _x((1, 32, 33, 32), 4), _kernel(4, 8)
-    assert convs.down_route(x, w, 2, "VALID")
+    assert _down(x, w, 2, "VALID")
     with torch.no_grad():
-        assert convs.down_route(x, w, 2, "VALID")
+        assert _down(x, w, 2, "VALID")
     with torch.inference_mode():
-        assert convs.down_route(x, w, 2, "VALID")
-    assert not convs.down_route(x.bfloat16(), w, 2, "VALID")
-    assert not convs.down_route(x.double(), w, 2, "VALID")
-    assert not convs.down_route(x, w.clone().requires_grad_(), 2, "VALID")
-    assert not convs.down_route(x.clone().requires_grad_(), w, 2, "VALID")
-    assert not convs.down_route(x[:, 0], w[0], 2, "VALID")  # 2D
-    assert not convs.down_route(x, w, 2, "SAME")
-    assert not convs.down_route(x, w, 1, "VALID")
-    assert not convs.down_route(x, torch.randn(3, 3, 3, 4, 8), 2, "VALID")
-    assert not convs.down_route(x, torch.randn(4, 4, 2, 4, 8), 2, "VALID")
+        assert _down(x, w, 2, "VALID")
+    assert not _down(x.bfloat16(), w, 2, "VALID")
+    assert not _down(x.double(), w, 2, "VALID")
+    assert not _down(x, w.clone().requires_grad_(), 2, "VALID")
+    assert not _down(x.clone().requires_grad_(), w, 2, "VALID")
+    assert not _down(x[:, 0], w[0], 2, "VALID")  # 2D
+    assert not _down(x, w, 2, "SAME")
+    assert not _down(x, w, 1, "VALID")
+    assert not _down(x, torch.randn(3, 3, 3, 4, 8), 2, "VALID")
+    assert not _down(x, torch.randn(4, 4, 2, 4, 8), 2, "VALID")
     # 15 outputs an axis: the wf=8 generator's down2.down (32^3 in) takes
     # it, the discriminator's down2.down (14^3 in) does not
     assert convs.DOWN_MIN_OUT == 32 // 2 - 1
-    assert not convs.down_route(x[:, :31], w, 2, "VALID")
-    assert not convs.down_route(x[:, :, :, :30], w, 2, "VALID")
+    assert not _down(x[:, :31], w, 2, "VALID")
+    assert not _down(x[:, :, :, :30], w, 2, "VALID")
     wide = torch.empty(4, 4, 4, 256, 256, device="meta")
-    assert convs.down_route(torch.empty(1, 32, 32, 32, 256, device="meta"),
-                            wide, 2, "VALID")
+    assert _down(torch.empty(1, 32, 32, 32, 256, device="meta"), wide, 2,
+                 "VALID")
 
 
 def _bf16(x, w):

@@ -40,7 +40,7 @@ from transfer_em_tpu_torch.models import Discriminator, UNetGenerator
 from transfer_em_tpu_torch.models.blocks import ConvND
 from transfer_em_tpu_torch.models.convert import (params_from_jax,
                                                   params_geometry)
-from transfer_em_tpu_torch.ops import cuda_conv
+from transfer_em_tpu_torch.ops import convs, cuda_conv
 from transfer_em_tpu_torch.train import EM2EM
 
 torch.set_num_threads(1)
@@ -82,9 +82,16 @@ def _input(seed, shape):
     return np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
 
 
+def _on_conv3(m):
+    """Whether ``ops/convs.py`` runs ConvND ``m``'s float32 conv on conv3."""
+    n = m.kernel.dim() - 2
+    x = torch.empty((1,) + (8,) * n + (m.kernel.shape[-2],), device="meta")
+    return convs.conv_form(x, m.kernel, m.stride, m.padding) == "conv3"
+
+
 def _k3_pairs(net):
     return [tuple(int(s) for s in m.kernel.shape[3:]) for m in net.modules()
-            if isinstance(m, ConvND) and m._is_conv3()]
+            if isinstance(m, ConvND) and _on_conv3(m)]
 
 
 # -- the networks --------------------------------------------------------------

@@ -26,6 +26,7 @@ from transfer_em_tpu.ops import quant as jquant
 from transfer_em_tpu.ops.convs import conv_transpose_nd as jax_conv_t
 from transfer_em_tpu_torch.infer import make_tile_step
 from transfer_em_tpu_torch.models import UNetGenerator
+from transfer_em_tpu_torch.models.blocks import DownBlock, leaky
 from transfer_em_tpu_torch.models.convert import (params_from_tf_order,
                                                   params_to_jax)
 from transfer_em_tpu_torch.ops import cuda_int8, quant
@@ -171,6 +172,22 @@ def test_int8_generator_matches_jax_and_goldens(golden, cd):
     assert got.dtype == np.float32 and got.shape == data["y"].shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     assert _psnr(got, data["y"]) >= 40
+
+
+@pytest.mark.parametrize("ndim", [3, 2])
+@pytest.mark.parametrize("cd", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_down_conv_fuses_its_leaky_bit_equal(ndim, cd):
+    """DownBlock's int8 down conv passes its LeakyReLU to the int8 conv's
+    epilogue: bit-equal to the LeakyReLU run after the conv."""
+    block = DownBlock(4, 8, ndim=ndim, compute_dtype=cd, int8_conv=True,
+                      generator=torch.Generator().manual_seed(5))
+    x = torch.randn((2,) + (20,) * ndim + (4,),
+                    generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        down, skip = block(x)
+        after = leaky(block.down(skip))
+    assert bool((after < 0).any()) and after.dtype == (cd or torch.float32)
+    assert torch.equal(down, after)
 
 
 def test_int8_tile_step_on_a_2d_batch():

@@ -36,6 +36,7 @@ from transfer_em_tpu_torch.models import UNetGenerator
 from transfer_em_tpu_torch.models.convert import params_to_jax
 from transfer_em_tpu_torch.ops import cuda_int8, quant
 from transfer_em_tpu_torch.ops.convs import phase_kernel
+from transfer_em_tpu_torch.ops.counts import read_counts
 
 torch.set_num_threads(1)
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -247,17 +248,17 @@ def test_weight_cache_once_per_parameter_and_layout():
     call; the codes and scales are JAX's."""
     w = _k(0)
     layout = quant.conv_layout((2, 9, 9, 9, 4), w.shape, 1, "VALID")
-    n0 = quant.int8_weights.packs
+    n0 = read_counts()["int8_weight_packs"]
     a = quant.int8_weights(w, layout)
-    assert quant.int8_weights.packs == n0 + 1
+    assert read_counts()["int8_weight_packs"] == n0 + 1
     assert quant.int8_weights(w, layout) is a
     assert quant.int8_weights(w.detach(), layout) is a
-    assert quant.int8_weights.packs == n0 + 1
+    assert read_counts()["int8_weight_packs"] == n0 + 1
     same = quant.conv_layout((2, 9, 9, 9, 4), w.shape, 1, "SAME")
     assert quant.int8_weights(w, same) is a  # padding moves no weight
     strided = quant.conv_layout((2, 9, 9, 9, 4), w.shape, 2, "VALID")
     s2d = quant.int8_weights(w, strided)
-    assert quant.int8_weights.packs == n0 + 2
+    assert read_counts()["int8_weight_packs"] == n0 + 2
     assert s2d.codes.shape == (2, 2, 2, 32, 8)
     jq, js = jquant.quantize_sym(jnp.asarray(w.detach().numpy()),
                                  (0, 1, 2, 3))
@@ -269,7 +270,7 @@ def test_weight_cache_once_per_parameter_and_layout():
         t = torch.ones((3, 3, 3, 4, 8))
     quant.int8_weights(t, layout)
     quant.int8_weights(t, layout)
-    assert quant.int8_weights.packs == n0 + 4
+    assert read_counts()["int8_weight_packs"] == n0 + 4
 
 
 def test_weight_cache_remakes_after_update_and_assign():
@@ -281,11 +282,11 @@ def test_weight_cache_remakes_after_update_and_assign():
     layout = quant.conv_layout((1, 8, 8, 8, 4), conv.kernel.shape, 1,
                                "VALID")
     first = quant.int8_weights(conv.kernel, layout)
-    n0 = quant.int8_weights.packs
+    n0 = read_counts()["int8_weight_packs"]
     with torch.no_grad():
         conv.kernel.mul_(-2.0)
     second = quant.int8_weights(conv.kernel, layout)
-    assert quant.int8_weights.packs == n0 + 1
+    assert read_counts()["int8_weight_packs"] == n0 + 1
     assert torch.equal(second.codes, -first.codes)
     new = _k(2).detach()
     with torch.no_grad():
@@ -295,11 +296,11 @@ def test_weight_cache_remakes_after_update_and_assign():
     conv.load_state_dict({"kernel": new}, assign=True)
     assert conv.kernel._version == before
     third = quant.int8_weights(conv.kernel, layout)
-    assert quant.int8_weights.packs == n0 + 2
+    assert read_counts()["int8_weight_packs"] == n0 + 2
     want, _ = quant.quantize_sym(new, (0, 1, 2, 3))
     assert torch.equal(third.codes, want)
     assert quant.int8_weights(conv.kernel, layout) is third
-    assert quant.int8_weights.packs == n0 + 2
+    assert read_counts()["int8_weight_packs"] == n0 + 2
 
 
 def test_generator_makes_its_weights_once():
@@ -310,17 +311,17 @@ def test_generator_makes_its_weights_once():
                         generator=torch.Generator().manual_seed(3))
     x = torch.from_numpy(np.random.default_rng(4).uniform(
         -1, 1, (2, 74, 74, 1)).astype(np.float32))
-    n0 = quant.int8_weights.packs
+    n0 = read_counts()["int8_weight_packs"]
     with torch.no_grad():
         gen(x)
-        assert quant.int8_weights.packs == n0 + 12
+        assert read_counts()["int8_weight_packs"] == n0 + 12
         gen(x)
-        assert quant.int8_weights.packs == n0 + 12
+        assert read_counts()["int8_weight_packs"] == n0 + 12
         other = UNetGenerator(wf=8, is3d=False,
                               generator=torch.Generator().manual_seed(5))
         gen.load_state_dict(other.state_dict())
         got = gen(x).numpy()
-    assert quant.int8_weights.packs == n0 + 24
+    assert read_counts()["int8_weight_packs"] == n0 + 24
     want = JaxGenerator(wf=8, int8_conv=True).apply(
         params_to_jax(other.state_dict()),
                                                     jnp.asarray(x.numpy()))

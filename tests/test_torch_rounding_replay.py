@@ -16,8 +16,8 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from transfer_em_tpu_torch.models import UNetGenerator, blocks
-from transfer_em_tpu_torch.ops import cuda_conv
+from transfer_em_tpu_torch.models import UNetGenerator
+from transfer_em_tpu_torch.ops import convs, cuda_conv
 
 BF = torch.bfloat16
 SLOPE = 0.30078125  # LeakyReLU's 0.3 rounded to bf16
@@ -83,7 +83,7 @@ def test_replay_takes_correct_roundings_and_flags_the_rest(norm_generator,
                                                            kind, monkeypatch):
     gen, x = norm_generator
     if kind in ("f64", "perturbed", "two_steps"):
-        monkeypatch.setattr(blocks, "conv3", _stand_in(kind))
+        monkeypatch.setattr(convs, "conv3", _stand_in(kind))
     outs, misses = [], {}
     with torch.no_grad(), cs.conv3_rounding(
             outs, fault="tap_dropped" if kind == "tap_dropped" else None):

@@ -26,7 +26,8 @@ from transfer_em_tpu_torch.infer import (export_generator, make_tile_batcher,
                                          plan_tiles, predict_volume)
 from transfer_em_tpu_torch.models import UNetGenerator
 from transfer_em_tpu_torch.native import gather_blocks
-from transfer_em_tpu_torch.ops.counts import read_counts
+from transfer_em_tpu_torch.ops import convs
+from transfer_em_tpu_torch.ops.counts import read_counts, reset_counts
 from transfer_em_tpu_torch.serve import (ModelService, NumpyVolume,
                                          register_volume)
 from transfer_em_tpu_torch.train import build_step_fn, create_state
@@ -84,6 +85,38 @@ def test_off_keeps_totals_and_no_records():
     assert snap["spans"] == t["spans"] and snap["counts"] == t["counts"]
     assert snap["launches"] == read_counts()
     telemetry.reset()
+    assert telemetry.totals() == {"spans": {}, "counts": {}}
+
+
+def test_reset_zeroes_the_kernels_counts():
+    """The kernels' counts (a form picked here; launches only on the card)
+    read through read_counts() and snapshot()["launches"], in
+    telemetry.LAUNCHES' order, and stay out of totals()["counts"];
+    reset_counts() zeroes them alone, telemetry.reset() with the rest."""
+    def convs_once():
+        with torch.inference_mode():
+            convs.conv_nd(torch.randn(1, 34, 34, 34, 2),
+                          torch.randn(4, 4, 4, 2, 4), stride=2)
+            convs.conv_transpose_nd(torch.randn(1, 5, 5, 5, 2),
+                                    torch.randn(4, 4, 4, 2, 3),
+                                    phase_decompose=False)
+
+    telemetry.reset()
+    convs_once()
+    telemetry.count("c")
+    c = read_counts()
+    assert list(c) == list(telemetry.LAUNCHES)
+    assert {k: n for k, n in c.items() if n} == {"down_k4": 1,
+                                                 "transpose_cudnn": 1}
+    assert telemetry.snapshot()["launches"] == c
+    assert telemetry.totals()["counts"] == {"c": 1}
+    reset_counts()
+    assert not any(read_counts().values())
+    assert telemetry.totals()["counts"] == {"c": 1}
+    convs_once()
+    assert read_counts()["down_k4"] == 1
+    telemetry.reset()
+    assert not any(read_counts().values())
     assert telemetry.totals() == {"spans": {}, "counts": {}}
 
 

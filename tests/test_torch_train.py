@@ -20,6 +20,7 @@ from transfer_em_tpu_torch.models.blocks import ConvND
 from transfer_em_tpu_torch.models.convert import (TREES, load_jax_state,
                                                   state_to_jax)
 from transfer_em_tpu_torch.ops import cuda_conv
+from transfer_em_tpu_torch.ops.counts import read_counts
 from transfer_em_tpu_torch.ops.cuda_kernels import leaky_relu
 from transfer_em_tpu_torch.train import create_state, make_optimizer
 
@@ -174,18 +175,19 @@ def test_pack_cache_repacks_after_update_and_hits_aliases():
     conv = ConvND(8, 16, 3, generator=torch.Generator().manual_seed(0))
     p = conv.kernel
     assert cuda_conv.conv3_path(8, 16) == "tc"
-    before = cuda_conv.packed_weights.packs
+    before = read_counts()["conv3_weight_packs"]
     p1 = cuda_conv.packed_weights(p)
     assert cuda_conv.packed_weights(p.detach()) is p1
     assert cuda_conv.packed_weights(p) is p1
-    assert cuda_conv.packed_weights.packs == before + 1
+    assert read_counts()["conv3_weight_packs"] == before + 1
 
     opt = make_optimizer()
     opt.update({"kernel": p}, {"kernel": torch.ones_like(p)},
                opt.init({"kernel": p}))
     p2 = cuda_conv.packed_weights(p.detach())
-    assert p2 is not p1 and cuda_conv.packed_weights.packs == before + 2
+    assert p2 is not p1
+    assert read_counts()["conv3_weight_packs"] == before + 2
     assert torch.equal(p2, cuda_conv.pack_conv3_weights(p.detach(),
                                                         torch.float32))
     assert cuda_conv.packed_weights(p) is p2
-    assert cuda_conv.packed_weights.packs == before + 2
+    assert read_counts()["conv3_weight_packs"] == before + 2

@@ -1,5 +1,5 @@
 """Which form the port's transposed conv takes by default
-(``ops/convs.py`` ``phase_route``): the phase conv on conv3 for a 3D k4
+(``ops/convs.py`` ``conv_form``): the phase conv on conv3 for a 3D k4
 stride-2 float32 call that records no gradient, cuDNN's transposed conv
 for every other call; the phase kernel cached per parameter; and the
 generator on that route against the JAX generator."""
@@ -22,6 +22,12 @@ torch.set_num_threads(1)
 # convs at B=2
 UP_CONVS = [("up1.up", (2, 13, 13, 13), 32, 16),
             ("up0.up", (2, 22, 22, 22), 16, 8)]
+
+
+def _phase(x, w, stride):
+    """Whether ``conv_form`` picks the phase conv for the transposed
+    conv."""
+    return convs.conv_form(x, w, stride, transpose=True) == "phase"
 
 
 def _routes():
@@ -99,29 +105,29 @@ def test_phase_route_equals_cudnn(layer, shape, cin, cout, grad_off):
 
 
 def test_route_rule_reads_only_the_call():
-    """phase_route: 3D, k4, s2, float32, Cin * Cout under the limit and no
-    recorded gradient, each needed; grad enabled alone does not count, a
-    requires_grad input does."""
+    """conv_form's phase rule: 3D, k4, s2, float32, Cin * Cout under the
+    limit and no recorded gradient, each needed; grad enabled alone does
+    not count, a requires_grad input does."""
     x, w = _x((1, 5, 5, 5), 4), _kernel(4, 2)
-    assert convs.phase_route(x, w, 2)
-    assert not convs.phase_route(x, w, 1)
-    assert not convs.phase_route(x.bfloat16(), w, 2)
-    assert not convs.phase_route(x.double(), w, 2)
-    assert not convs.phase_route(x, w.requires_grad_(), 2)
+    assert _phase(x, w, 2)
+    assert not _phase(x, w, 1)
+    assert not _phase(x.bfloat16(), w, 2)
+    assert not _phase(x.double(), w, 2)
+    assert not _phase(x, w.requires_grad_(), 2)
     with torch.no_grad():
-        assert convs.phase_route(x, w, 2)
+        assert _phase(x, w, 2)
     k3 = torch.randn(3, 3, 3, 4, 2)
-    assert not convs.phase_route(x, k3, 2)
+    assert not _phase(x, k3, 2)
     # Cin * Cout: the wf=1 generator's up0.up (128 -> 64) takes the phase
     # conv, its up1.up (256 -> 128) cuDNN's
-    assert convs.phase_route(torch.randn(1, 4, 4, 4, 128),
-                             torch.randn(4, 4, 4, 128, 64), 2)
-    assert not convs.phase_route(torch.randn(1, 4, 4, 4, 256),
-                                 torch.randn(4, 4, 4, 256, 128), 2)
+    assert _phase(torch.randn(1, 4, 4, 4, 128),
+                  torch.randn(4, 4, 4, 128, 64), 2)
+    assert not _phase(torch.randn(1, 4, 4, 4, 256),
+                      torch.randn(4, 4, 4, 256, 128), 2)
     assert 128 * 96 < convs.PHASE_CIN_COUT_LIMIT <= 192 * 96
     x2, w2 = torch.randn(1, 5, 5, 4), torch.randn(4, 4, 4, 2)
     with torch.inference_mode():
-        assert not convs.phase_route(x2, w2, 2)
+        assert not _phase(x2, w2, 2)
 
 
 def _bf16(x, w):

@@ -8,35 +8,26 @@ state_dict maps one to one onto the flax param tree (models/convert.py).
 ``ndim`` is the spatial rank, 3 (default) or 2; the JAX modules infer it
 from the input, the port builds its kernels up front.
 
-* 3x3x3 stride-1 convs run on the hand-written conv3 kernel
-  (ops/cuda_conv.py), with LeakyReLU fused into its epilogue where the
-  block has one.
-* The 3D TF-SAME transposed convs run, in float32 where no gradient is
-  recorded (inference), as the phase conv on the conv3 kernel
-  (ops/convs.py ``phase_route``); elsewhere on cuDNN's transposed conv.
-* The 3D k4 stride-2 down convs run, in float32 where no gradient is
-  recorded, on the hand-written down4 kernel (ops/cuda_down.py,
-  csrc/down4_tc.cu), the LeakyReLU after them in its epilogue
-  (ops/convs.py ``down_route``); elsewhere on ``torch.nn.functional``.
-* 1x1 convs and every 2D conv run on ``torch.nn.functional``
-  (ops/convs.py), as the JAX package gates its Pallas conv on ``ndim ==
-  3`` (models/blocks.py:69, :113).  The LeakyReLU after each transposed
-  conv, and after each down conv off the route, runs on the hand-written
-  leaky_relu kernel (ops/cuda_kernels.py).
-* Both kernels carry autograd Functions (forward on the kernel, backward in
-  plain torch), so the same modules train.
-* ``int8_conv`` (serving only, as in the JAX package, models/blocks.py:
-  62-66, 106-110, 143-147): every conv quantizes its operands and runs on
-  the hand-written int8 conv kernel (ops/quant.py), before and instead of
-  the conv3 route, as JAX's int8 branch comes before ``fast_conv``.  It
-  quantizes its input as it arrives (no cast to ``compute_dtype`` first,
-  as JAX's ``conv_nd_int8`` takes it) and dequantizes into the compute
-  dtype; a conv + LeakyReLU fuses the activation into the kernel's
-  epilogue, on the value rounded to that dtype.  No gradient.
+A block states what its conv is (kernel size, stride, padding, compute
+dtype, bias, whether a LeakyReLU follows); ``ops/convs.py`` picks the
+kernel that runs it (its module docstring has the routes).  A conv +
+LeakyReLU without a bias passes the LeakyReLU to the conv, which fuses it
+into the kernel's epilogue where its form has one; with a bias, the
+LeakyReLU runs after the bias on the hand-written leaky_relu kernel
+(ops/cuda_kernels.py).
+
+``int8_conv`` (serving only, as in the JAX package, models/blocks.py:
+62-66, 106-110, 143-147) is a configuration, not a route: every conv
+quantizes its operands and runs on the hand-written int8 conv kernel
+(ops/quant.py), as JAX's int8 branch comes before ``fast_conv``.  It
+quantizes its input as it arrives (no cast to ``compute_dtype`` first, as
+JAX's ``conv_nd_int8`` takes it) and dequantizes into the compute dtype;
+a conv + LeakyReLU fuses the activation into the kernel's epilogue, on the
+value rounded to that dtype.  No gradient.
 
 LeakyReLU slope 0.3 (Keras default; torch's default is 0.01), rounded to
 the activation's dtype as JAX's ``nn.leaky_relu`` rounds its Python scalar
-(bf16: 0.30078125; :func:`leaky`), in the conv3 epilogue too.  Weight init
+(bf16: 0.30078125; :func:`leaky`), in the kernels' epilogues too.  Weight init
 N(0, 0.02) (tf.random_normal_initializer(0, .02)), from an explicit
 ``torch.Generator``.  ``use_norm`` turns on the InstanceNorm call sites that
 the reference comments out; it is off by default, as upstream.
@@ -56,8 +47,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from ..ops.convs import conv_nd, conv_transpose_nd, zero_pad
-from ..ops.cuda_conv import conv3
+from ..ops.convs import conv_nd, conv_transpose_nd
 from ..ops.cuda_kernels import LEAKY_SLOPE, leaky_relu, slope_in
 from ..ops.quant import conv_nd_int8, conv_transpose_nd_int8
 
@@ -129,65 +119,32 @@ class ConvND(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
 
-    def _is_conv3(self) -> bool:
-        """A 3x3x3 stride-1 conv: the conv3 kernel's (a 2D 3x3 goes to
-        cuDNN, as JAX keeps it on XLA)."""
-        return (self.kernel.dim() == 5 and self.kernel.shape[0] == 3
-                and self.stride == 1)
-
-    def _cast(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.compute_dtype is None else x.to(self.compute_dtype)
-
-    def _conv3_input(self, x: torch.Tensor) -> torch.Tensor:
-        """x for conv3, which is VALID only: a SAME conv keeps the kernel
-        on x zero-padded by 1 a face (XLA's SAME split for k3 s1), where
-        JAX routes SAME past its Pallas conv to XLA."""
-        x = self._cast(x)
-        return zero_pad(x, 1) if self.padding == "SAME" else x
-
-    def _int8(self, x: torch.Tensor, leaky_slope: Optional[float] = None
-              ) -> torch.Tensor:
-        """The int8 conv, dequantized into the compute dtype (float32 when
-        None); ``leaky_slope`` fuses LeakyReLU into the epilogue."""
-        return conv_nd_int8(x, self.kernel, stride=self.stride,
-                            padding=self.padding,
-                            out_dtype=self.compute_dtype or torch.float32,
-                            leaky=leaky_slope)
-
     def forward(self, x: torch.Tensor, act: bool = False) -> torch.Tensor:
-        """The conv, then with ``act`` LeakyReLU(0.3) (DownBlock's down
-        conv): ``conv_nd`` applies it where there is no bias, fused into
-        conv3's epilogue on its down route."""
+        """The conv, then with ``act`` LeakyReLU(0.3): passed to the conv
+        where there is no bias, after the bias where there is one."""
+        fuse = act and self.bias is None
         if self.int8_conv:
-            y = self._int8(x)
-        # conv3 takes the float32 parameter itself under a bf16 x: its
-        # packed weights are cached per parameter, a per-call cast is not.
-        elif self._is_conv3():
-            y = conv3(self._conv3_input(x), self.kernel)
+            dtype = self.compute_dtype or torch.float32
+            y = conv_nd_int8(x, self.kernel, stride=self.stride,
+                             padding=self.padding, out_dtype=dtype,
+                             leaky=slope_in(dtype) if fuse else None)
         else:
-            x = self._cast(x)
-            fuse = act and self.bias is None
-            act = act and not fuse
+            if self.compute_dtype is not None:
+                x = x.to(self.compute_dtype)
             y = conv_nd(x, self.kernel, stride=self.stride,
                         padding=self.padding,
                         leaky=slope_in(x.dtype) if fuse else None)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        return leaky(y) if act else y
+        return leaky(y) if act and not fuse else y
 
 
 class ConvActND(ConvND):
-    """Conv + LeakyReLU(0.3); same param tree as ConvND (one ``kernel``)."""
+    """Conv + LeakyReLU(0.3): ConvND with ``act``; same param tree (one
+    ``kernel``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.int8_conv:
-            return self._int8(x, slope_in(self.compute_dtype
-                                          or torch.float32))
-        if self._is_conv3():
-            x = self._conv3_input(x)
-            return conv3(x, self.kernel, slope_in(x.dtype))
-        return leaky(conv_nd(self._cast(x), self.kernel, stride=self.stride,
-                             padding=self.padding))
+        return super().forward(x, act=True)
 
 
 class ConvTransposeND(nn.Module):

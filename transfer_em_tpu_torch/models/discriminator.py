@@ -18,13 +18,8 @@ state_dict): 40^2 -> hack 38 -> down2 17 -> down3 6 -> 6^2 logits.
 
 Input (B, 40, 40, 40, 1) -> float32 patch logits (B, 1, 1, 1, 1).  With
 ``compute_dtype`` bfloat16 the input is cast at entry and every conv runs
-in bf16, as in the JAX module (discriminator.py:47-49, :77).  In 3D
-the k3 convs run on the conv3 kernels (hack, down2.conv and down3.conv on
-the tensor cores at wf=8), and so do the k4 convs in float32 where no
-gradient is recorded (``ops/convs.py`` ``down_route``, their LeakyReLU in
-conv3's epilogue); every 2D conv, the 1x1 convs and the other k4 convs on
-cuDNN.  The LeakyReLUs after those k4 convs, the double one, the head's
-and, in 2D, the k3 convs' run on the leaky_relu kernel.
+in bf16, as in the JAX module (discriminator.py:47-49, :77).  Which
+kernel runs each conv is ``ops/convs.py``'s choice (its module docstring).
 """
 
 from __future__ import annotations

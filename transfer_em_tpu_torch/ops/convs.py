@@ -1,24 +1,65 @@
-"""k4 stride-2 convolutions and crop helpers, channels last, 2D or 3D.
+"""Convolutions and crop helpers, channels last, 2D or 3D; the one place
+that picks the kernel each float conv runs on.
 
-Counterpart of ``transfer_em_tpu/ops/convs.py``.  The JAX package computes
-these convs with XLA outside any Pallas kernel.  The port leaves the 1x1
-convs and every 2D conv to ``torch.nn.functional`` (cuDNN on the card).
-The 3D k4 stride-2 convs, down and transposed, run in float32 inference on
-hand-written kernels: the down convs on the down4 kernel
-(``ops/cuda_down.py``, :func:`down_route`), the transposed convs as the
-phase conv on conv3 (``ops/cuda_conv.py``, :func:`phase_route`);
-everywhere else on cuDNN.  Activations
-stay channels-last (NHWC / NDHWC) and kernels in the JAX layout (HWIO /
-DHWIO), so both packages take the same tensors at their public functions:
+Counterpart of ``transfer_em_tpu/ops/convs.py``.  Activations stay
+channels-last (NHWC / NDHWC) and kernels in the JAX layout (HWIO / DHWIO),
+so both packages take the same tensors at their public functions.
+
+**The routes.**  :func:`conv_form` reads each call (its rank, kernel,
+stride, padding, dtype, whether it records a gradient) and names the form
+that runs it; :func:`conv_nd` and :func:`conv_transpose_nd` run that form.
+The int8 convs (``ops/quant.py``) are a model's configuration, not a
+route: ``models/blocks.py`` takes them by its ``int8_conv`` flag.
+
+================  ===================================================
+form              takes
+================  ===================================================
+``"conv3"``       a 3D 3x3x3 stride-1 conv, VALID or SAME (zero-padded
+                  by 1 a face first), float32 or bfloat16, with or
+                  without a gradient: the conv3 kernels
+                  (``ops/cuda_conv.py``), the LeakyReLU in their epilogue
+``"down4"``       a 3D k4 stride-2 VALID conv in float32 inference with
+                  at least :data:`DOWN_MIN_OUT` outputs an axis: the down4
+                  kernel (``ops/cuda_down.py``), the LeakyReLU in its
+                  epilogue
+``"phase"``       a 3D k4 stride-2 transposed conv in float32 inference
+                  with Cin * Cout under :data:`PHASE_CIN_COUT_LIMIT`: the
+                  phase conv, one k3 conv on conv3 (:func:`phase_kernel`,
+                  :func:`interleave_phases`)
+``"cudnn"``       every other conv: ``torch.nn.functional`` (cuDNN on the
+                  card; :func:`conv_cudnn`), then the leaky_relu kernel
+                  (``ops/cuda_kernels.py``)
+================  ===================================================
+
+"Float32 inference" is a 3D float32 call that records no gradient (every
+inference mode runs under ``inference_mode``) and whose operands no
+``torch.func`` transform wraps (the train step's vmap over stacked
+networks, ``ensemble_apps``, hides whether they require grad):
+
+* float32 with TF32 off: cuDNN's k4 stride-2 and transposed convs run on
+  the CUDA cores (3.6 TFLOP/s at 8 channels, 19 at 64-256), the down4 and
+  conv3 kernels on the tensor cores as 3xTF32, at float32's accuracy.  The
+  phase form's 27/8 times the MACs (19 of its 27 taps a phase are zero)
+  still take less time: at the wf=8 generator's up convs (B=128) 1.2 and
+  1.4 ms against cuDNN's 3.3 and 9.4 on an H100.
+* bfloat16: cuDNN's convs already run on the tensor cores.  The phase form
+  beats cuDNN's transposed conv at some shapes and loses at others (at wf=8
+  B=128 0.51 against 0.29 ms at up1.up, 0.83 against 2.29 at up0.up;
+  chip_smoke.py phase 12).
+* 2D: the kernels are 3D only, as the JAX package gates its Pallas conv on
+  ``ndim == 3``.
+* A forward that records a gradient: down4 has no backward, the phase
+  form's backward would be cuDNN's k3 backward on 27/8 times the work, and
+  training keeps cuDNN's forward and backward together.  conv3 carries its
+  own autograd Function (``ops/cuda_conv.py``), so it trains.
+
+The forms' counts (``ops/counts.py``): ``down_k4`` and ``down_cudnn`` count
+the k4 stride-2 VALID convs by form, ``transpose_phase`` and
+``transpose_cudnn`` the transposed convs.
 
 * ``conv_nd``: VALID or SAME (XLA's split, at any stride) strided conv;
   the kernel's (k.., Cin, Cout) -> (Cout, Cin, k..) is ``permute(n + 1,
-  n, 0, .., n - 1)`` for n spatial axes.  ``leaky`` applies LeakyReLU
-  after it (in the down4 kernel's epilogue on its route).  A 3D k4
-  stride-2 VALID conv that :func:`down_route` takes runs on the down4
-  kernel (``ops/cuda_down.py``), which reads x in place at stride 2.
-  ``conv_nd.k4_calls`` and ``.cudnn_calls`` count the k4 stride-2 VALID
-  convs by form (``ops/counts.py`` ``down_k4`` / ``down_cudnn``).
+  n, 0, .., n - 1)`` for n spatial axes.
 * ``conv_transpose_nd``: TF-SAME transposed conv at any k and s; the
   generator's k4 stride-2 one (reference
   Keras ``Conv2DTranspose`` / ``Conv3DTranspose``, convs.py:84-132) ==
@@ -31,10 +72,6 @@ DHWIO), so both packages take the same tensors at their public functions:
   function as the JAX package's subpixel formulation (convs.py:135-189):
   one k3 VALID conv over x padded by 1, with 2^n * Cout output channels
   (:func:`phase_kernel`), then interleaved (:func:`interleave_phases`).
-  ``phase_decompose`` picks the form; its default picks it from the call
-  (:func:`phase_route`).  ``conv_transpose_nd.phase_calls`` and
-  ``.cudnn_calls`` count the two forms (``ops/counts.py``
-  ``transpose_phase`` / ``transpose_cudnn``).
 
 An NDHWC (NHWC) tensor permuted to NCDHW (NCHW) is a channels_last view,
 which cuDNN takes without a copy.  On the CPU the permuted kernel is made
@@ -49,6 +86,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry
+from ..kernels import DTYPE_CODES
 from .cuda_conv import conv3, storage_cached
 from .cuda_down import down4
 from .cuda_kernels import leaky_relu
@@ -91,26 +130,112 @@ def same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+# The phase form takes a transposed conv whose Cin * Cout is below this.
+# Float32 with TF32 off on an H100 80GB HBM3 (700 W), B=16: at the wf=1
+# generator's up1.up (256 -> 128, 13^3 in) the phase conv takes 7.12 ms and
+# cuDNN 5.01, at its up0.up (128 -> 64, 22^3 in) 6.56 against 10.79.  With
+# 13^3 in, the phase conv wins up to 128 -> 96 (12,288) and loses from
+# 192 -> 96 (18,432) on, at B=4, 16 and 128 alike; with 22^3 in, and in the
+# slab's B=1 planes, it wins at every width up to 256 -> 128 (PERF.md §6).
+PHASE_CIN_COUT_LIMIT = 16384
+
+# The down4 form takes a k4 stride-2 conv whose output has at least this
+# many voxels on every axis: every down conv of the generator at its tile
+# and in slabs, and the discriminator's first.  Float32 with TF32 off on an
+# H100 80GB HBM3 (700 W), the down4 kernel against cuDNN: the wf=8
+# generator's down convs at B=128 2.16 and 0.46 ms against 11.36 and 1.74,
+# wf=1's (B=16) 4.23 and 1.53 against 17.58 and 6.08.  With 6^3 out (the
+# discriminator's down2) it wins too (0.17 against 0.31 ms at wf=8, B=128),
+# but at wf=1's 256 -> 256 its 3xTF32 sums of 16,384 terms are 1.2e-4 of
+# the largest value from float64, over conv3's float32 tolerance, so that
+# extent stays on cuDNN (PERF.md §6, §7).
+DOWN_MIN_OUT = 15
+
+
+def _records_grad(x: torch.Tensor, kernel: torch.Tensor) -> bool:
+    """Whether a forward on x and kernel records an autograd graph."""
+    return torch.is_grad_enabled() and (x.requires_grad
+                                        or kernel.requires_grad)
+
+
+def _func_wrapped(t: torch.Tensor) -> bool:
+    """t is wrapped by a ``torch.func`` transform: the wrapper does not
+    show whether the tensor under it requires grad, and has no storage."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+def _f32_inference(x: torch.Tensor, kernel: torch.Tensor) -> bool:
+    """A 3D float32 call that records no gradient and whose operands no
+    ``torch.func`` transform wraps (module docstring)."""
+    return (x.dim() == 5 and x.dtype == torch.float32
+            and not _records_grad(x, kernel)
+            and not (_func_wrapped(x) or _func_wrapped(kernel)))
+
+
+def _is_down(kernel: torch.Tensor, stride: int, padding: str) -> bool:
+    """A k4 stride-2 VALID conv: the U-Net's down convs."""
+    n = kernel.dim() - 2
+    return (tuple(kernel.shape[:n]) == (4,) * n and stride == 2
+            and padding == "VALID")
+
+
+def conv_form(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
+              padding: str = "VALID", transpose: bool = False) -> str:
+    """The form that runs a conv of x by kernel: ``"conv3"``, ``"down4"``,
+    ``"phase"`` or ``"cudnn"`` (the module docstring's table).
+    ``transpose``: the TF-SAME transposed conv of :func:`conv_transpose_nd`
+    (``padding`` unread)."""
+    n = x.dim() - 2
+    if transpose:
+        return ("phase" if tuple(kernel.shape[:n]) == (4,) * n
+                and stride == 2
+                and kernel.shape[-2] * kernel.shape[-1] < PHASE_CIN_COUT_LIMIT
+                and _f32_inference(x, kernel) else "cudnn")
+    if (n == 3 and tuple(kernel.shape[:3]) == (3, 3, 3) and stride == 1
+            and x.dtype in DTYPE_CODES):
+        return "conv3"
+    if (_is_down(kernel, stride, padding) and _f32_inference(x, kernel)
+            and min(x.shape[1:4]) // 2 - 1 >= DOWN_MIN_OUT):
+        return "down4"
+    return "cudnn"
+
+
 def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
             padding: str = "VALID", leaky: Optional[float] = None
             ) -> torch.Tensor:
     """(B, *S, Cin) * (*k, Cin, Cout) -> (B, *S', Cout), 2D or 3D, in x's
-    dtype (the kernel is cast to it).  ``padding="SAME"`` pads as XLA does
-    (:func:`same_padding`, split unevenly where the total is odd): torch's
-    ``padding="same"`` at stride 1, at a larger stride an explicit pad and
-    a VALID conv (torch refuses "same" there).  ``leaky`` applies
-    LeakyReLU(negative_slope=leaky) to the result.  A call that
-    :func:`down_route` takes runs on the down4 kernel, the LeakyReLU in its
-    epilogue; every other call on ``F.conv{2,3}d``, then the leaky_relu
-    kernel."""
-    n = _spatial_rank(x, kernel)
+    dtype, on the form :func:`conv_form` picks.  ``padding="SAME"`` pads as
+    XLA does (:func:`same_padding`, split unevenly where the total is
+    odd).  ``leaky`` applies LeakyReLU(negative_slope=leaky) to the result,
+    in the conv3 and down4 kernels' epilogue.  conv3 takes the kernel as
+    it is, a float32 parameter under a bfloat16 x too (its packs are
+    cached per parameter; a per-call cast is not); the other forms cast it
+    to x's dtype."""
+    _spatial_rank(x, kernel)
     if padding not in ("VALID", "SAME"):
         raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
-    if down_route(x, kernel, stride, padding):
-        conv_nd.k4_calls += 1
+    form = conv_form(x, kernel, stride, padding)
+    if form == "conv3":
+        return conv3(zero_pad(x, 1) if padding == "SAME" else x, kernel,
+                     leaky)
+    if form == "down4":
+        telemetry.count("down_k4")
         return down4(x, kernel, leaky)
     if _is_down(kernel, stride, padding):
-        conv_nd.cudnn_calls += 1
+        telemetry.count("down_cudnn")
+    return conv_cudnn(x, kernel, stride=stride, padding=padding, leaky=leaky)
+
+
+def conv_cudnn(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
+               padding: str = "VALID", leaky: Optional[float] = None
+               ) -> torch.Tensor:
+    """:func:`conv_nd` on ``F.conv{2,3}d`` whatever the call (cuDNN on the
+    card), the kernel cast to x's dtype, then the leaky_relu kernel: the
+    form that :func:`conv_nd` falls back to, and the one the warp's box
+    filters (``ops/warp.py``) take by name.  At stride 1 SAME is torch's
+    ``padding="same"``; at a larger stride an explicit pad and a VALID
+    conv (torch refuses "same" there)."""
+    n = _spatial_rank(x, kernel)
     w = _weight(kernel.to(x.dtype).permute(n + 1, n, *range(n)))
     pad = "valid"
     if padding == "SAME" and stride == 1:
@@ -123,17 +248,6 @@ def conv_nd(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
     y = _to_channels_last(_CONV[n](_to_channels_first(x), w, stride=stride,
                                    padding=pad))
     return y if leaky is None else leaky_relu(y, leaky)
-
-
-conv_nd.k4_calls = 0     # k4 stride-2 VALID convs on the down4 kernel
-conv_nd.cudnn_calls = 0  # k4 stride-2 VALID convs on F.conv{2,3}d
-
-
-def _is_down(kernel: torch.Tensor, stride: int, padding: str) -> bool:
-    """A k4 stride-2 VALID conv: the U-Net's down convs."""
-    n = kernel.dim() - 2
-    return (tuple(kernel.shape[:n]) == (4,) * n and stride == 2
-            and padding == "VALID")
 
 
 def same_transpose_padding(k: int, s: int) -> Tuple[int, int]:
@@ -151,95 +265,6 @@ def same_transpose_padding(k: int, s: int) -> Tuple[int, int]:
     return (k - 1 - p_lo, k - 1 - p_hi)
 
 
-# The phase route takes a transposed conv whose Cin * Cout is below this.
-# Float32 with TF32 off on an H100 80GB HBM3 (700 W), B=16: at the wf=1
-# generator's up1.up (256 -> 128, 13^3 in) the phase conv takes 7.12 ms and
-# cuDNN 5.01, at its up0.up (128 -> 64, 22^3 in) 6.56 against 10.79.  With
-# 13^3 in, the phase conv wins up to 128 -> 96 (12,288) and loses from
-# 192 -> 96 (18,432) on, at B=4, 16 and 128 alike; with 22^3 in, and in the
-# slab's B=1 planes, it wins at every width up to 256 -> 128 (PERF.md §6).
-PHASE_CIN_COUT_LIMIT = 16384
-
-
-def _records_grad(x: torch.Tensor, kernel: torch.Tensor) -> bool:
-    """Whether a forward on x and kernel records an autograd graph."""
-    return torch.is_grad_enabled() and (x.requires_grad
-                                        or kernel.requires_grad)
-
-
-def _func_wrapped(t: torch.Tensor) -> bool:
-    """t is wrapped by a ``torch.func`` transform (the train step's vmap
-    over stacked networks, ``ensemble_apps``): the wrapper does not show
-    whether the tensor under it requires grad, and has no storage."""
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
-
-
-def phase_route(x: torch.Tensor, kernel: torch.Tensor, stride: int) -> bool:
-    """The default of ``conv_transpose_nd(phase_decompose=None)``: the phase
-    conv on conv3 for a 3D k4 stride-2 float32 call that records no
-    gradient (inference: every inference mode runs under
-    ``inference_mode``), with Cin * Cout below :data:`PHASE_CIN_COUT_LIMIT`;
-    cuDNN's transposed conv for the rest.
-
-    * float32 with TF32 off: cuDNN's transposed conv runs on the CUDA cores,
-      conv3's phase conv on the tensor cores as 3xTF32, at float32's
-      accuracy, so the phase form's 27/8 times the MACs (19 of its 27 taps
-      a phase are zero) take less time: at the wf=8 generator's up convs
-      (B=128) 1.2 and 1.4 ms against cuDNN's 3.3 and 9.4 on an H100.  At
-      wide channels and small extents cuDNN's engine catches up
-      (:data:`PHASE_CIN_COUT_LIMIT`).
-    * bfloat16: cuDNN's transposed conv already runs on the tensor cores.
-      The phase form beats it at some shapes and loses at others (at
-      wf=8 B=128 0.51 against 0.29 ms at up1.up, 0.83 against 2.29 at
-      up0.up; chip_smoke.py phase 12); bf16 stays on cuDNN.
-    * 2D: conv3 is 3D only.
-    * A forward that records a gradient, or may (an operand wrapped by a
-      ``torch.func`` transform): the phase form's backward would be cuDNN's
-      k3 backward on 27/8 times the work."""
-    return (x.dim() == 5 and kernel.shape[0] == 4 and stride == 2
-            and x.dtype == torch.float32
-            and kernel.shape[-2] * kernel.shape[-1] < PHASE_CIN_COUT_LIMIT
-            and not _records_grad(x, kernel)
-            and not (_func_wrapped(x) or _func_wrapped(kernel)))
-
-
-# The down route takes a k4 stride-2 conv whose output has at least this
-# many voxels on every axis: every down conv of the generator at its tile
-# and in slabs, and the discriminator's first.  Float32 with TF32 off on an
-# H100 80GB HBM3 (700 W), the down4 kernel against cuDNN: the wf=8
-# generator's down convs at B=128 2.16 and 0.46 ms against 11.36 and 1.74,
-# wf=1's (B=16) 4.23 and 1.53 against 17.58 and 6.08.  With 6^3 out (the
-# discriminator's down2) it wins too (0.17 against 0.31 ms at wf=8, B=128),
-# but at wf=1's 256 -> 256 its 3xTF32 sums of 16,384 terms are 1.2e-4 of
-# the largest value from float64, over conv3's float32 tolerance, so that
-# extent stays on cuDNN (PERF.md §6, §7).
-DOWN_MIN_OUT = 15
-
-
-def down_route(x: torch.Tensor, kernel: torch.Tensor, stride: int,
-               padding: str) -> bool:
-    """Whether ``conv_nd`` runs the call on the down4 kernel
-    (``ops/cuda_down.py``): a 3D k4 stride-2 VALID float32 call that
-    records no gradient (inference: every inference mode runs under
-    ``inference_mode``), with at least :data:`DOWN_MIN_OUT` output voxels
-    an axis (every down conv of the generator at its 74^3 tile and in
-    slabs, the discriminator's first); ``F.conv{2,3}d`` for the rest.
-
-    * float32 with TF32 off: cuDNN's k4 stride-2 conv runs on the CUDA
-      cores (3.6 TFLOP/s at 8 channels, 19 at 64-256), the down4 kernel on
-      the tensor cores as 3xTF32, at float32's accuracy.
-    * bfloat16: cuDNN's conv already runs on the tensor cores.
-    * 2D: the kernel is 3D only.  SAME: the U-Net's down convs are VALID.
-    * A forward that records a gradient, or may (an operand wrapped by a
-      ``torch.func`` transform): the kernel has no backward, and training
-      keeps cuDNN's forward and backward together."""
-    return (x.dim() == 5 and _is_down(kernel, stride, padding)
-            and x.dtype == torch.float32
-            and min(x.shape[1:4]) // 2 - 1 >= DOWN_MIN_OUT
-            and not _records_grad(x, kernel)
-            and not (_func_wrapped(x) or _func_wrapped(kernel)))
-
-
 def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
                       stride: int = 2,
                       phase_decompose: Optional[bool] = None) -> torch.Tensor:
@@ -251,21 +276,23 @@ def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
     unpadded, cropped by :func:`same_transpose_padding`'s split of
     max(k - s, 0) (the low side ``p_lo``, the high side the rest).
     ``phase_decompose`` (k4 s2 only): True computes it as the phase conv,
-    one stride-1 k3 conv with 2^n * Cout outputs (on conv3 in 3D), then
-    interleaved, the same function summed in another order; False as
-    cuDNN's transposed conv; None (default) picks by :func:`phase_route`."""
+    one stride-1 k3 conv with 2^n * Cout outputs (through :func:`conv_nd`:
+    conv3 in 3D), then interleaved, the same function summed in another
+    order; False as cuDNN's transposed conv; None (default) as
+    :func:`conv_form` picks."""
     n = _spatial_rank(x, kernel)
     k = kernel.shape[0]
     if phase_decompose is None:
-        phase_decompose = phase_route(x, kernel, stride)
+        phase_decompose = conv_form(x, kernel, stride,
+                                    transpose=True) == "phase"
     if phase_decompose:
         if stride != 2 or k != 4:
             raise ValueError("phase_decompose supports stride=2, k=4 only")
-        conv_transpose_nd.phase_calls += 1
+        telemetry.count("transpose_phase")
         return _conv_transpose_phase(x, kernel)
     if stride < 1:
         raise ValueError(f"stride must be >= 1, got {stride}")
-    conv_transpose_nd.cudnn_calls += 1
+    telemetry.count("transpose_cudnn")
     w = _weight(kernel.to(x.dtype).permute(n, n + 1, *range(n)))
     xc = _to_channels_first(x)
     if stride == 2 and k == 4:  # the generator's up convs
@@ -278,10 +305,6 @@ def conv_transpose_nd(x: torch.Tensor, kernel: torch.Tensor, *,
     y = y[(slice(None), slice(None))
           + tuple(slice(lo, y.shape[2 + ax] - hi) for ax in range(n))]
     return _to_channels_last(y)
-
-
-conv_transpose_nd.phase_calls = 0  # the phase conv (conv3 in 3D)
-conv_transpose_nd.cudnn_calls = 0  # cuDNN's conv_transpose{2,3}d
 
 
 # Per axis, the TF SAME stride-2 k4 transposed conv is
@@ -322,28 +345,21 @@ def interleave_phases(y: torch.Tensor, p: int = 2) -> torch.Tensor:
     return y.reshape((bsz,) + tuple(p * s for s in sp) + (cout,))
 
 
-def _derived_kernel(kernel: torch.Tensor, name: str, build
-                    ) -> torch.Tensor:
-    """build(kernel) (the phase conv's kernel) for a forward that records
-    no gradient, cached per parameter under ``name``
-    (``cuda_conv.storage_cached``): repeated forwards reuse it, and so
-    conv3's tensor-core pack of it, cached on its own storage; an in-place
-    update of the parameter (``p.add_`` under ``no_grad``) rebuilds both.
-    It is built outside inference mode, so that it has a version counter
-    and its pack is cached too."""
-    def make():
-        with torch.inference_mode(False), torch.no_grad():
-            return build(kernel.detach())
-
-    return storage_cached(kernel, name, (), make)
-
-
 def _conv_transpose_phase(x: torch.Tensor, kernel: torch.Tensor
                           ) -> torch.Tensor:
+    """The phase form.  For a forward that records no gradient the phase
+    kernel is cached per parameter (``cuda_conv.storage_cached``):
+    repeated forwards reuse it, and so conv3's pack of it, cached on its
+    own storage; an in-place update of the parameter (``p.add_`` under
+    ``no_grad``) rebuilds both.  It is built outside inference mode, so
+    that it has a version counter and its pack is cached too."""
+    def make():
+        with torch.inference_mode(False), torch.no_grad():
+            return phase_kernel(kernel.detach())
+
     k3 = (phase_kernel(kernel) if _records_grad(x, kernel)
-          else _derived_kernel(kernel, "_phase_kernels", phase_kernel))
-    xp = zero_pad(x, 1)
-    y = conv3(xp, k3) if x.dim() == 5 else conv_nd(xp, k3)
+          else storage_cached(kernel, "_phase_kernels", (), make))
+    y = conv_nd(zero_pad(x, 1), k3)
     return interleave_phases(y).contiguous()
 
 

@@ -5,10 +5,9 @@ the Pallas Toeplitz-GEMM ``_tconv3_kernel`` (pallas_conv.py:69-114,
 ``pallas_call`` at :174) reached through ``tconv3`` (138-159), ``tconv3_op``
 (196-219) and ``tconv3_act_op`` (224-246).  Unlike the TPU kernel, whose
 ``supported()`` (42-53) needs W >= 128/C and so leaves the C=1 stem to XLA
-at 74^3, they serve every k3 conv of the generator, the stem included, and
-in float32 inference the phase conv of its transposed convs
-(``ops/convs.py`` ``phase_route``).  Its k4 stride-2 down convs have a
-kernel of their own (``ops/cuda_down.py``, ``csrc/down4_tc.cu``).
+at 74^3, they serve every k3 conv of the generator, the stem included.
+Which convs reach them is ``ops/convs.py``'s choice (its module
+docstring).
 
 The wrapper picks one of two kernels by shape (:func:`conv3_path`):
 
@@ -56,7 +55,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import kernels
+from .. import kernels, telemetry
 from .cuda_kernels import LEAKY_SLOPE
 
 # The tensor-core path needs C >= TC_MIN_IN and O >= TC_MIN_OUT.
@@ -183,17 +182,14 @@ def packed_weights(w: torch.Tensor,
       ``inference_mode``, an inference tensor, which has no version
       counter and always repacks).
 
-    ``packed_weights.packs`` counts the packs."""
+    Each pack counts as ``conv3_weight_packs`` (``ops/counts.py``)."""
     dtype = w.dtype if dtype is None else dtype
 
     def pack():
-        packed_weights.packs += 1
+        telemetry.count("conv3_weight_packs")
         return pack_conv3_weights(w.detach(), dtype)
 
     return storage_cached(w, "_conv3_packs", (dtype,), pack)
-
-
-packed_weights.packs = 0
 
 
 def storage_cached(w: torch.Tensor, name: str, key: tuple, make):
@@ -202,9 +198,7 @@ def storage_cached(w: torch.Tensor, name: str, key: tuple, make):
     stamped with w's version counter: an in-place update of w remakes it,
     and it lives as long as w's memory.  A tensor made in inference mode
     keeps no version counter, so make() runs on every call.  The one cache
-    of what is derived from a parameter: conv3's packs, the int8 weights
-    (``ops/quant.py``), the phase kernel (``ops/convs.py``) and the down4
-    kernel's packs (``ops/cuda_down.py`` ``packed_down4_weights``)."""
+    of what is derived from a parameter."""
     if w.is_inference():
         return make()
     storage = w.untyped_storage()
@@ -349,23 +343,17 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
                        y.data_ptr(), code, bsz, d, h, wd, c, o, plan.cb,
                        plan.nc, int(plan.resident), act, slope,
                        device=x.device)
-        conv3.launches_tc += 1
+        telemetry.count("conv3_tc")
     else:
         w = w.to(x.dtype)  # C < 4 or O < 8: a few hundred weights
         kernels.launch("tem_conv3_direct", x.data_ptr(), w.data_ptr(),
                        y.data_ptr(), code, bsz, d, h, wd, c, o, act, slope,
                        device=x.device)
-        conv3.launches_direct += 1
+        telemetry.count("conv3_direct")
     if x.dtype == torch.bfloat16:
-        conv3.launches_bf16 += 1
-    conv3.launches += 1
+        telemetry.count("conv3_bf16")
+    telemetry.count("conv3")
     return y
-
-
-conv3.launches = 0         # both kernels
-conv3.launches_tc = 0      # csrc/conv3_tc.cu
-conv3.launches_direct = 0  # csrc/conv3_direct.cu
-conv3.launches_bf16 = 0    # both kernels, bfloat16 operands
 
 
 def conv3_act(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

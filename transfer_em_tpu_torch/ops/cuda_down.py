@@ -2,8 +2,8 @@
 
 No Pallas kernel of the JAX package computes this conv: it leaves its k4
 stride-2 down convs to XLA (``transfer_em_tpu/ops/convs.py`` ``conv_nd``).
-The port runs them in float32 inference (``ops/convs.py`` ``down_route``)
-on ``csrc/down4_tc.cu``: an implicit GEMM on the tensor cores, float32 as
+The port runs them on ``csrc/down4_tc.cu`` where ``ops/convs.py`` picks
+it (its module docstring): an implicit GEMM on the tensor cores, float32 as
 3xTF32 (conv3's split and sums), that reads x in place at stride 2 and
 multiplies only the 64 real taps.  Its weights are packed once per
 parameter (:func:`packed_down4_weights`); its source's header says what
@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .. import kernels
+from .. import kernels, telemetry
 from .cuda_conv import split_tf32, storage_cached
 
 TILE = 4            # an m64 tile is TILE^3 outputs (csrc/down4_tc.cu kT)
@@ -122,15 +122,13 @@ def pack_down4_weights(w: torch.Tensor) -> torch.Tensor:
 def packed_down4_weights(w: torch.Tensor) -> torch.Tensor:
     """:func:`pack_down4_weights` (w), cached on w's storage and stamped
     with its version counter (``cuda_conv.storage_cached``): built once per
-    parameter, again after an in-place update.  ``.packs`` counts them."""
+    parameter, again after an in-place update.  Each pack counts as
+    ``down4_weight_packs`` (``ops/counts.py``)."""
     def pack():
-        packed_down4_weights.packs += 1
+        telemetry.count("down4_weight_packs")
         return pack_down4_weights(w.detach())
 
     return storage_cached(w, "_down4_packs", (), pack)
-
-
-packed_down4_weights.packs = 0
 
 
 def down4(x: torch.Tensor, w: torch.Tensor,
@@ -140,7 +138,7 @@ def down4(x: torch.Tensor, w: torch.Tensor,
     into the epilogue as LeakyReLU(negative_slope=leaky): on the CPU
     :func:`down4_plain`, on the card ``csrc/down4_tc.cu`` with w packed
     once per parameter.  A strided x is read through a contiguous copy.
-    No gradient: ``down_route`` takes only calls that record none."""
+    No gradient: ``ops/convs.py`` routes only calls that record none."""
     if x.device.type == "cpu":
         return down4_plain(x, w, leaky)
     x = x.contiguous()
@@ -161,8 +159,5 @@ def down4(x: torch.Tensor, w: torch.Tensor,
                    bsz, d, h, wd, c, y.shape[-1],
                    down4_plan(c, y.shape[-1]).nc, int(leaky is not None),
                    0.0 if leaky is None else float(leaky), device=x.device)
-    down4.launches += 1
+    telemetry.count("down4")
     return y
-
-
-down4.launches = 0  # csrc/down4_tc.cu

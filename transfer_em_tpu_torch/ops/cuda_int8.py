@@ -25,7 +25,7 @@ conv in float64, which is exact here (the widest reduction of the
 generator, 27 * 256 taps at wf=1, sums at most 6,912 * 127^2 ~ 1.1e8 in
 magnitude: above float32's 2^24, far below float64's 2^53).  The wrapper
 takes it for tensors on the CPU only; a CUDA tensor launches the kernel
-(``conv_int8.launches`` counts the launches) or raises.
+(counted as ``conv_int8``, ``ops/counts.py``) or raises.
 
 The kernel's B operand is packed by :func:`pack_int8_weights`, once per
 parameter (``ops/quant.int8_weights``), for the block shape the kernel
@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .. import kernels
+from .. import kernels, telemetry
 from .convs import interleave_phases
 
 OUT_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -217,7 +217,7 @@ def conv_int8(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
                                phases=phases)
     y = conv_int8_cuda(qx, qk, sx, sk, out_dtype, leaky, packed=packed,
                        phases=phases)
-    _counted.launches += 1
+    telemetry.count("conv_int8")
     return y
 
 
@@ -259,7 +259,3 @@ def conv_int8_cuda(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
                    OUT_MODES[out_dtype], n, bsz, d, h, w, c, kd, kh, kw, o,
                    nph, act, float(leaky) if act else 0.0, device=qx.device)
     return y
-
-
-conv_int8.launches = 0
-_counted = conv_int8  # the counter, wherever the name is rebound

@@ -12,9 +12,10 @@ wrapper                    replaces (Pallas, transfer_em_tpu/ops/)
 =========================  ==============================================
 
 Each wrapper runs its ``*_plain`` PyTorch version only for a tensor on the
-CPU; for a CUDA tensor it launches the kernel (and adds one to its
-``launches`` count) or raises.  Outputs are allocated with ``torch.empty``
-and the kernels run on the current stream without synchronising.
+CPU; for a CUDA tensor it launches the kernel (and counts the launch under
+its name, ``ops/counts.py``) or raises.  Outputs are allocated with
+``torch.empty`` and the kernels run on the current stream without
+synchronising.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 
 LEAKY_SLOPE = 0.3  # Keras LeakyReLU default, as in models/blocks.py
 
@@ -71,11 +72,8 @@ def preprocess_u8(x_u8: torch.Tensor, meanstd: MeanStd) -> torch.Tensor:
                     device=x_u8.device)
     kernels.launch("tem_preprocess_u8", x_u8.data_ptr(), y.data_ptr(),
                    x_u8.numel(), a, b, device=x_u8.device)
-    preprocess_u8.launches += 1
+    telemetry.count("preprocess_u8")
     return y
-
-
-preprocess_u8.launches = 0
 
 
 # -- kernel 3: postprocess ---------------------------------------------------
@@ -124,11 +122,8 @@ def postprocess_u8(y: torch.Tensor, meanstd: MeanStd,
     kernels.launch("tem_postprocess_u8", y.data_ptr(), out.data_ptr(),
                    y.shape[0], d, h, w, dtpad, tpad,
                    int(meanstd is not None), mean, std, device=y.device)
-    postprocess_u8.launches += 1
+    telemetry.count("postprocess_u8")
     return out
-
-
-postprocess_u8.launches = 0
 
 
 # -- kernel 4: LeakyReLU -----------------------------------------------------
@@ -186,11 +181,7 @@ def _leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     kernels.launch("tem_leaky_relu", x.data_ptr(), y.data_ptr(),
                    kernels.DTYPE_CODES[x.dtype], x.numel(), negative_slope,
                    device=x.device)
-    leaky_relu.launches += 1
+    telemetry.count("leaky_relu")
     if x.dtype == torch.bfloat16:
-        leaky_relu.launches_bf16 += 1
+        telemetry.count("leaky_relu_bf16")
     return y
-
-
-leaky_relu.launches = 0
-leaky_relu.launches_bf16 = 0  # those on bfloat16 tensors

@@ -4,7 +4,9 @@ Counterpart of ``transfer_em_tpu/ops/quant.py`` (the same scheme, the same
 call shapes, 2D and 3D): activations quantized per tensor over the whole
 batch, weights per output channel, both symmetric (no zero points), an
 int8 x int8 -> int32 conv, dequantized straight into the requested dtype.
-``UNetGenerator(int8_conv=True)`` routes every conv through here.
+``UNetGenerator(int8_conv=True)`` routes every conv through here (a flag
+of ``models/blocks.py``; the float convs' kernels are ``ops/convs.py``'s
+choice).
 
 A conv here is two hand-written kernels on CUDA tensors:
 
@@ -65,7 +67,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import kernels
+from .. import kernels, telemetry
 from .convs import (interleave_phases, phase_kernel, same_padding,
                     same_transpose_padding)
 from .cuda_conv import storage_cached
@@ -183,12 +185,12 @@ def quantize_int8(x: torch.Tensor, layout: Layout
     ``layout``, scale float32 of shape (1,)*x.dim()): JAX's
     ``quantize_sym`` over the whole tensor, written where the conv reads it.
     A CPU tensor takes :func:`quantize_int8_plain`; a CUDA tensor launches
-    ``csrc/quant_int8.cu`` (``quantize_int8.launches`` counts the
-    launches) or raises."""
+    ``csrc/quant_int8.cu`` (counted as ``quantize_int8``,
+    ``ops/counts.py``) or raises."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, layout)
     out = quantize_int8_cuda(x, layout)
-    _counted.launches += 1
+    telemetry.count("quantize_int8")
     return out
 
 
@@ -219,10 +221,6 @@ def quantize_int8_cuda(x: torch.Tensor, layout: Layout, lib=None
                    shape[-1], *lo, layout.stride, n, layout.wtaps,
                    device=x.device, lib=lib)
     return q, scratch[1:].view((1,) * x.dim())
-
-
-quantize_int8.launches = 0
-_counted = quantize_int8  # the counter, wherever the name is rebound
 
 
 # -- the phases of any other conv --------------------------------------------
@@ -379,18 +377,14 @@ def int8_weights(kernel: torch.Tensor, layout: Layout,
     * a tensor made in inference mode keeps no version counter and is
       remade on every call.
 
-    ``int8_weights.packs`` counts the makes."""
+    Each make counts as ``int8_weight_packs`` (``ops/counts.py``)."""
     def make():
-        _made.packs += 1
+        telemetry.count("int8_weight_packs")
         return _make_weights(kernel, layout, transpose, plans)
 
     return storage_cached(kernel, "_int8_weights",
                           (layout.stride, layout.wtaps, layout.channels,
                            transpose, plans), make)
-
-
-int8_weights.packs = 0
-_made = int8_weights  # the counter, wherever the name is rebound
 
 
 # -- the convs ----------------------------------------------------------------

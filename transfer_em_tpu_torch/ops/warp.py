@@ -12,9 +12,10 @@ source domain:
 
 The two convs are small depthwise convs that the JAX package leaves to
 XLA, so they stay on ``F.conv3d`` / ``F.conv2d`` through
-``ops/convs.conv_nd``.  The even 4^n SAME kernel pads (1, 2) on every axis,
-as XLA does (tests/test_torch_warp_augment.py pins it against the JAX
-function in 3D, tests/test_torch_2d_train.py in 2D).
+``ops/convs.conv_cudnn``, whatever form ``conv_nd`` would pick.  The even
+4^n SAME kernel pads (1, 2) on every axis, as XLA does
+(tests/test_torch_warp_augment.py pins it against the JAX function in 3D,
+tests/test_torch_2d_train.py in 2D).
 
 The hole mask is the only randomness: ``torch.rand`` from a
 ``torch.Generator`` on the element's device, seeded with an integer
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..rng import derive_seed
-from .convs import conv_nd
+from .convs import conv_cudnn
 
 HOLE_RATE = 4.0 / (128 * 128)
 
@@ -51,8 +52,9 @@ def warp_with_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     given its hole masks (same shape, 0/1): blur, dilate the holes, fill
     them with each element's blurred mean."""
     n = x.dim() - 2
-    xb = conv_nd(x, _box_filter(3, True, x.device, n), padding="SAME")
-    holes = conv_nd(mask, _box_filter(4, False, x.device, n), padding="SAME")
+    xb = conv_cudnn(x, _box_filter(3, True, x.device, n), padding="SAME")
+    holes = conv_cudnn(mask, _box_filter(4, False, x.device, n),
+                       padding="SAME")
     mean = xb.mean(dim=tuple(range(1, x.dim())), keepdim=True)
     return torch.where(holes > 0, mean, xb)
 

@@ -31,8 +31,10 @@ last session's window alone.  There is nothing to configure: any
 ``torch.profiler`` session, or ``EM2EM.train(profile_dir=)``, carries the
 spans.  A span changes no number the program computes.
 
-The hand-written kernels' launch counters stay in ``ops/counts.py``;
-:func:`snapshot` reads them beside the totals.
+The hand-written kernels' wrappers count here too, each under a name of
+:data:`LAUNCHES`, where they launch, pack or pick a form.  :func:`totals`
+leaves those out, :func:`launches` (``ops.counts.read_counts``) reads
+them and :func:`snapshot` reports them beside the totals.
 """
 
 from __future__ import annotations
@@ -49,6 +51,15 @@ import torch.autograd.profiler as _autograd_profiler
 # spans that open a request: a train step, a predict_volume call, a request
 # to the model service
 ENTRIES = frozenset({"train.step", "volume.call", "serve.request"})
+
+# The kernels' counts (``ops/counts.py`` says what each counts), in the
+# order :func:`launches` reports them.
+LAUNCHES = ("conv3", "down4", "preprocess_u8", "postprocess_u8",
+            "leaky_relu", "conv_int8", "quantize_int8", "int8_weight_packs",
+            "conv3_tc", "conv3_direct", "conv3_bf16", "leaky_relu_bf16",
+            "conv3_weight_packs", "down4_weight_packs", "transpose_phase",
+            "transpose_cudnn", "down_k4", "down_cudnn")
+_LAUNCH_SET = frozenset(LAUNCHES)
 
 _perf_ns = time.perf_counter_ns
 # A profiler session records where either says so: ``torch.profiler.profile``
@@ -243,22 +254,38 @@ def records() -> List[dict]:
 
 def totals() -> dict:
     """``{"spans": {name: {"count", "seconds"}}, "counts": {name: n}}``
-    since the process started or the last :func:`reset`."""
+    since the process started or the last :func:`reset`; the kernels'
+    counts (:data:`LAUNCHES`) are not among ``counts``."""
     with _lock:
         spans = {k: {"count": c, "seconds": ns / 1e9}
                  for k, (c, ns) in _totals.items()}
-        return {"spans": spans, "counts": dict(_counts)}
+        return {"spans": spans,
+                "counts": {k: n for k, n in _counts.items()
+                           if k not in _LAUNCH_SET}}
+
+
+def launches() -> Dict[str, int]:
+    """Each count of :data:`LAUNCHES`, 0 where none was counted."""
+    with _lock:
+        return {k: _counts.get(k, 0) for k in LAUNCHES}
+
+
+def reset_launches() -> None:
+    """The counts of :data:`LAUNCHES` to 0."""
+    with _lock:
+        for k in LAUNCHES:
+            _counts.pop(k, None)
 
 
 def snapshot() -> dict:
-    """:func:`totals` with the kernels' launch counts
-    (``ops.counts.read_counts``) beside them under ``launches``."""
-    from .ops.counts import read_counts
-    return dict(totals(), launches=read_counts())
+    """:func:`totals` with the kernels' counts (:func:`launches`) beside
+    them under ``launches``."""
+    return dict(totals(), launches=launches())
 
 
 def reset() -> None:
-    """Clear the totals, the counters and the records."""
+    """Clear the totals, the counters (the kernels' too) and the
+    records."""
     with _lock:
         _totals.clear()
         _counts.clear()
