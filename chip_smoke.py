@@ -57,8 +57,12 @@ each printing one JSON line:
             package is missing is listed under ``not_run``.
 6. volume   predict_volume at bench_infer.py's request (a 360^3 region at
             (20, 20, 20) of a seeded smoothed 400^3 volume, 1000 tiles),
-            wf=8 seeded generator, f32, B=128: device (the volume uploaded
-            once), slab, stream (np.memmap source and out=, at a 160 MB
+            wf=8 seeded generator, f32, B=128: device (from the host
+            array, its copies in z slabs through pinned slots; each call's
+            slab counts equal to the schedule's, none copied whole, the
+            pinned bytes held made once and bounded, its Mvox/s beside
+            VOL_DEVICE_BEFORE_MVOX), slab (the volume uploaded once),
+            stream (np.memmap source and out=, at a 160 MB
             budget, one chunk, at a 19 MB one, five chunks, and at the
             block of a 40-tile chunk, 30 chunks each at its own batch) and
             tiles,
@@ -79,7 +83,8 @@ each printing one JSON line:
             down4 at both down convs, LeakyReLU at 2, after the up convs,
             preprocess, postprocess),
             recorded at its own shape, against its plain version, with
-            times beside the bound; device mode at B = 64, 128, 256; every
+            times beside the bound; device mode at B = 64, 128, 256 over
+            the volume on the card (used in place: no slab uploaded); every
             kernel must launch in every mode, every f32 mode's transposed
             convs as the phase conv and its down convs on the down4 kernel
             (none on cuDNN's), with no weight packed after its warm call.
@@ -1521,6 +1526,19 @@ VOL_BUDGETS = {"stream": 160 << 20, "stream_5_chunks": 120 * 398 ** 2,
                                                   for c in SMALL_CHUNK)}
 VOL_SWEEP = (64, 128, 256)
 SENTINELS = (0xA5, 0x5A)  # stream's exactness runs, one call each
+# device mode from the host array at this request before its copies moved
+# in slabs through pinned slots (one pageable copy each way around the
+# batch loop): median of 7 calls, NVIDIA H100 80GB HBM3 at 700 W
+VOL_DEVICE_BEFORE_MVOX = 237.5
+VOL_COPY_COUNTS = ("volume_slabs_in", "volume_slabs_out", "volume_pageable")
+
+
+def volume_copy_counts():
+    """The volume modes' copy counts (``telemetry``): slabs uploaded and
+    downloaded through device mode's staging, calls copied whole."""
+    from transfer_em_tpu_torch import telemetry
+    counts = telemetry.totals()["counts"]
+    return {k: counts.get(k, 0) for k in VOL_COPY_COUNTS}
 
 
 def poison_pinned(shapes, fill, n=4):
@@ -1558,9 +1576,11 @@ def _u8_diff(got, want):
 
 
 def check_volume(dev, smi):
-    """predict_volume on the card at bench_infer.py's request: device (the
-    volume uploaded once), slab, stream (np.memmap source and out=, at two
-    budgets) and tiles, f32, one warm and 3 timed calls each (wall, Mvox/s,
+    """predict_volume on the card at bench_infer.py's request: device (from
+    the host array, its copies in slabs: counted against the schedule, the
+    pinned bytes held bounded and made once), slab (the volume uploaded
+    once), stream (np.memmap source and out=, at two budgets) and tiles,
+    f32, one warm and 3 timed calls each (wall, Mvox/s,
     tiles/s, peak memory, launches: every f32 mode's transposed convs on
     the phase conv and its down convs on the down4 kernel, none on cuDNN's,
     and no weight packed after the warm call) and one profiled call; under
@@ -1572,6 +1592,8 @@ def check_volume(dev, smi):
     call of one slab forward against its plain version at its shape;
     device mode at B in VOL_SWEEP."""
     from transfer_em_tpu_torch.infer import plan_tiles, predict_volume
+    from transfer_em_tpu_torch.infer.device_stitch import (
+        SLOT_BYTES, SLOTS, pinned_staging_bytes, slab_schedule)
     from transfer_em_tpu_torch.infer.stream import plan_chunks
     from transfer_em_tpu_torch.infer.tiling import tile_batch
     from transfer_em_tpu_torch.models import UNetGenerator
@@ -1623,14 +1645,17 @@ def check_volume(dev, smi):
             return lambda: predict_volume(source, g, *args, mode=mode,
                                           batch_size=bsz, device=dev, **kw)
 
-        runs = {"device": mode_run("device"), "slab": mode_run("slab")}
+        runs = {"device": mode_run("device", vol), "slab": mode_run("slab")}
         for name, budget in VOL_BUDGETS.items():
             runs[name] = mode_run("stream", src, max_block_bytes=budget,
                                   out=out_mm)
         runs["tiles"] = mode_run("tiles", vol)
         modes, outs = {}, {}
         for name, run in runs.items():
+            copies0 = volume_copy_counts()
             out, times, peak, launches = _timed(run)
+            copies = {k: v - copies0[k]
+                      for k, v in volume_copy_counts().items()}
             med = sorted(times)[len(times) // 2]
             outs[name] = np.array(out)
             modes[name] = {"wall_s": times, "median_s": med,
@@ -1638,9 +1663,29 @@ def check_volume(dev, smi):
                            "tiles_per_s": n_tiles / med,
                            "peak_memory_gb": peak / 1e9,
                            "launches": launches,
+                           "volume_copies": copies,
                            "profiled": profile_round(run)}
             emit({"phase": "volume_mode", "mode": name, **modes[name]})
         rec["modes"] = modes
+        # device mode from the host array moves every call's copies in the
+        # schedule's slabs (the warm call and 3 timed ones), none whole;
+        # its pinned slots are made once and bounded
+        slabs = slab_schedule(plan_tiles(VOL_START, VOL_SIZE, 40, 17),
+                              tile_batch(n_tiles, VOL_B), VOL_SIDE)
+        want_copies = {
+            "volume_slabs_in": 4 * sum(z1 > z0 for (z0, z1), _ in slabs),
+            "volume_slabs_out": 4 * sum(o1 > o0 for _, (o0, o1) in slabs),
+            "volume_pageable": 0}
+        pinned = pinned_staging_bytes()
+        rec["device_copies"] = {
+            "slabs_per_call": [[list(i), list(o)] for i, o in slabs],
+            "counts": modes["device"]["volume_copies"],
+            "expected": want_copies,
+            "pinned_staging_bytes": pinned,
+            "pinned_staging_bound": 2 * SLOTS * SLOT_BYTES,
+            "device_mvox_per_s": modes["device"]["mvox_per_s"],
+            "device_mvox_per_s_before": VOL_DEVICE_BEFORE_MVOX}
+        emit({"phase": "volume_copies", **rec["device_copies"]})
         # every f32 mode runs its transposed convs as the phase conv and
         # its down convs on the down4 kernel, and packs no weight after its
         # warm call
@@ -1744,14 +1789,23 @@ def check_volume(dev, smi):
                and diff16[0] > 0)
     del gen16, out16
 
-    # batch sweep, device mode
+    # batch sweep, device mode over the volume on the card (in place: no
+    # slab uploaded)
     rec["batch_sweep"] = {}
     for bsz in VOL_SWEEP:
+        copies0 = volume_copy_counts()
         _, times, peak, _ = _timed(mode_run("device", bsz=bsz))
         med = sorted(times)[1]
-        rec["batch_sweep"][bsz] = {"wall_s": times, "median_s": med,
-                                   "mvox_per_s": nvox / med / 1e6,
-                                   "peak_memory_gb": peak / 1e9}
+        rec["batch_sweep"][bsz] = {
+            "wall_s": times, "median_s": med,
+            "mvox_per_s": nvox / med / 1e6, "peak_memory_gb": peak / 1e9,
+            "slabs_in": volume_copy_counts()["volume_slabs_in"]
+            - copies0["volume_slabs_in"]}
+    copies_ok = (rec["device_copies"]["counts"] == want_copies
+                 and all(v["slabs_in"] == 0
+                         for v in rec["batch_sweep"].values())
+                 and 0 < pinned == pinned_staging_bytes()
+                 <= 2 * SLOTS * SLOT_BYTES)
 
     # every kernel call of one slab forward, at its own shape, against its
     # plain version: conv3 and down4 f32 (each layer's epilogue; 1e-4
@@ -1827,7 +1881,7 @@ def check_volume(dev, smi):
     rec["phase_s"] = time.perf_counter() - t_phase
     rec["ok"] = bool(
         all(equal.values()) and plain_ok and launches_ok and bf16_ok
-        and c1_ok and slab_ok and float(np.std(ref)) > 2.0)
+        and c1_ok and slab_ok and copies_ok and float(np.std(ref)) > 2.0)
     emit(rec)
     return rec
 

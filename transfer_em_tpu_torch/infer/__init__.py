@@ -78,7 +78,9 @@ def predict_volume(vol_zyx, gen: torch.nn.Module, start, size,
                   resolves to "stream" (honours a preallocated memmap);
                   passing both is contradictory and raises ValueError;
       "device" -- device-resident gather -> predict -> stitch
-                  (infer/device_stitch.py), bit-identical to "tiles";
+                  (infer/device_stitch.py), bit-identical to "tiles"; a
+                  host volume goes up and a numpy result comes down in z
+                  slabs, overlapped with the tile batches;
       "slab"   -- whole z-slab forwards (infer/slab.py): fewest launches,
                   about a quarter of the tile grid's conv work per voxel;
       "stream" -- chunked pipeline for volumes larger than the card
@@ -103,8 +105,13 @@ def predict_volume(vol_zyx, gen: torch.nn.Module, start, size,
     or "cpu"; CUDA absent raises.
 
     Each call is a ``volume.call`` span (``telemetry``); device mode times
-    its parts under it: ``volume.upload``, ``volume.prepare``,
-    ``volume.tiles``, ``volume.wait`` and ``volume.download``.
+    its parts under it: ``volume.upload`` (each slab's host staging and
+    enqueue, the first before ``volume.prepare``, the rest inside
+    ``volume.tiles``), ``volume.prepare``, ``volume.tiles`` (the batch
+    loop), and for each downloaded slab ``volume.wait`` (its copy landing)
+    and ``volume.download`` (its copy into the result).  The counts
+    ``volume_slabs_in``, ``volume_slabs_out`` and ``volume_pageable``
+    (``telemetry.totals()["counts"]``) say which copies took the slabs.
     """
     dev = resolve_device(device)
     if batch_size is None:

@@ -26,7 +26,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.normalize import postprocess_to_u8, preprocess_u8
 from ..shapes import generator_shapes, is_valid_dimsize
-from .device_stitch import to_result, volume_on
+from .device_stitch import count_pageable, to_result, volume_on
 from .tiling import (_DEVICE_LOCK, check_3d_generator, check_generator,
                      meanstd_tuple)
 
@@ -65,6 +65,7 @@ def slab_predict(vol_zyx, gen: nn.Module,
     y_out, x_out = y_in - 2 * buffer, x_in - 2 * buffer  # >= sy, sx
     nz = -(-sz // z_out)
 
+    count_pageable(vol_zyx, dev, as_numpy)
     vol = volume_on(vol_zyx, dev)
     Z, Y, X = vol.shape
     # Pad so that every slab read is in range (zeros outside the volume).
