@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -91,19 +91,21 @@ def train_step_flops(wf: int, batch: int) -> Dict[str, float]:
     return out
 
 
-def _k3(net: str, wf: int) -> List[dict]:
-    return [la for la in layers(net, wf) if la["kind"] == "k3"]
-
-
-def conv3_work(calls: Dict[str, List[int]], wf: int, dtype: str) -> dict:
-    """FLOPs and bytes of the k3 stride-1 convs (the conv3 kernel's) of
-    forward calls on ``calls[net]`` tiles each: operations 2 x MACs; bytes
-    the input and output activations once and the weights once a call, in
-    the compute dtype."""
+def conv_work(calls: Dict[str, List[int]], wf: int, dtype: str,
+              kinds: Tuple[str, ...] = ("k3",)) -> dict:
+    """FLOPs and bytes of the convs of ``kinds`` (k3, k4, transposed) of
+    forward calls on ``calls[net]`` tiles each: operations 2 x MACs (a
+    transposed conv's by input voxel, the algorithm's 64 taps: not the zero
+    taps that a form such as the phase conv multiplies); bytes the input
+    and output activations once and the weights once a call, in the compute
+    dtype.  The default, the k3 stride-1 convs, is the conv3 kernel's
+    work."""
     size = DTYPE_BYTES[dtype]
     flops = byts = 0
     for net, batches in calls.items():
-        for layer in _k3(net, wf):
+        for layer in layers(net, wf):
+            if layer["kind"] not in kinds:
+                continue
             per_tile_io = (math.prod(layer["in_shape"][1:])
                            + math.prod(layer["out_shape"][1:]))
             weights = math.prod(layer["kernel"])
@@ -111,6 +113,38 @@ def conv3_work(calls: Dict[str, List[int]], wf: int, dtype: str) -> dict:
                 flops += 2 * layer["macs"] * n
                 byts += size * (per_tile_io * n + weights)
     return {"flops": flops, "bytes": byts}
+
+
+def tile_work(net: str, wf: int, dtype: str, kinds: Tuple[str, ...]
+              ) -> dict:
+    """:func:`conv_work` of one tile of ``net``'s forward, the weights
+    apart: ``flops`` and activation ``bytes`` a tile, ``weight_bytes`` a
+    call."""
+    one = conv_work({net: [1]}, wf, dtype, kinds)
+    weights = conv_work({net: [0]}, wf, dtype, kinds)["bytes"]
+    return {"flops": one["flops"], "bytes": one["bytes"] - weights,
+            "weight_bytes": weights}
+
+
+def form_share(forms: Dict[str, int], taken: str, other: str) -> float:
+    """The share of a window's convs that the port ran in the form counted
+    as ``taken``, against those counted as ``other`` (the port's own form
+    counts, ``telemetry.snapshot()["launches"]``); 0 where neither
+    counted.  The counts say how many calls took each form, not which
+    layer, so where both forms ran, each layer's work is counted at this
+    share."""
+    n, m = forms.get(taken, 0), forms.get(other, 0)
+    return n / (n + m) if n + m else 0.0
+
+
+def least_seconds(parts: List[Tuple[dict, float]], tiles: int, calls: int,
+                  dtype: str) -> float:
+    """:func:`roofline_seconds` of ``tiles`` tiles in ``calls`` calls of the
+    :func:`tile_work` ``parts``, each counted at its share."""
+    flops = sum(share * w["flops"] * tiles for w, share in parts)
+    byts = sum(share * (w["bytes"] * tiles + w["weight_bytes"] * calls)
+               for w, share in parts)
+    return roofline_seconds(flops, byts, dtype)
 
 
 def train_conv3_calls(batch: int) -> Dict[str, List[int]]:

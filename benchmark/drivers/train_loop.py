@@ -195,7 +195,7 @@ def run(ctx, control=None):
                       control_leaves=gaps["leaves"])
     B, wf, dtype = batch_of(ctx), ctx.config["wf"], ctx.cell["dtype"]
     flops = counts.train_step_flops(wf, B)["total"]
-    c3 = counts.conv3_work(counts.train_conv3_calls(B), wf, dtype)
+    c3 = counts.conv_work(counts.train_conv3_calls(B), wf, dtype)
     return {"e2e": {"train_tiles_per_s": steps * B / ctx.window_s},
             "attempted": steps, "failed": 0,
             "checks": [(k, gaps[k], lim[k]) for k in CHECKS],

@@ -13,6 +13,12 @@ region and the outputs are compared voxel by voxel: the share of a call's
 voxels whose level differs, the worst sampled call's (the widest gap in
 levels is reported beside it).
 
+The port's counts of the form each transposed and k4 down conv ran in
+(:data:`FORMS`, ``telemetry.snapshot()["launches"]``) are read before the
+window opens and after it closes; their differences, the window's, tell
+the kernel readers whose work to count (``obs["forms"]``), beside the work
+a tile of each kind of conv (``obs["work"]``).
+
 Cell keys: ``volume_side``, ``volumes``, ``start``, ``size`` (xyz),
 ``warm_calls``, ``samples``, ``limits`` (off_share).  With ``control``
 (``reference.models.fake_tf32``) the reference in TF32 takes the
@@ -33,6 +39,16 @@ from benchmark import counts, inputs
 from benchmark.reference import infer as RI
 from benchmark.reference import models as RM
 from benchmark.reference.pipeline import derive_seed
+
+
+FORMS = ("transpose_phase", "transpose_cudnn", "down_k4", "down_cudnn")
+
+
+def form_counts() -> dict:
+    """The port's count of each of :data:`FORMS` so far."""
+    from transfer_em_tpu_torch import telemetry
+    launches = telemetry.snapshot()["launches"]
+    return {k: launches.get(k, 0) for k in FORMS}
 
 
 def make_generator(ctx, dev):
@@ -71,6 +87,7 @@ def run(ctx, control=None):
 
     rng = np.random.default_rng(derive_seed(ctx.seed, 6))
     kept = []  # (call index, output): a uniform sample of the window's calls
+    before = form_counts()
     ctx.begin_window()
     calls = 0
     end = time.perf_counter() + ctx.seconds
@@ -84,6 +101,8 @@ def run(ctx, control=None):
                 kept[j] = (calls, out)
         calls += 1
     ctx.end_window()
+    after = form_counts()
+    forms = {k: after[k] - before[k] for k in FORMS}
 
     del gen
     gc.collect()
@@ -114,8 +133,8 @@ def run(ctx, control=None):
     od = RI.tile_plan(start, size)[0]
     tiles = math.prod(-(-s // od) for s in size)
     wf = ctx.config["wf"]
-    c3 = counts.conv3_work({"gen": [1]}, wf, "float32")
-    c3w = counts.conv3_work({"gen": [0]}, wf, "float32")["bytes"]
+    work = {kind: counts.tile_work("gen", wf, "float32", (kind,))
+            for kind in ("k3", "k4", "transposed")}
     return {"e2e": {"volume_mvox_per_s": calls * vox / 1e6 / ctx.window_s},
             "attempted": calls, "failed": 0,
             "checks": [("off_share", worst_share, lim["off_share"])],
@@ -123,6 +142,4 @@ def run(ctx, control=None):
             "obs": {"kind": "volume", "calls": calls,
                     "tiles": calls * tiles, "dtype": "float32",
                     "gen_flops_per_tile": counts.forward_flops("gen", wf),
-                    "conv3_flops_per_tile": c3["flops"],
-                    "conv3_bytes_per_tile": c3["bytes"] - c3w,
-                    "conv3_weight_bytes": c3w}}
+                    "work": work, "forms": forms}}

@@ -15,6 +15,10 @@ def is_conv3(name: str) -> bool:
     return "conv3_tc_kernel" in name or "conv3_direct_kernel" in name
 
 
+def is_down4(name: str) -> bool:
+    return "down4_tc_kernel" in name
+
+
 def is_host_copy(name: str) -> bool:
     return name.startswith(("Memcpy HtoD", "Memcpy DtoH"))
 

@@ -1,7 +1,11 @@
 """The conv3 kernels' share of their roofline in ``predict_volume``: the
-least time of the k3 convs of the window's real tiles (operations at the
-float32 peak or bytes at HBM's rate, the weights once a call) over the
-kernels' device time, in %."""
+least time of the convs they ran for the window's real tiles (operations
+at the float32 peak or bytes at HBM's rate, the weights once a call) over
+the kernels' device time, in %.  Those convs are the k3 layers and, by
+the share of the window's transposed convs that the port counted in the
+phase form (``transpose_phase`` against ``transpose_cudnn``), the
+transposed layers, which the phase form runs as a k3 conv on conv3: each
+counted at its own work, not at the zero taps the form multiplies."""
 
 from benchmark import counts, harness, kernels
 
@@ -12,8 +16,10 @@ def read(obs):
     t = harness.device_seconds(obs["trace"], kernels.is_conv3)
     if t <= 0:
         return None
-    least = counts.roofline_seconds(
-        obs["conv3_flops_per_tile"] * obs["tiles"],
-        obs["conv3_bytes_per_tile"] * obs["tiles"]
-        + obs["conv3_weight_bytes"] * obs["calls"], obs["dtype"])
+    work = obs["work"]
+    phase = counts.form_share(obs["forms"], "transpose_phase",
+                              "transpose_cudnn")
+    least = counts.least_seconds(
+        [(work["k3"], 1.0), (work["transposed"], phase)], obs["tiles"],
+        obs["calls"], obs["dtype"])
     return 100.0 * least / t

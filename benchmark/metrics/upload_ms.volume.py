@@ -1,6 +1,8 @@
 """Host milliseconds a ``predict_volume`` call in its upload: the port's
-``volume.upload`` span, the blocking copy of the host volume to the card
-from pageable memory."""
+``volume.upload`` spans, one a z slab of the host volume, each the host's
+copy of the slab's planes into a pinned slot and the enqueue of its
+host-to-device copy on the upload stream.  The first slab's comes before
+the batch loop; the rest run beside it."""
 
 from benchmark import spans
 

@@ -48,6 +48,14 @@ def test_metric_reader_loads_by_name(name):
         assert w in e2e[m["moves"]].get("workloads", [w])
 
 
+def test_every_metric_file_has_an_entry():
+    """No reader under ``metrics/`` outlives its entry in ``per_layer``."""
+    files = {f[:-3] for f in os.listdir(os.path.join(harness.HERE,
+                                                     "metrics"))
+             if f.endswith(".py")}
+    assert files - {m["name"] for m in BENCH["per_layer"]} == set()
+
+
 def test_a_new_cell_is_picked_up_from_its_file(tmp_path, monkeypatch):
     """A copy of the benchmark gains a cell by new files and entries only;
     the harness runs it without an edit to any existing file."""
