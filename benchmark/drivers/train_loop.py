@@ -9,23 +9,37 @@ through the window's own feed and step: they warm every shape, and their
 losses, the first gradients (from Adam's first moment) and the parameters
 after them are kept for the check.  The window runs steps, epoch after
 epoch, for ``--seconds``.  Afterwards the plain reference makes the same
-batches from the same crops and follows the same steps in float32.  Three
+batches from the same crops and follows the same steps in float32.  Four
 numbers are compared (``reference.train.compare``): the first step's
 objective (the sum of its losses that the step minimises), the
 discriminators' first gradients (the worst leaf's norm, and the worst
-leaf's direction) and each leaf's change over the steps (the worst leaf).  The generators' first gradients,
-the 7 losses one by one and the later steps' losses are reported beside
-them and not compared: the cycle and identity losses clip
-``1 - |real - fake| / 2`` at 1e-7, so the few voxels just above the clip
-carry gradients up to 1/(2e-7) that rounding of the inputs alone moves,
-and Adam's first steps, which move
-nearly every element by the learning rate whatever its gradient's size,
-carry that into the later losses (see PERF.md).
+leaf's direction) and each leaf's change over the steps (the worst leaf).
+The generators' first gradients, the 7 losses one by one and the later
+steps' losses are reported beside them and not compared: the cycle and
+identity losses clip ``1 - |real - fake| / 2`` at 1e-7, so the few voxels
+just above the clip carry gradients up to 1/(2e-7) that rounding of the
+inputs alone moves, and Adam's first steps, which move nearly every element
+by the learning rate whatever its gradient's size, carry that into the
+later losses (see PERF.md).
+
+The generators' backward is held by a probe away from the losses (two more
+numbers, ``reference.train.probe_compare``): two fresh generators of the
+port, built as ``train.create_state`` builds them and loaded with the
+set-up weights of gg and gf, each run without dropout on the first batch
+that the reference pipeline makes for its domain (gg on x, gf on y), and
+``torch.autograd.grad`` of the output against a seeded cotangent r
+(N(0, 1) / sqrt(numel), drawn on the device from ``derive_seed(seed, 6,
+k)``): dL/dθ of L = <G(x), r>, through whatever kernels and backward the
+port picks for the cell's dtype, against ``reference.train.generator_probe``
+in float32.  ``probe_gap_gen`` is the worst leaf's norm, by the
+discriminators' rule, and ``probe_cos_gen`` the worst direction over every
+leaf (the transposed convs' kernels sit under the median leaf's norm).
 
 Cell keys: ``batch``, ``dtype``, ``volume_side``, ``elements`` (crops a
 dataset), ``check_steps``, ``ref_micro`` (reference rows a block), ``gain``
 (the weights' draw, ``reference.models.make_weights``), ``limits``
-(objective_gap_first, grad_gap_disc, grad_cos_disc, change_gap).
+(objective_gap_first, grad_gap_disc, grad_cos_disc, change_gap,
+probe_gap_gen, probe_cos_gen).
 """
 
 from __future__ import annotations
@@ -42,7 +56,7 @@ from benchmark.reference import train as RT
 
 NETS = RT.NETS
 CHECKS = ("objective_gap_first", "grad_gap_disc", "grad_cos_disc",
-          "change_gap")
+          "change_gap", "probe_gap_gen", "probe_cos_gen")
 
 
 def elements(ctx):
@@ -77,12 +91,20 @@ def batch_of(ctx) -> int:
     return int(ctx.cell["batch"]) * len(ctx.devices)
 
 
+def port_config(ctx):
+    """The port's configuration of the cell: wf, 74^3 tiles, the cell's
+    dtype and batch."""
+    from transfer_em_tpu_torch.config import CycleGANConfig
+    return CycleGANConfig(dimsize=74, is3d=True, wf=ctx.config["wf"],
+                          compute_dtype=ctx.cell["dtype"],
+                          batch_size=batch_of(ctx))
+
+
 def start(ctx, capture: bool = False) -> dict:
     """The system's set-up and first steps.  Returns ``one`` (a step through
     the window's feed), ``prog`` (the first steps' losses, first gradients
     and the parameters after them), ``weights`` and, with ``capture``, the
     batches the system's pipeline made for the first steps."""
-    from transfer_em_tpu_torch.config import CycleGANConfig
     from transfer_em_tpu_torch.data.pipeline import (
         create_dataset_from_tensors, zip_datasets)
     from transfer_em_tpu_torch.device import float32_exact
@@ -90,15 +112,14 @@ def start(ctx, capture: bool = False) -> dict:
 
     float32_exact()
     dev = ctx.devices[0]
-    B, dtype = batch_of(ctx), ctx.cell["dtype"]
+    B = batch_of(ctx)
     els_x, els_y = elements(ctx)
     sx, sy = dataset_seeds(ctx)
     common = dict(batch_size=B, enable_augmentation=True, global_adjust=True,
                   randomize=True, device=dev)
     ds_x, _ = create_dataset_from_tensors(els_x, seed=sx, **common)
     ds_y, _ = create_dataset_from_tensors(els_y, seed=sy, **common)
-    config = CycleGANConfig(dimsize=74, is3d=True, wf=ctx.config["wf"],
-                            compute_dtype=dtype, batch_size=B)
+    config = port_config(ctx)
     state = create_state(config, 0, device=dev)
     w = weights(ctx, dev)
     for k, net in zip(NETS, w):
@@ -141,17 +162,22 @@ def start(ctx, capture: bool = False) -> dict:
             "elements": (els_x, els_y)}
 
 
+def ref_batches(ctx, els, count: int):
+    """The reference pipeline's first ``count`` batches of each domain from
+    the crops ``els``, NCDHW on the cell's device."""
+    dev, B = ctx.devices[0], batch_of(ctx)
+    ref_els = [[torch.from_numpy(e).to(dev) for e in es] for es in els]
+    return tuple(RP.batches(e, B, s, True, count)
+                 for e, s in zip(ref_els, dataset_seeds(ctx)))
+
+
 def reference(ctx, w, els, quant=None, dtype=torch.float32, batches=None):
     """The plain reference over the first steps, from ``w`` and the crops
     ``els``: it makes the batches itself unless ``batches`` ([(x, y)] in
     the system's channels-last layout) are given."""
-    dev = ctx.devices[0]
-    n, B = int(ctx.cell["check_steps"]), batch_of(ctx)
+    n = int(ctx.cell["check_steps"])
     if batches is None:
-        sx, sy = dataset_seeds(ctx)
-        ref_els = [[torch.from_numpy(e).to(dev) for e in es] for es in els]
-        bx = RP.batches(ref_els[0], B, sx, True, n)
-        by = RP.batches(ref_els[1], B, sy, True, n)
+        bx, by = ref_batches(ctx, els, n)
     else:
         bx = [x.permute(0, 4, 1, 2, 3).contiguous() for x, _ in batches]
         by = [y.permute(0, 4, 1, 2, 3).contiguous() for _, y in batches]
@@ -161,6 +187,53 @@ def reference(ctx, w, els, quant=None, dtype=torch.float32, batches=None):
     with RM.exact():
         return RT.run_steps(w, bx, by, dropout_seed(ctx), ctx.config["wf"],
                             micro=ctx.cell["ref_micro"], quant=quant)
+
+
+def probe_inputs(ctx, els):
+    """The probe's batches, the reference pipeline's first of x (for gg)
+    and of y (for gf), NCDHW, and their cotangents: N(0, 1) of the
+    generator's output shape over sqrt(numel), drawn on the device from
+    ``derive_seed(seed, 6, k)``."""
+    dev = ctx.devices[0]
+    xs = [b[0] for b in ref_batches(ctx, els, 1)]
+    rs = []
+    for k, x in enumerate(xs):
+        g = torch.Generator(device=dev).manual_seed(
+            RP.derive_seed(ctx.seed, 6, k))
+        shape = (x.shape[0], 1) + tuple(n - 2 * ctx.config["buffer"]
+                                        for n in x.shape[2:])
+        rs.append(torch.randn(shape, generator=g, device=dev)
+                  / torch.Size(shape).numel() ** 0.5)
+    return xs, rs
+
+
+def program_probe(ctx, w, xs, rs) -> dict:
+    """The probe on the system's side: two fresh generators built as
+    ``train.create_state`` builds them for the cell, loaded with the
+    set-up weights ``w[0]`` and ``w[1]``, each run without dropout on its
+    batch (channels-last, as the step takes it), and the gradient of its
+    output against r by ``torch.autograd.grad``.  Nothing here picks a
+    kernel: the port's own routes for a conv that records a gradient run."""
+    from transfer_em_tpu_torch.train import build_models
+    dev = ctx.devices[0]
+    gens = build_models(port_config(ctx),
+                        generator=torch.Generator().manual_seed(0))[:2]
+    out = {}
+    for k, gen, net, x, r in zip(RT.GEN, gens, w, xs, rs):
+        gen.to(dev).load_state_dict(net, strict=True)
+        params = dict(gen.named_parameters())
+        y = gen(x.permute(0, 2, 3, 4, 1).contiguous(), deterministic=True)
+        out[k] = dict(zip(params, torch.autograd.grad(
+            y, list(params.values()), grad_outputs=r.permute(0, 2, 3, 4, 1))))
+    return out
+
+
+def reference_probe(ctx, w, xs, rs, quant=None) -> dict:
+    """The probe on the reference's side, in float32 (TF32 off), or under
+    ``quant`` for the control."""
+    with RM.exact():
+        return RT.generator_probe(w[:2], xs, rs, int(ctx.cell["ref_micro"]),
+                                  quant=quant)
 
 
 def run(ctx, control=None):
@@ -183,16 +256,32 @@ def run(ctx, control=None):
     if ctx.devices[0].type == "cuda":
         torch.cuda.empty_cache()
 
+    t = time.perf_counter()
+    xs, rs = probe_inputs(ctx, els)
+    probe = program_probe(ctx, w, xs, rs)
+    ctx.sync()
+    probe_s = {"program": time.perf_counter() - t}
     ref = reference(ctx, w, els)
     gaps = RT.compare(prog, ref, w)
+    t = time.perf_counter()
+    probe_ref = reference_probe(ctx, w, xs, rs)
+    ctx.sync()
+    probe_s["reference"] = time.perf_counter() - t
+    gaps.update(RT.probe_compare(probe, probe_ref))
+    del probe
     lim = ctx.cell["limits"]
-    detail = gaps
+    detail = dict(gaps, probe_s=probe_s)
     if control is not None:
-        detail = {"program": {k: gaps[k] for k in CHECKS}, "leaves":
-                  gaps["leaves"]}
+        detail = {"program": {k: gaps[k] for k in CHECKS},
+                  "leaves": gaps["leaves"],
+                  "probe_leaves": gaps["probe_leaves"], "probe_s": probe_s}
         gaps = RT.compare(reference(ctx, w, els, quant=control), ref, w)
-        detail.update({k: v for k, v in gaps.items() if k != "leaves"},
-                      control_leaves=gaps["leaves"])
+        gaps.update(RT.probe_compare(
+            reference_probe(ctx, w, xs, rs, quant=control), probe_ref))
+        detail.update({k: v for k, v in gaps.items()
+                       if not k.endswith("leaves")},
+                      control_leaves=gaps["leaves"],
+                      control_probe_leaves=gaps["probe_leaves"])
     B, wf, dtype = batch_of(ctx), ctx.config["wf"], ctx.cell["dtype"]
     flops = counts.train_step_flops(wf, B)["total"]
     c3 = counts.conv_work(counts.train_conv3_calls(B), wf, dtype)

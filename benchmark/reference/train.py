@@ -13,6 +13,10 @@ the gradients.  Dropout bytes are drawn for the whole application (2B rows
 in the first round, B in the cycles) from a generator on the batch's device
 seeded with ``derive_seed(seed, step, application)``, and each block takes
 its rows.
+
+Beside the step, :func:`generator_probe` takes the generators' gradients
+of a smooth scalar, <generator(x), r> for a given cotangent r, which the
+losses' clip cannot reach (:func:`probe_compare`).
 """
 
 from __future__ import annotations
@@ -195,6 +199,7 @@ def objective(losses) -> float:
 
 EXCLUDE_BELOW = 1e-3  # of the median leaf's first gradient
 DISC = ("dx", "dy")
+GEN = ("gg", "gf")
 
 
 def _norms(grads, nets) -> Dict[tuple, float]:
@@ -225,20 +230,42 @@ def _worst(got: Dict[tuple, float], want: Dict[tuple, float], keep):
     return gap, (".".join(worst) if worst else None), med
 
 
+def group_gaps(prog_grads, ref_grads, nets) -> dict:
+    """Gradients of the networks ``nets``, program against reference, leaf
+    by leaf: ``gap``, the largest | |g| - |g_ref| | over max(|g_ref| of the
+    leaf, the group's median leaf norm), and ``cos``, over the leaves whose
+    reference norm is at or above the median's, the largest
+    1 - cos(g, g_ref) (a smaller leaf's direction follows rounding; its
+    norm's gap is ``gap``'s), each with its leaf.  Leaves whose reference
+    norm is under ``EXCLUDE_BELOW`` of the median are left out; ``keep``
+    lists the rest.  ``cos_all`` (and ``cos_all_leaf``) is the largest
+    1 - cos over every kept leaf; ``cosines`` holds each kept leaf's
+    cosine."""
+    gref, gp = _norms(ref_grads, nets), _norms(prog_grads, nets)
+    med = float(np.median(list(gref.values())))
+    keep = [kn for kn in gref if gref[kn] >= EXCLUDE_BELOW * med]
+    gap, gap_leaf, _ = _worst(gp, gref, keep)
+    cos = _cosines(prog_grads, ref_grads, keep)
+    worst = min((kn for kn in keep if gref[kn] >= med), key=cos.get)
+    worst_all = min(keep, key=cos.get)
+    return {"gap": gap, "gap_leaf": gap_leaf, "cos": 1.0 - cos[worst],
+            "cos_leaf": ".".join(worst), "cos_all": 1.0 - cos[worst_all],
+            "cos_all_leaf": ".".join(worst_all), "keep": keep,
+            "median": med, "norms": gp, "norms_ref": gref, "cosines": cos}
+
+
 def compare(prog: dict, ref: dict,
             init: Sequence[Dict[str, torch.Tensor]]) -> dict:
     """The train cell's numbers, program against reference:
 
     * ``objective_gap_first``: |J - J_ref| / |J_ref| of the first step's
       objective J (:func:`objective`);
-    * ``grad_gap_disc``: over the discriminators' leaves, | |g| - |g_ref| |
-      of the first gradient, over max(|g_ref| of the leaf, the median of
-      the discriminators' leaves); ``grad_gap_gen`` the same over the
-      generators' leaves and ``grad_gap`` over all (reported only);
-    * ``grad_cos_disc``: over the discriminators' leaves whose reference
-      norm is at or above their median leaf's, the largest
-      1 - cos(g, g_ref) of the first gradient (a smaller leaf's direction
-      follows rounding; its norm's gap is ``grad_gap_disc``'s);
+    * ``grad_gap_disc`` / ``grad_cos_disc``: :func:`group_gaps`' ``gap``
+      and ``cos`` of the discriminators' first gradients;
+      ``grad_gap_gen`` / ``grad_cos_gen`` the same of the generators', and
+      ``grad_gap`` of all leaves (reported only: the cycle and identity
+      losses' clip makes the generators' first gradients follow rounding;
+      :func:`probe_compare` holds their backward);
     * ``change_gap``: over every leaf, the same of the leaf's change over
       the steps, against the median leaf's change;
     * ``loss_gap``: the largest |loss - ref| / |ref| over the steps' 7
@@ -252,24 +279,24 @@ def compare(prog: dict, ref: dict,
     lp, lr = np.asarray(prog["losses"], np.float64), ref["losses"]
     by_step = np.max(np.abs(lp - lr) / np.maximum(np.abs(lr), 1e-12), axis=1)
     op, orf = objective(lp[0]), objective(lr[0])
-    gref = _norms(ref["first_grads"], NETS)
-    gp = _norms(prog["first_grads"], NETS)
-    out, keep_all = {}, set()
+    out, groups = {}, {}
     for key, nets in (("grad_gap", NETS), ("grad_gap_disc", DISC),
-                      ("grad_gap_gen", ("gg", "gf"))):
-        group = [kn for kn in gref if kn[0] in nets]
-        med = float(np.median([gref[kn] for kn in group]))
-        keep = [kn for kn in group if gref[kn] >= EXCLUDE_BELOW * med]
-        leaf = "worst_" + key.replace("grad_gap", "grad") + "_leaf"
-        out[key], out[leaf], _ = _worst(gp, gref, keep)
-        if key == "grad_gap":
-            keep_all = keep
-        if key == "grad_gap_disc":
-            cos = _cosines(prog["first_grads"], ref["first_grads"],
-                           [kn for kn in keep if gref[kn] >= med])
-            worst = min(cos, key=cos.get)
-            out["grad_cos_disc"] = 1.0 - cos[worst]
-            out["worst_grad_cos_disc_leaf"] = ".".join(worst)
+                      ("grad_gap_gen", GEN)):
+        g = groups[key] = group_gaps(prog["first_grads"], ref["first_grads"],
+                                     nets)
+        out[key] = g["gap"]
+        out["worst_" + key.replace("grad_gap", "grad") + "_leaf"] = g[
+            "gap_leaf"]
+    for key in ("disc", "gen"):
+        g = groups["grad_gap_" + key]
+        out["grad_cos_" + key] = g["cos"]
+        out["worst_grad_cos_%s_leaf" % key] = g["cos_leaf"]
+    everything = groups["grad_gap"]
+    keep_all, gp, gref = (everything["keep"], everything["norms"],
+                          everything["norms_ref"])
+    disc = groups["grad_gap_disc"]
+    cos = {kn: c for kn, c in disc["cosines"].items()
+           if disc["norms_ref"][kn] >= disc["median"]}
     init_by = dict(zip(NETS, init))
 
     def change(params):
@@ -292,3 +319,52 @@ def compare(prog: dict, ref: dict,
                 loss_gap_by_step=by_step.tolist(), losses=lp.tolist(),
                 losses_ref=lr.tolist(),
                 excluded=[".".join(kn) for kn in gref if kn not in keep_all])
+
+
+def generator_probe(weights: Sequence[Dict[str, torch.Tensor]],
+                    xs: Sequence[torch.Tensor], rs: Sequence[torch.Tensor],
+                    micro: int, quant=None) -> Dict[str, Dict[str,
+                                                               torch.Tensor]]:
+    """The generators' backward away from the losses: for each generator
+    (``weights``, gg then gf), its batch (``xs``, NCDHW) and a cotangent of
+    its output's shape (``rs``), dL/dθ of the smooth scalar
+    L = <generator(x), r>, without dropout, in blocks of ``micro`` tiles
+    whose leaf gradients are summed.  The backward is linear in r, so every
+    conv's backward is exercised with no clip in the way."""
+    out = {}
+    for k, w, x, r in zip(GEN, weights, xs, rs):
+        p = {n: t.detach().clone().to(x.device).requires_grad_(True)
+             for n, t in w.items()}
+        grads = {n: torch.zeros_like(t) for n, t in p.items()}
+        for s in range(0, x.shape[0], micro):
+            y = M.generator(p, x[s:s + micro], quant=quant)
+            gs = torch.autograd.grad(y, list(p.values()),
+                                     grad_outputs=r[s:s + micro])
+            for n, g in zip(p, gs):
+                grads[n] += g
+            del y, gs
+        out[k] = grads
+    return out
+
+
+def probe_compare(prog: dict, ref: dict) -> dict:
+    """The probe's numbers (:func:`generator_probe`'s gradients, program
+    against reference; both ``{"gg": {leaf: grad}, "gf": {..}}``) over both
+    generators' leaves (:func:`group_gaps`): ``probe_gap_gen``, the worst
+    leaf's norm, by ``grad_gap_disc``'s rule; ``probe_cos_gen``, the
+    largest 1 - cos(g, g_ref) over every kept leaf.  Unlike the step's
+    gradients, no leaf's direction here follows rounding more than the
+    others' (the leaves under the median read as the rest on the card), so
+    a direction fault in a small leaf, such as a transposed conv's kernel,
+    is caught too; the discriminators' rule, over the leaves at or above
+    the median, is reported as ``probe_cos_gen_top``."""
+    g = group_gaps(prog, ref, GEN)
+    leaves = {".".join(kn): [g["norms"][kn], g["norms_ref"][kn],
+                             g["cosines"][kn]] for kn in g["keep"]}
+    return {"probe_gap_gen": g["gap"], "worst_probe_gap_leaf": g["gap_leaf"],
+            "probe_cos_gen": g["cos_all"],
+            "worst_probe_cos_leaf": g["cos_all_leaf"],
+            "probe_cos_gen_top": g["cos"], "probe_median_grad": g["median"],
+            "probe_leaves": leaves,
+            "probe_excluded": [".".join(kn) for kn in g["norms_ref"]
+                               if kn not in g["keep"]]}

@@ -10,17 +10,30 @@ from benchmark import harness
 from benchmark.reference import models as RM
 from benchmark.tests import helpers
 from benchmark.tests.helpers import card  # noqa: F401  (a fixture)
+from benchmark.tools import control
 
+STEP_CHECKS = ("objective_gap_first", "grad_gap_disc", "grad_cos_disc",
+               "change_gap")
+PROBE_CHECKS = ("probe_gap_gen", "probe_cos_gen")
 
 
 def test_train_control_fails():
     """The reference with float8 operands and gradients, in the program's
-    place, comes out not correct: the discriminators' first gradients turn
-    past their limits."""
+    place, comes out not correct: the discriminators' first gradients and
+    the generators' probe turn past their limits."""
     line = helpers.run_control("train-wf1-bf16", RM.fake_fp8)
     assert line["correct"] is False
     c = line["checks"]
     assert c["grad_cos_disc"]["value"] > c["grad_cos_disc"]["limit"]
+    assert any(c[k]["value"] > c[k]["limit"] for k in PROBE_CHECKS), c
+
+
+def test_train_sound_program_passes_every_check():
+    """The port as it stands: each of the six numbers under its limit."""
+    line = helpers.run_cell("train-wf1-bf16")
+    c = line["checks"]
+    assert set(c) == set(STEP_CHECKS + PROBE_CHECKS)
+    assert line["correct"] is True, c
 
 
 def test_volume_control_fails():
@@ -43,20 +56,28 @@ def test_train_state_unchanged_is_caught(monkeypatch):
 
 
 def test_train_half_batch_is_caught(monkeypatch):
-    import transfer_em_tpu_torch.train as T
-    real = T.make_train_step
-
-    def half(config, device=None):
-        step = real(config, device=device)
-
-        def run(state, x, y, seed):
-            b = x.shape[0] // 2
-            return step(state, x[:b], y[:b], seed)
-        return run
-
-    monkeypatch.setattr(T, "make_train_step", half)
+    control.half_batch(monkeypatch.setattr)
     line = helpers.run_cell("train-wf1-bf16")
     assert line["correct"] is False
+
+
+@pytest.mark.parametrize("fault", ["transposed_wgrad_half",
+                                   "transposed_wgrad_flipped",
+                                   "conv3_wgrad_half_over_40"])
+def test_train_generator_backward_fault_is_caught(monkeypatch, fault):
+    """A weight gradient halved, or turned with its norm held, where only
+    the generators' backward goes (the transposed convs; conv3 over 40
+    voxels an axis, which the 40^3 discriminator never reaches): the four
+    numbers of the step pass it, since Adam's first updates hardly feel a
+    gradient's scale and the generators' first gradients are not compared,
+    and the probe catches it."""
+    control.FAULTS[fault](monkeypatch.setattr)
+    line = helpers.run_cell("train-wf1-bf16")
+    c = line["checks"]
+    assert line["correct"] is False
+    for k in STEP_CHECKS:
+        assert c[k]["value"] <= c[k]["limit"], (k, c)
+    assert any(c[k]["value"] > c[k]["limit"] for k in PROBE_CHECKS), c
 
 
 def test_volume_answer_altered_is_caught(monkeypatch):

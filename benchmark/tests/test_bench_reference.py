@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import counts, inputs
+from benchmark import counts, harness, inputs
 from benchmark.reference import infer as RI
 from benchmark.reference import models as RM
 from benchmark.reference import pipeline as RP
@@ -69,6 +69,76 @@ def test_generator_forward_catches_a_channel_fault(monkeypatch):
         x, w.flip(-1), leaky))
     g = _generator_gaps(RM.GAIN)
     assert g["port"] > ROUNDING_MULTIPLE * g["reference"], g
+
+
+def _probe_gaps(fault=None):
+    """The generators' probe gradients (``reference.train.generator_probe``:
+    dL/dθ of <generator(x), r>) of the float32 reference and of the port's
+    plain CPU generator, each against a float64 run of the reference on the
+    same weights, batches and cotangents: ``probe_compare``'s numbers.
+    ``fault`` (a monkeypatch context's setattr) plants a fault in the
+    float32 reference only."""
+    from transfer_em_tpu_torch.models import UNetGenerator
+    w = RM.make_weights([RM.generator_spec(WF)] * 2, 0, "cpu", gain=1.0)
+    g = torch.Generator().manual_seed(10)
+    xs = [torch.randn(2, 1, 74, 74, 74, generator=g) for _ in range(2)]
+    rs = [torch.randn(2, 1, 40, 40, 40, generator=g) / (2 * 40 ** 3) ** 0.5
+          for _ in range(2)]
+    exact = RT.generator_probe(
+        [{k: v.double() for k, v in net.items()} for net in w],
+        [x.double() for x in xs], [r.double() for r in rs], 2)
+    port = {}
+    for k, net, x, r in zip(RT.GEN, w, xs, rs):
+        gen = UNetGenerator(wf=WF)
+        gen.load_state_dict(net, strict=True)
+        params = dict(gen.named_parameters())
+        y = gen(x.permute(0, 2, 3, 4, 1).contiguous())
+        port[k] = dict(zip(params, torch.autograd.grad(
+            y, list(params.values()),
+            grad_outputs=r.permute(0, 2, 3, 4, 1))))
+    if fault is not None:
+        fault()
+    ref = RT.generator_probe(w, xs, rs, 2)
+    return {"port": RT.probe_compare(port, exact),
+            "reference": RT.probe_compare(ref, exact)}
+
+
+def test_generator_probe_gradient():
+    """The reference's probe gradients in float32 sit within float32's
+    rounding of a float64 run (5.8e-7 and 2.3e-11 here, 1e-6 to 9e-5 and
+    3e-11 to 7e-7 over three draws), and the port's plain CPU path within
+    twice the reference's own gap."""
+    g = _probe_gaps()
+    ref, port = g["reference"], g["port"]
+    assert 0 < ref["probe_gap_gen"] < 1e-4 and ref["probe_cos_gen"] < 1e-6
+    assert port["probe_gap_gen"] <= ROUNDING_MULTIPLE * ref["probe_gap_gen"]
+    assert port["probe_cos_gen"] <= ROUNDING_MULTIPLE * max(
+        ref["probe_cos_gen"], 1e-12)
+
+
+def test_generator_probe_catches_a_gradient_fault(monkeypatch):
+    """The reference's transposed convs, each kernel's gradient with its
+    output channels reversed: the norms hold, the directions of those
+    leaves, each under the median leaf's norm, turn past the cell's
+    limit."""
+    real = RM.conv_transpose
+
+    class Flip(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad.flip(-1)
+
+    def fault():
+        monkeypatch.setattr(RM, "conv_transpose", lambda x, w, **k: real(
+            x, Flip.apply(w), **k))
+    g = _probe_gaps(fault)["reference"]
+    limits = harness.load_json("workloads", "train-wf1-bf16")["limits"]
+    assert g["probe_cos_gen"] > limits["probe_cos_gen"], g
+    assert g["probe_gap_gen"] < limits["probe_gap_gen"], g
 
 
 def test_discriminator_forward():
