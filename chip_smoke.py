@@ -26,10 +26,16 @@ each printing one JSON line:
             plain version and one library call, beside the card's bound;
             LeakyReLU's, preprocess's, postprocess's and their library
             calls' also from a CUDA graph replay (device time without the
-            launches' host cost).  Then conv3 and LeakyReLU, checked only,
+            launches' host cost).  Each f32 conv3 with O <= 32 runs in the
+            tensor-core kernel's kw form (``form``), beside it both forms'
+            times with each launched straight, in turns (``kw_ms``,
+            ``tap_ms``).  Then conv3 and LeakyReLU, checked only,
             at the train step's second-round batch (64 tiles), for both
-            networks, and every kernel on a strided view (a crop) against
-            its plain version on the same view (``kernel_strided``).
+            networks, every kernel on a strided view (a crop) against its
+            plain version on the same view (``kernel_strided``), and the kw
+            form's planted fault (``conv3_kw_fault``: the row shifted by
+            two columns left out of the epilogue's sum, at each narrow
+            generator layer, must miss conv3's f32 tolerance).
 4. golden   the port's generator (kernels on) against the frozen TF output
             tests/goldens/gen_3d.npz, f32 and bf16, and the 3D
             discriminator against tests/goldens/disc_3d.npz: PSNR >= 40 dB.
@@ -77,7 +83,8 @@ each printing one JSON line:
             equal to it, with every conv3 launch on bf16 operands, its
             weights packed on the first call only (6 packs, then 0) and its
             output bit-equal to a call with the pack cache cleared, its
-            transposed and down convs on cuDNN's; device
+            transposed and down convs on cuDNN's, none of its conv3
+            launches in the kw form; device
             mode at the 40-tile chunks' batch bit-equal to B=128; every
             kernel call of one slab forward (conv3 at all 8 layers,
             down4 at both down convs, LeakyReLU at 2, after the up convs,
@@ -85,9 +92,11 @@ each printing one JSON line:
             recorded at its own shape, against its plain version, with
             times beside the bound; device mode at B = 64, 128, 256 over
             the volume on the card (used in place: no slab uploaded); every
-            kernel must launch in every mode, every f32 mode's transposed
-            convs as the phase conv and its down convs on the down4 kernel
-            (none on cuDNN's), with no weight packed after its warm call.
+            kernel must launch in every mode, every f32 mode's narrow k3
+            layers in conv3's kw form (``conv3_tc_kw`` above 0, by mode in
+            the line), its transposed convs as the phase conv and its down
+            convs on the down4 kernel (none on cuDNN's), with no weight
+            packed after its warm call.
 7. train_check  one CycleGAN train step (wf=8, B=4, dropout off) through
             the kernels and one through the plain versions on the card, from
             the same state: 7-loss vectors within rtol 1e-4, every
@@ -352,6 +361,7 @@ import json
 import math
 import os
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -526,8 +536,11 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act,
         return F.leaky_relu(y, 0.3) if act else y
 
     k_ms = cuda_ms(lambda: cuda_conv.conv3(x, w, leaky))
+    path = cuda_conv.conv3_path(c, o)
+    plan = cuda_conv.conv3_plan(c, o, dtype) if path == "tc" else None
     rec = {"phase": "kernel", "kernel": "conv3", "layer": name,
-           "path": cuda_conv.conv3_path(c, o),
+           "path": path,
+           "form": "direct" if plan is None else "kw" if plan.kw else "tap",
            "dtype": str(dtype).replace("torch.", ""),
            "shape": list(shape) + [c], "out_channels": o, "epilogue": act,
            "max_abs_err": err, "ref_max_abs": ref_max, "tol": tol,
@@ -540,12 +553,37 @@ def _conv3_case(dev, gen, dtype, rel_tol, name, shape, c, o, act,
            "t_ops": flops / conv3_peak(dtype) * 1e3}
     if dtype == torch.float32:
         rec["bound_ms_cuda_core"] = bound(nbytes, flops, dtype)[0]
+    if plan is not None and plan.kw:
+        rec.update(form_times(x, w, leaky))
     if graph:
         rec["graph_ms"] = graph_ms(lambda: cuda_conv.conv3(x, w, leaky))
         rec["library_graph_ms"] = graph_ms(lib)
     rec.update(extra or {})
     emit(rec)
     return rec
+
+
+def form_times(x, w, leaky, rounds=3, reps=10):
+    """The tensor-core kernel's two forms on one f32 conv, each launched
+    straight (``cuda_conv.conv3_tc``, no wrapper), in turns: the median of
+    ``rounds`` timings of ``reps`` launches each, ``kw_ms`` for the kw form
+    and ``tap_ms`` for the tap form it replaced."""
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    c, o = w.shape[3], w.shape[4]
+    y = torch.empty(x.shape[:1] + tuple(n - 2 for n in x.shape[1:4]) + (o,),
+                    device=x.device)
+    runs = {}
+    for name, kw in (("kw_ms", True), ("tap_ms", False)):
+        plan = cuda_conv.tc_plan(c, o, torch.float32, kw)
+        runs[name] = (plan, cuda_conv.pack_conv3_weights(w, torch.float32,
+                                                         plan))
+    times = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, (plan, wp) in runs.items():
+            times[name].append(cuda_ms(
+                lambda: cuda_conv.conv3_tc(x, wp, y, plan, leaky), reps))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def _down4_case(dev, gen, name, shape, c, o, dtype=torch.float32,
@@ -637,6 +675,11 @@ def check_conv3(dev, gen):
                     continue  # not the main path's own call
                 tot["rel_err"] = max(tot["rel_err"], rec["max_abs_err"]
                                      / max(rec["ref_max_abs"], 1e-30))
+                if rec["form"] == "kw":  # each narrow f32 layer's times
+                    tot.setdefault("kw", []).append(
+                        {k: rec[k] for k in ("layer", "kernel_ms", "kw_ms",
+                                             "tap_ms", "bound_ms",
+                                             "bound_by")})
                 if net == "disc":
                     group = tot.setdefault("disc", {**{k: 0.0 for k in keys},
                                                     "max_abs_err": 0.0,
@@ -662,6 +705,45 @@ def check_conv3(dev, gen):
                 t.pop("bound_ms_cuda_core")
         agg[str(dtype).replace("torch.", "")] = tot
     return agg
+
+
+def check_conv3_kw_fault(dev, gen):
+    """The kw form's planted fault: csrc/conv3_tc.cu built with
+    -DTEM_CONV3_KW_FAULT=1 leaves the row shifted by two columns out of the
+    epilogue's sum.  At each narrow f32 layer of the generator (B=8, the
+    LeakyReLU epilogue) the faulty build must miss the plain version by more
+    than conv3's f32 tolerance, 1e-4 max(1, |ref|), where the library's own
+    build meets it."""
+    from transfer_em_tpu_torch import kernels
+    from transfer_em_tpu_torch.ops import cuda_conv
+
+    lib = kernels.build_variant("conv3_tc.cu", "conv3_kw_fault",
+                                ["TEM_CONV3_KW_FAULT=1"])
+    cases = {}
+    for name, s, c, o, _ in CONV_LAYERS:
+        plan = cuda_conv.conv3_plan(c, o, torch.float32) if (
+            cuda_conv.conv3_path(c, o) == "tc") else None
+        if plan is None or not plan.kw:
+            continue
+        x = torch.randn((8, s, s, s, c), generator=gen, device=dev)
+        w = torch.randn((3, 3, 3, c, o), generator=gen, device=dev) / (
+            27 * c) ** 0.5
+        ref = cuda_conv.conv3_plain(x, w, 0.3)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        wp = cuda_conv.packed_weights(w)
+        errs = {}
+        for build, which in (("sound", None), ("fault", lib)):
+            y = torch.empty_like(ref)
+            cuda_conv.conv3_tc(x, wp, y, plan, 0.3, lib=which)
+            errs[build] = (y - ref).abs().max().item()
+        cases[name] = {**errs, "tol": tol,
+                       "ok": errs["sound"] <= tol < errs["fault"]}
+        del x, ref, y
+    torch.cuda.empty_cache()
+    rec = {"phase": "conv3_kw_fault", "cases": cases,
+           "ok": bool(cases) and all(v["ok"] for v in cases.values())}
+    emit(rec)
+    return rec
 
 
 def check_strided(dev, gen):
@@ -1686,16 +1768,20 @@ def check_volume(dev, smi):
             "device_mvox_per_s": modes["device"]["mvox_per_s"],
             "device_mvox_per_s_before": VOL_DEVICE_BEFORE_MVOX}
         emit({"phase": "volume_copies", **rec["device_copies"]})
-        # every f32 mode runs its transposed convs as the phase conv and
-        # its down convs on the down4 kernel, and packs no weight after its
-        # warm call
+        # every f32 mode runs its narrow k3 layers in the kw form, its
+        # transposed convs as the phase conv and its down convs on the down4
+        # kernel, and packs no weight after its warm call
         launches_ok = all(
             m["launches"][k] > 0 for m in modes.values()
-            for k in (*counters(), "conv3_tc", "conv3_direct",
-                      "transpose_phase", "down_k4", "down4")) and all(
+            for k in (*counters(), "conv3_tc", "conv3_tc_kw",
+                      "conv3_direct", "transpose_phase", "down_k4",
+                      "down4")) and all(
             m["launches"][k] == 0 for m in modes.values()
             for k in ("transpose_cudnn", "down_cudnn", "conv3_weight_packs",
                       "down4_weight_packs"))
+        # the narrow f32 layers' launches in the kw form, by mode
+        rec["conv3_tc_kw"] = {name: m["launches"]["conv3_tc_kw"]
+                              for name, m in modes.items()}
 
         # exactness: the tile-grid modes bit-equal under cuDNN's
         # deterministic algorithms (its defaults need not repeat bit for
@@ -1781,6 +1867,7 @@ def check_volume(dev, smi):
     # mode, and the output is not f32's
     bf16_ok = (rec["bf16_device"]["psnr_db_vs_f32"] >= 40
                and launches16["conv3_bf16"] == launches16["conv3"] > 0
+               and launches16["conv3_tc_kw"] == 0
                and launches16["transpose_cudnn"] > 0
                and launches16["transpose_phase"] == 0
                and launches16["down_cudnn"] > 0
@@ -6162,8 +6249,10 @@ def main():
     elem = check_elementwise(dev, gen)
     shapes = check_train_shapes(dev, gen)
     strided = check_strided(dev, gen)
+    kw_fault = check_conv3_kw_fault(dev, gen)
     kernel_ok = (all(v["passed"] == v["checks"] for v in conv.values())
                  and all(v["ok"] for v in elem.values()) and strided["ok"]
+                 and kw_fault["ok"]
                  and shapes["conv3_passed"] == shapes["conv3_checks"]
                  and shapes["leaky_passed"] == shapes["leaky_checks"])
     emit({"phase": "kernels_checked", "ok": kernel_ok})
@@ -6276,6 +6365,7 @@ def main():
                "bound_ms_cuda_core": c32["bound_ms_cuda_core"],
                "weight_packs": la["conv3_weight_packs"],
                "bf16": {k: c16[k] for k in summary}, "paths": paths,
+               "kw_layers": c32.get("kw", []),
                "train_disc": {**{k: c32["disc"][k] for k in summary},
                               "layers": c32["disc"]["layers"],
                               "per": "the discriminator's 4 k3 convs at "

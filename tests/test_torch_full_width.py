@@ -159,38 +159,47 @@ def test_wf1_conv3_plain_matches_jax(layer, side, c, o, act):
     assert float(np.abs(got - want).max()) <= tol
 
 
-def _tc_cfg(dtype, nc, cs):
-    """``Cfg<T, NC, CS>`` of csrc/conv3_tc.cu, evaluated from the source:
-    the patch constants before it and each ``static constexpr`` of the
-    struct, in order (C ternaries and integer division turned into
-    Python), and ``smem(resident)`` for both values."""
+def _tc_cfg(dtype, nc, cs, kw=False):
+    """``Cfg<T, NC, CS>`` of csrc/conv3_tc.cu (``CfgKw<NC, CS>``, the kw
+    form's, with ``kw``), evaluated from the source: the patch constants
+    before it and each ``static constexpr`` of the struct, in order (C
+    ternaries and integer division turned into Python), and its ``smem``
+    as a function of (n_cb, resident, ring)."""
     src = open(TC_SOURCE).read()
     f32 = dtype == torch.float32
     env = {"NC": nc, "CS": cs}
+    name = "CfgKw" if kw else "Cfg"
 
     def py(expr):
+        m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", expr)
+        if m:  # a ternary, nested ones in its last branch
+            return f"(({py(m[2])}) if ({py(m[1])}) else ({py(m[3])}))"
         expr = expr.replace("std::is_same<T, float>::value", str(f32))
         expr = expr.replace("sizeof(T)", "4" if f32 else "2")
-        expr = expr.replace("/", "//")
-        m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", expr)
-        return f"(({m[2]}) if ({m[1]}) else ({m[3]}))" if m else expr
+        return expr.replace("/", "//")
 
-    top, cfg = src.split("struct Cfg {", 1)
+    top, cfg = src.split(f"struct {name} {{", 1)
     cfg = cfg.split("\n};", 1)[0]
     for decl in re.findall(r"^constexpr int (.+);", top, re.M):
         for part in decl.split(","):
-            name, expr = part.split("=", 1)
-            env[name.strip()] = eval(py(expr.strip()), {}, env)
-    for name, expr in re.findall(
+            var, expr = part.split("=", 1)
+            env[var.strip()] = eval(py(expr.strip()), {}, env)
+    for var, expr in re.findall(
             r"static constexpr (?:int|bool) (\w+) = ([^;]+);", cfg):
-        env[name] = eval(py(expr), {}, env)
-    smem = re.search(r"return (kInBytes \+ \(resident \? 9 : 2\) \* "
-                     r"kStageBytes);", cfg)
-    assert smem, "Cfg::smem changed: update this test with it"
-    for resident in (True, False):
-        env[f"smem_{resident}"] = eval(
-            "kInBytes + (9 if resident else 2) * kStageBytes", {},
-            {**env, "resident": resident})
+        env[var] = eval(py(expr), {}, env)
+    if kw:
+        smem = re.search(r"return \(ring \? kRing : kSlots\) \* kPlaneBytes "
+                         r"\+\s+\(resident \? 9 \* n_cb : 6\) \* "
+                         r"kStageBytes;", cfg)
+        expr = ("(kRing if ring else kSlots) * kPlaneBytes"
+                " + (9 * n_cb if resident else 6) * kStageBytes")
+    else:
+        smem = re.search(r"return (kInBytes \+ \(resident \? 9 : 2\) \* "
+                         r"kStageBytes);", cfg)
+        expr = "kInBytes + (9 if resident else 2) * kStageBytes"
+    assert smem, f"{name}::smem changed: update this test with it"
+    env["smem"] = lambda n_cb, resident, ring: eval(
+        expr, {}, {**env, "n_cb": n_cb, "resident": resident, "ring": ring})
     env["nc_cases"] = {int(n) for n in re.findall(r"case (\d+):", src)}
     return env
 
@@ -201,8 +210,9 @@ def test_conv3_plan_agrees_with_the_kernel_at_every_width(wf, dtype):
     """Every k3 conv of UNetGenerator(wf) and Discriminator(wf) that takes
     the tensor-core kernel: its plan fits the H100's opt-in shared memory,
     covers C and O (n_cb * cb >= C, n_chunks * nc >= O), and is what the
-    kernel's ``Cfg`` in csrc/conv3_tc.cu computes for the template the
-    launch dispatches to (CS from cb, NC from nc): channel block,
+    kernel's ``Cfg`` (``CfgKw`` for a kw-form plan) in csrc/conv3_tc.cu
+    computes for the template the launch dispatches to (CS from cb, NC
+    from nc): channel block,
     planes, shared memory for the plan's residency, the channel-block and
     chunk counts, and the packed weights' bytes (n_chunks * n_cb * 9
     stages).  Pins the source's claim that any C and O of
@@ -219,11 +229,11 @@ def test_conv3_plan_agrees_with_the_kernel_at_every_width(wf, dtype):
         assert p.smem_bytes <= cuda_conv.SMEM_LIMIT
         assert p.n_cb * p.cb >= c and p.n_chunks * p.nc >= o
         assert p.cb in (p.kk, 2 * p.kk)  # the two CS the launch takes
-        cfg = _tc_cfg(dtype, p.nc, p.cb // p.kk)
+        cfg = _tc_cfg(dtype, p.nc, p.cb // p.kk, p.kw)
         assert p.nc in cfg["nc_cases"]
         assert (cfg["kKK"], cfg["kCB"], cfg["kP"], cfg["kParts"]) == (
             p.kk, p.cb, p.planes, p.parts)
-        assert cfg[f"smem_{p.resident}"] == p.smem_bytes
+        assert cfg["smem"](p.n_cb, p.resident, p.ring) == p.smem_bytes
         assert -(-c // cfg["kCB"]) == p.n_cb and -(-o // p.nc) == p.n_chunks
         w = torch.empty((3, 3, 3, c, o), device="meta")
         packed = cuda_conv.pack_conv3_weights(w, dtype)

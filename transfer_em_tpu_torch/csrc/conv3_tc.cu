@@ -16,7 +16,26 @@
 // in f32 (up to 495/3 = 165 TFLOP/s of f32-accurate products, against 67 on
 // the CUDA cores).  bfloat16 is one bf16 product summed in f32.
 //
-// Design: an implicit GEMM, M = output voxels, N = O, K = 27*C.
+// What bounds the narrow layers (O <= 32, wf=8's 8-32 channels) in the tap
+// form is the MMA's rate at small N, not bytes: with O on wgmma's N, tf32
+// wgmma runs at 143 TFLOP/s at N = 8 and 295 at N = 16 against 481 at
+// N = 64 (kernels/wgmma_probe.py), and at N = 8 even that ceiling is several
+// times the layer's byte bound.  So f32 at O <= 32 takes the kw form
+// (conv3_tc_kernel_kw, below): the three kw taps' weights side by side in
+// N = 3*O, K = 9*C (the (kd, kh) taps), M = input voxels along w, each
+// output the sum of three rows shifted along w (warp shuffles in the
+// epilogue).  Its products then run at the rate of N = 24, 48 or 96 (386,
+// 455, 487 TFLOP/s for the three 3xTF32 wgmmas of a k-step); it pays 64
+// rows for 56 outputs a tile.  What bounds the kw form in turn is
+// instruction issue: a first version with the tap form's loop ran its
+// narrowest layer at 37% of that rate and took half its time with the
+// MMAs taken out.  So it spends few instructions a product: each A
+// fragment is loaded and split once an input plane and feeds the three kd
+// taps, a block walks d with its weights loaded once and its input planes
+// in a ring, and its registers are capped so that more blocks share an SM.
+//
+// Design of the tap form: an implicit GEMM, M = output voxels, N = O,
+// K = 27*C.
 //   * One block is one warpgroup (128 threads).  It owns an 8x8 (H, W)
 //     patch of P consecutive output planes (P m64 tiles; P = 4, or 2 at
 //     NC = 64) and one chunk of NC output channels (blockIdx.y).
@@ -271,6 +290,342 @@ __global__ void __launch_bounds__(Cfg<T, NC, CS>::kThreads)
   }
 }
 
+// -- the kw form: f32 at O <= 32 ----------------------------------------------
+// One m64 tile is 4 output rows (h, a warp each) by 16 input columns (w):
+// the GEMM's rows are input voxels along w, its N the three kw taps'
+// weights side by side (n = kw * NC + o), its K the (kd, kh) taps by the
+// channels, and an output is the sum of three rows shifted along w:
+// y[h, w, o] = D[(h, w), o] + D[(h, w + 1), NC + o] + D[(h, w + 2), 2 NC + o],
+// so a tile gives 4 x 14 outputs.
+//
+// TEM_CONV3_KW_FAULT (a planted fault, built only by chip_smoke.py to show
+// that its checks catch it): 1 leaves the row shifted by two columns out of
+// the epilogue's sum.
+#ifndef TEM_CONV3_KW_FAULT
+#define TEM_CONV3_KW_FAULT 0
+#endif
+constexpr int kKwTH = 4;                     // output rows of one m64 tile
+constexpr int kKwIW = 16;                    // its input columns
+constexpr int kKwOW = kKwIW - 2;             // its output columns
+constexpr int kKwVox = (kKwTH + 2) * kKwIW;  // 96 input voxels per plane
+
+template <int NC, int CS>
+struct CfgKw {
+  static constexpr int kKK = 8;                // tf32 MMA depth in elements
+  static constexpr int kCB = CS * kKK;         // channels per channel block
+  static constexpr int kParts = 2;             // hi, lo
+  static constexpr int kN = 3 * NC;            // wgmma N: kw taps x NC
+  static constexpr int kP = NC <= 16 ? 4 : 2;  // output planes per chunk
+  static constexpr int kThreads = 128;         // one warpgroup
+  static constexpr int kSlots = kP + 2;        // input planes of one chunk
+  static constexpr int kRing = 2 * kP + 2;     // a chunk's and the next's
+  // words per voxel in smem, no padding: at CS = 2 the two 8-word halves
+  // of a voxel swap where bit 1 of its column is set, so that the 64-bit A
+  // reads of 4 neighbouring voxels fall on distinct banks
+  static constexpr int kVSW = 8 * CS;
+  static constexpr int kVSB = kVSW * 4;
+  static constexpr int kPlaneBytes = kKwVox * kVSB;
+  static constexpr int kStepBytes = kN * 32;   // one part of one k-step
+  static constexpr int kStageBytes = CS * kParts * kStepBytes;
+  static constexpr int kAcc = kN / 2;          // accumulators per tile
+  static constexpr int kASets = 3;             // A register sets in flight
+  // blocks an SM keeps at least, so registers a thread at most 128 (NC 8),
+  // 168 (16) or 255 (32): more blocks hide more of each block's copies and
+  // epilogue (on the H100, 4 blocks at NC 8 ran down1.conv 22% faster than
+  // 3, and 3 at NC 16 beat 2)
+  static constexpr int kMinBlocks = NC == 8 ? 4 : NC == 16 ? 3 : 2;
+  // shared memory: the input planes (a ring of two chunks' planes, or one
+  // chunk's), then every channel block's 9 stages (resident) or two kh
+  // rows of 3 stages
+  static constexpr int smem(int n_cb, bool resident, bool ring) {
+    return (ring ? kRing : kSlots) * kPlaneBytes +
+           (resident ? 9 * n_cb : 6) * kStageBytes;
+  }
+};
+
+// Word of channel word e (0 .. 8 CS - 1) of input voxel v in its smem slot.
+template <int CS>
+__device__ __forceinline__ int kw_word(int v, int e) {
+  return CS == 2 ? e ^ (((v >> 1) & 1) << 3) : e;
+}
+
+// A block walks ``chunks`` chunks of P output planes along d (blockIdx.y
+// picks which) of one column of tiles (4 output rows x 14 output columns),
+// so that the weights are loaded once a block where they stay resident,
+// and, with ``ring`` (one channel block, resident weights), each input
+// plane is copied once: the next chunk's P new planes stream into the ring
+// while the current chunk computes.  Otherwise each (chunk, channel block)
+// copies its P+2 planes after the previous one is done, and the weights
+// stream one kh row (the 3 kd stages) at a time through 2 buffers.
+//
+// The products walk the input planes, not the output planes: the A
+// fragment of input plane s at (kh, k-step) is loaded and split once and
+// feeds output plane s - kd for each kd that lands in the chunk (one group
+// of up to 9 wgmmas), so a chunk loads (P+2) * 3 fragments a k-step for
+// its P * 9 tap products.  What bounds the form is instruction issue (the
+// loads, splits and copies beside each wgmma), so that is what it saves.
+template <int NC, int CS>
+__global__ void __launch_bounds__(CfgKw<NC, CS>::kThreads,
+                                  CfgKw<NC, CS>::kMinBlocks)
+    conv3_tc_kernel_kw(const float* __restrict__ x,
+                       const uint8_t* __restrict__ wp, float* __restrict__ y,
+                       int D, int H, int W, int C, int O, int n_cb, int nTD,
+                       int nTH, int nTW, int chunks, int aligned,
+                       int resident, int ring, int act, float slope) {
+  using K = CfgKw<NC, CS>;
+  constexpr int P = K::kP;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int n_slots = ring ? K::kRing : K::kSlots;
+  uint8_t* s_in = smem;
+  uint8_t* s_w = smem + n_slots * K::kPlaneBytes;
+
+  int bid = blockIdx.x;
+  const int tw = bid % nTW;
+  bid /= nTW;
+  const int th = bid % nTH;
+  const long long b = bid / nTH;
+  const int dc0 = blockIdx.y * chunks;
+  const int dc1 = min(nTD, dc0 + chunks);
+  // ow0 is the tile's first output column and its first input column
+  const int oh0 = th * kKwTH, ow0 = tw * kKwOW;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int OD = D - 2, OH = H - 2, OW = W - 2;
+  const long long plane_elems = static_cast<long long>(H) * W * C;
+
+  // A thread's 16-byte copies of one plane (aligned C): item k = tid +
+  // 128 m of the plane's 96 voxels x kCB / 4 pieces, its offset in the
+  // plane of x and in the smem slot, and whether it lies in the volume
+  constexpr int kPieces = K::kCB / 4;
+  constexpr int kItems = kKwVox * kPieces;
+  constexpr int kPer = (kItems + K::kThreads - 1) / K::kThreads;
+  long long src_off[kPer];
+  uint32_t dst_off[kPer];
+  int piece_c[kPer];
+  bool inside[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int k = tid + m * K::kThreads;
+    const int ch = k % kPieces, v = k / kPieces;
+    const int h = oh0 + v / kKwIW, w = ow0 + v % kKwIW;
+    inside[m] = k < kItems && h < H && w < W;
+    src_off[m] = (static_cast<long long>(h) * W + w) * C + ch * 4;
+    dst_off[m] = v * K::kVSB + kw_word<CS>(v, ch * 4) * 4;
+    piece_c[m] = ch * 4;
+  }
+  const uint32_t s_in_u32 = smem_u32(s_in);
+  // planes [z0, z1) of channel block cbi into the slots from slot0 on,
+  // wrapping at n_slots (no commit)
+  auto load_planes = [&](int z0, int z1, int slot0, int cbi) {
+    const int c0 = cbi * K::kCB;
+    if (aligned) {
+      for (int j = 0; j < z1 - z0; ++j) {
+        const int d = z0 + j;
+        int sl = slot0 + j;
+        if (sl >= n_slots) sl -= n_slots;
+        const float* base = x + (b * D + d) * plane_elems + c0;
+        const uint32_t dst = s_in_u32 + sl * K::kPlaneBytes;
+#pragma unroll
+        for (int m = 0; m < kPer; ++m) {
+          if (m * K::kThreads + tid < kItems) {
+            const bool ok = inside[m] && d < D && c0 + piece_c[m] < C;
+            cp_async16(dst + dst_off[m], ok ? base + src_off[m] : x,
+                       ok ? 16 : 0);
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < (z1 - z0) * kKwVox * K::kCB; i += K::kThreads) {
+        const int e = i % K::kCB;
+        const int v = (i / K::kCB) % kKwVox;
+        const int j = i / (K::kCB * kKwVox);
+        int sl = slot0 + j;
+        if (sl >= n_slots) sl -= n_slots;
+        const int d = z0 + j, h = oh0 + v / kKwIW, w = ow0 + v % kKwIW;
+        const int c = c0 + e;
+        const bool ok = d < D && h < H && w < W && c < C;
+        reinterpret_cast<float*>(s_in + sl * K::kPlaneBytes + v * K::kVSB)
+            [kw_word<CS>(v, e)] =
+            ok ? x[(((b * D + d) * H + h) * static_cast<long long>(W) + w) *
+                       C + c]
+               : 0.f;
+      }
+    }
+  };
+  // n weight stages from stage st0 (of all channel blocks' 9 each, kh
+  // major) into the stage buffers from buf on, then commit
+  auto load_stages = [&](int st0, int n, int buf) {
+    const uint8_t* src = wp + static_cast<size_t>(st0) * K::kStageBytes;
+    const uint32_t dst = smem_u32(s_w + buf * K::kStageBytes);
+    for (int i = tid; i < n * K::kStageBytes / 16; i += K::kThreads) {
+      cp_async16(dst + i * 16, src + i * 16, 16);
+    }
+    cp_async_commit();
+  };
+
+  load_planes(dc0 * P, dc0 * P + P + 2, ring ? dc0 * P % n_slots : 0, 0);
+  load_stages(0, resident ? 9 * n_cb : 3, 0);  // with the first planes
+
+  // this thread's A words: row (warp + kh) of a plane, column g; column
+  // g + 8 is 8 voxels on, with the same swizzle
+  const uint32_t a_off = ((warp * kKwIW + g) * K::kVSW) * 4;
+  float acc[P][K::kAcc];
+  uint32_t a[K::kASets][2][4];
+  for (int dc = dc0; dc < dc1; ++dc) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int i = 0; i < K::kAcc; ++i) acc[p][i] = 0.f;
+    }
+    const int slot0 = ring ? dc * P % n_slots : 0;
+    for (int cbi = 0; cbi < n_cb; ++cbi) {
+      if (!ring && (dc > dc0 || cbi > 0)) {
+        __syncthreads();  // every warp is done with the previous planes
+        load_planes(dc * P, dc * P + P + 2, 0, cbi);
+        if (resident) {
+          cp_async_commit();
+        } else {
+          load_stages(cbi * 9, 3, 0);
+        }
+      }
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+        if (!resident || kh == 0) {
+          cp_async_wait<0>();  // this kh row or these planes have landed
+          fence_proxy_async();
+          __syncthreads();
+          // The next kh row streams in while this one is used; its buffer
+          // was drained at the end of kh - 1.
+          if (!resident && kh < 2) {
+            load_stages(cbi * 9 + (kh + 1) * 3, 3, ((kh + 1) & 1) * 3);
+          }
+          // The next chunk's P new planes stream into the ring slots of
+          // the previous chunk's first P, which every warp is done with.
+          if (ring && kh == 0 && dc + 1 < dc1) {
+            const int z = dc * P + P + 2;
+            load_planes(z, z + P, z % n_slots, 0);
+            cp_async_commit();
+          }
+        }
+        // stage (kh, kd) of this channel block: kd's 3 stages follow
+        const uint32_t w_kh = smem_u32(
+            s_w + (resident ? cbi * 9 + kh * 3 : (kh & 1) * 3) *
+                      K::kStageBytes);
+#pragma unroll
+        for (int cs = 0; cs < CS; ++cs) {
+          const uint32_t a_word =
+              a_off + (kh * kKwIW * K::kVSW + kw_word<CS>(g, cs * 8) +
+                       2 * t) * 4;
+#pragma unroll
+          for (int s = 0; s < P + 2; ++s) {
+            // the A register sets rotate over the planes of all k-steps
+            const int q = ((kh * CS + cs) * (P + 2) + s) % K::kASets;
+            int sl = slot0 + s;
+            if (sl >= n_slots) sl -= n_slots;
+            // words 2t, 2t+1 of the k-step hold (a0, a2) of column g, the
+            // same words of column g + 8 hold (a1, a3): the packed weights
+            // permute K so (pack_conv3_weights)
+            const uint8_t* src = s_in + sl * K::kPlaneBytes + a_word;
+            const uint2 row0 = *reinterpret_cast<const uint2*>(src);
+            const uint2 row1 =
+                *reinterpret_cast<const uint2*>(src + 8 * K::kVSB);
+            const uint32_t r[4] = {row0.x, row1.x, row0.y, row1.y};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const uint32_t hi = r[i] & 0xFFFFE000u;  // TF32 by truncation
+              a[q][0][i] = hi;
+              a[q][1][i] = __float_as_uint(
+                  __fsub_rn(__uint_as_float(r[i]), __uint_as_float(hi)));
+            }
+            wgmma_fence();
+#pragma unroll
+            for (int kd = 0; kd < 3; ++kd) {
+              const int p = s - kd;  // the output plane this tap feeds
+              if (p < 0 || p >= P) continue;
+              const uint32_t step = w_kh + kd * K::kStageBytes +
+                                    cs * K::kParts * K::kStepBytes;
+              const uint64_t d_hi = make_desc(step);
+              const uint64_t d_lo = make_desc(step + K::kStepBytes);
+              mma_tf32(acc[p], a[q][1], d_hi);  // x_lo * w_hi
+              mma_tf32(acc[p], a[q][0], d_lo);  // x_hi * w_lo
+              mma_tf32(acc[p], a[q][0], d_hi);  // x_hi * w_hi
+            }
+            wgmma_commit();
+            // the group kASets - 1 back is done: its A set may be reloaded
+            wgmma_wait<K::kASets - 1>();
+          }
+        }
+        if (!resident) wgmma_wait<0>();  // this kh row's buffer is reloaded
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < P; ++p) fence_operands(acc[p]);
+    }
+
+    // -- epilogue: the three shifted rows summed in f32 ----------------------
+    // Thread (g, t) holds columns g (half 0) and g + 8 (half 1) of its
+    // warp's row at n = 8j + 2t, + 1.  Column g + kw is held by lane
+    // (g + kw) % 8 * 4 + t: in its half 0 where g + kw < 8, else in its
+    // half 1.  Output column g + 8 exists where g + 8 < 14 and then reads
+    // half 1 of the same lanes.
+    constexpr int kGroups = NC / 8;  // 8-channel groups of one kw tap
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int od = dc * P + p, oh = oh0 + warp;
+      float v[2][kGroups][2];
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[0][j][e] = acc[p][4 * j + e];
+          v[1][j][e] = acc[p][4 * j + 2 + e];
+        }
+      }
+#pragma unroll
+      for (int kw = 1; kw < 3 - TEM_CONV3_KW_FAULT; ++kw) {
+        const int src = (lane + 4 * kw) & 31;
+        const bool low = g + kw < 8;
+#pragma unroll
+        for (int j = 0; j < kGroups; ++j) {
+          const int jn = kw * kGroups + j;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float h0 =
+                __shfl_sync(0xFFFFFFFFu, acc[p][4 * jn + e], src);
+            const float h1 =
+                __shfl_sync(0xFFFFFFFFu, acc[p][4 * jn + 2 + e], src);
+            v[0][j][e] += low ? h0 : h1;
+            v[1][j][e] += h1;  // used only where g + 8 + kw < 16
+          }
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = g + 8 * half, ow = ow0 + col;
+        if (col < kKwOW && od < OD && oh < OH && ow < OW) {
+          float* out = y + (((b * OD + od) * OH + oh) *
+                                static_cast<long long>(OW) + ow) * O;
+#pragma unroll
+          for (int j = 0; j < kGroups; ++j) {
+            const int n = 8 * j + 2 * t;
+            float v0 = v[half][j][0], v1 = v[half][j][1];
+            if (act) {
+              v0 = conv_leaky<float>(v0, slope);
+              v1 = conv_leaky<float>(v1, slope);
+            }
+            if (n + 1 < O) {
+              out[n] = v0;
+              out[n + 1] = v1;
+            } else if (n < O) {
+              out[n] = v0;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int NC, int CS>
 cudaError_t launch(const void* x, const void* wp, void* y, int B, int D, int H,
                    int W, int C, int O, int resident, int act, float slope,
@@ -296,6 +651,75 @@ cudaError_t launch(const void* x, const void* wp, void* y, int B, int D, int H,
       static_cast<T*>(y), D, H, W, C, O, n_cb, nTD, nTH, nTW, aligned ? 1 : 0,
       resident, act, slope);
   return cudaGetLastError();
+}
+
+template <int NC, int CS>
+cudaError_t launch_kw(const void* x, const void* wp, void* y, int B, int D,
+                      int H, int W, int C, int O, int resident, int ring,
+                      int act, float slope, cudaStream_t s) {
+  using K = CfgKw<NC, CS>;
+  const int n_cb = (C + K::kCB - 1) / K::kCB;
+  // one chunk of outputs; the ring holds one channel block's planes beside
+  // resident weights
+  if (O > NC || (ring && (n_cb != 1 || !resident))) {
+    return cudaErrorInvalidValue;
+  }
+  const int nTD = (D - 2 + K::kP - 1) / K::kP;
+  const int nTH = (H - 2 + kKwTH - 1) / kKwTH;
+  const int nTW = (W - 2 + kKwOW - 1) / kKwOW;
+  const long long columns = static_cast<long long>(B) * nTH * nTW;
+  if (columns > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  // Split the d walk where there are too few columns to give every SM
+  // four blocks.  (The SM count a device, read once.)
+  static int sms_of[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    sms_of[dev] = n;
+  }
+  const int sms = sms_of[dev];
+  const long long want = (4LL * sms + columns - 1) / columns;
+  const int segments = static_cast<int>(want < nTD ? want : nTD);
+  const int chunks = (nTD + segments - 1) / segments;
+  const bool aligned =
+      C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int smem = K::smem(n_cb, resident != 0, ring != 0);
+  auto kern = conv3_tc_kernel_kw<NC, CS>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned int>(columns),
+                  static_cast<unsigned int>((nTD + chunks - 1) / chunks));
+  kern<<<grid, K::kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(wp),
+      static_cast<float*>(y), D, H, W, C, O, n_cb, nTD, nTH, nTW, chunks,
+      aligned ? 1 : 0, resident, ring, act, slope);
+  return cudaGetLastError();
+}
+
+template <int CS>
+cudaError_t dispatch_kw(int nc, const void* x, const void* wp, void* y,
+                        int B, int D, int H, int W, int C, int O,
+                        int resident, int ring, int act, float slope,
+                        cudaStream_t s) {
+  switch (nc) {
+    case 8:
+      return launch_kw<8, CS>(x, wp, y, B, D, H, W, C, O, resident, ring,
+                              act, slope, s);
+    case 16:
+      return launch_kw<16, CS>(x, wp, y, B, D, H, W, C, O, resident, ring,
+                               act, slope, s);
+    case 32:
+      return launch_kw<32, CS>(x, wp, y, B, D, H, W, C, O, resident, ring,
+                               act, slope, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int CS>
@@ -343,16 +767,31 @@ extern "C" {
 
 // wp: the weights packed by ops/cuda_conv.py pack_conv3_weights for this
 // (C, O, dtype); cb and nc are its channel block and output-channel chunk,
-// resident whether a channel block's 9 weight stages are loaded at once.
+// kw whether it is the kw form's pack (f32 only), resident whether a
+// channel block's 9 weight stages (the kw form: every block's) are loaded
+// at once, ring whether the kw form keeps its input planes in a ring.
 int tem_conv3_tc(const void* x, const void* wp, void* y, int dtype, int B,
-                 int D, int H, int W, int C, int O, int cb, int nc,
-                 int resident, int act, float slope, void* stream) {
+                 int D, int H, int W, int C, int O, int cb, int nc, int kw,
+                 int resident, int ring, int act, float slope,
+                 void* stream) {
   if (B <= 0 || D < 3 || H < 3 || W < 3 || C <= 0 || O <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == tem::kF32) {
+  if (kw) {
+    if (dtype != tem::kF32) {
+      e = cudaErrorInvalidValue;
+    } else if (cb == 8) {
+      e = tem::tc::dispatch_kw<1>(nc, x, wp, y, B, D, H, W, C, O, resident,
+                                  ring, act, slope, s);
+    } else if (cb == 16) {
+      e = tem::tc::dispatch_kw<2>(nc, x, wp, y, B, D, H, W, C, O, resident,
+                                  ring, act, slope, s);
+    } else {
+      e = cudaErrorInvalidValue;
+    }
+  } else if (dtype == tem::kF32) {
     e = tem::tc::dispatch<float>(cb, nc, x, wp, y, B, D, H, W, C, O,
                                  resident, act, slope, s);
   } else if (dtype == tem::kBF16) {

@@ -37,8 +37,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures (all return int = cudaError_t)
 _SIGNATURES = {
-    "tem_conv3_tc": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
-                     _i, _f, _vp],
+    "tem_conv3_tc": [_vp, _vp, _vp] + [_i] * 13 + [_f, _vp],
     "tem_conv3_direct": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _f,
                          _vp],
     "tem_down4_tc": [_vp] * 3 + [_i] * 8 + [_f, _vp],

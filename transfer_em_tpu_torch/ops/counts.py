@@ -16,8 +16,9 @@ PACKS = ("int8_weight_packs", "conv3_weight_packs", "down4_weight_packs")
 
 
 def read_counts() -> Dict[str, int]:
-    """Launches per kernel: conv3 (also by path, tc and direct, and those on
-    bfloat16 operands), down4, preprocess_u8, postprocess_u8, leaky_relu
+    """Launches per kernel: conv3 (also by path, tc and direct, those of
+    tc in its kw form, ``conv3_tc_kw``, and those on bfloat16 operands),
+    down4, preprocess_u8, postprocess_u8, leaky_relu
     (and on bfloat16), conv_int8 and quantize_int8; beside them the weight
     packs (:data:`PACKS`), and the transposed convs by form:
     ``transpose_phase`` (the phase conv, whose k3 conv counts under conv3

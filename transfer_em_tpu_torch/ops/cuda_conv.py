@@ -14,7 +14,11 @@ The wrapper picks one of two kernels by shape (:func:`conv3_path`):
 * ``"tc"`` (``csrc/conv3_tc.cu``), C >= 4 and O >= 8: an implicit GEMM on
   the tensor cores (wgmma), float32 as 3xTF32 and bfloat16 as one bf16
   product, both summed in f32.  Its weights are packed once per parameter
-  by :func:`pack_conv3_weights` into the MMA's B layout (cached).
+  by :func:`pack_conv3_weights` into the MMA's B layout (cached).  Float32
+  at O <= 32 takes the kernel's kw form (:func:`conv3_plan`): the three kw
+  taps' weights side by side in the MMA's N, each output the sum of three
+  rows shifted along w, which runs the narrow layers at wgmma's rate for
+  N = 3 * O rather than N = O.
 * ``"direct"`` (``csrc/conv3_direct.cu``), C < 4 or O < 8: a direct
   convolution on the CUDA cores from shared-memory tiles; these shapes are
   bound by bytes.
@@ -60,14 +64,18 @@ from .cuda_kernels import LEAKY_SLOPE
 
 # The tensor-core path needs C >= TC_MIN_IN and O >= TC_MIN_OUT.
 TC_MIN_IN, TC_MIN_OUT = 4, 8
+# Float32 convs with at most KW_MAX_OUT outputs take the kw form.
+KW_MAX_OUT = 32
 _MMA_DEPTH = {torch.float32: 8, torch.bfloat16: 16}  # wgmma k, elements
 _BLOCK_BYTES = 64            # most bytes of one voxel's channels in smem
 _OUT_CHUNKS = (8, 16, 32, 64)  # output channels per block (wgmma N)
 SMEM_LIMIT = 227 * 1024      # H100 dynamic shared memory per block
-# A channel block's 9 weight stages are loaded at once where the block then
-# needs at most this much shared memory: three blocks still fit on an SM.
-# (Above it, fewer resident blocks cost more than the streamed stages' waits
-# on the H100: head and up0.conv at wf=8 ran faster streamed.)
+# The weight stages are loaded at once (the tap form: a channel block's 9;
+# the kw form: all, once a block, its input planes then in a ring where one
+# channel block) where the block then needs at most this much shared
+# memory: three blocks still fit on an SM.  (Above it, fewer resident blocks
+# cost more than the streamed stages' waits on the H100: head and up0.conv
+# at wf=8 ran faster streamed, in both forms.)
 RESIDENT_SMEM = 75 * 1024
 
 
@@ -81,11 +89,17 @@ class TCPlan:
     """How the tensor-core kernel tiles one (C, O, dtype).
 
     ``cb`` input channels per block (C zero-padded to ``n_cb * cb``), ``nc``
-    output channels per block (O padded to ``n_chunks * nc``), ``planes``
-    output planes per block (4, or 2 at nc = 64);
-    ``resident``: a channel block's 9 weight stages are loaded at once, else
-    they stream through 2 stage buffers; ``smem_bytes`` is what one block
-    asks for.  Must match ``Cfg`` in csrc/conv3_tc.cu."""
+    output channels per block (O padded to ``n_chunks * nc``); ``kw``: the
+    kw form (the kw taps side by side in N = 3 * nc, a tile 4 output rows by
+    16 input columns, a block walking chunks of ``planes`` output planes
+    along d) or the tap form (N = nc, a tile 8 x 8 outputs, a block one
+    chunk of ``planes``); ``resident``: the weight stages are loaded at once
+    (the tap form: a channel block's 9; the kw form: all 9 * n_cb, once a
+    block), else they stream through 2 stage buffers (tap) or two kh
+    rows of 3 stages (kw); ``ring``: the kw form keeps two chunks' input
+    planes in a ring, so each plane is copied once (one channel block,
+    resident weights); ``smem_bytes`` is what one block asks for.  Must
+    match ``Cfg`` and ``CfgKw`` in csrc/conv3_tc.cu."""
     c: int
     o: int
     dtype: torch.dtype
@@ -94,8 +108,10 @@ class TCPlan:
     n_cb: int
     nc: int
     n_chunks: int
+    kw: bool
     planes: int
     resident: bool
+    ring: bool
     smem_bytes: int
 
     @property
@@ -104,18 +120,42 @@ class TCPlan:
 
 
 def conv3_plan(c: int, o: int, dtype: torch.dtype) -> TCPlan:
+    """The plan the kernel runs a (C -> O) conv3 in ``dtype`` with: the kw
+    form where the dtype is float32 and O <= KW_MAX_OUT (the narrow layers,
+    where wgmma at N = O runs far under its rate), else the tap form."""
+    return tc_plan(c, o, dtype, dtype == torch.float32 and o <= KW_MAX_OUT)
+
+
+def tc_plan(c: int, o: int, dtype: torch.dtype, kw: bool) -> TCPlan:
+    """The tensor-core kernel's plan for (C -> O) in ``dtype`` in the form
+    ``kw`` names (the kw form is float32 only, O <= 32)."""
     kk = _MMA_DEPTH[dtype]
     es = torch.empty((), dtype=dtype).element_size()
     cb = min(-(-c // kk) * kk, _BLOCK_BYTES // es)
     nc = next((n for n in _OUT_CHUNKS if n >= o), _OUT_CHUNKS[-1])
-    planes = 4 if nc <= 32 else 2
     parts = 2 if dtype == torch.float32 else 1
-    stage = 3 * (cb // kk) * parts * nc * 32
-    inp = (planes + 2) * 100 * (32 if cb == kk else 96)  # bytes per voxel
-    resident = inp + 9 * stage <= RESIDENT_SMEM
-    smem = inp + (9 if resident else 2) * stage
-    return TCPlan(c, o, dtype, kk, cb, math.ceil(c / cb), nc,
-                  math.ceil(o / nc), planes, resident, smem)
+    steps = cb // kk  # k-steps of one tap
+    n_cb = math.ceil(c / cb)
+    if kw:
+        if dtype != torch.float32 or o > KW_MAX_OUT:
+            raise ValueError(f"conv3: no kw form for {o} outputs in {dtype}")
+        planes = 4 if nc <= 16 else 2
+        stage = steps * parts * 3 * nc * 32
+        plane = 96 * cb * es  # 6 x 16 voxels
+        resident = (planes + 2) * plane + 9 * n_cb * stage <= RESIDENT_SMEM
+        ring = resident and n_cb == 1 and (
+            (2 * planes + 2) * plane + 9 * stage <= RESIDENT_SMEM)
+        smem = ((2 * planes + 2 if ring else planes + 2) * plane
+                + (9 * n_cb if resident else 6) * stage)
+    else:
+        planes = 4 if nc <= 32 else 2
+        stage = 3 * steps * parts * nc * 32
+        inp = (planes + 2) * 100 * (32 if cb == kk else 96)  # bytes a voxel
+        resident = inp + 9 * stage <= RESIDENT_SMEM
+        ring = False
+        smem = inp + (9 if resident else 2) * stage
+    return TCPlan(c, o, dtype, kk, cb, n_cb, nc, math.ceil(o / nc), kw,
+                  planes, resident, ring, smem)
 
 
 # -- weight packing (plain torch; reachable on the CPU) ---------------------
@@ -131,34 +171,50 @@ def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, w - hi
 
 
-def pack_conv3_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(3, 3, 3, C, O) -> the tensor-core kernel's B operand in ``dtype``.
+def pack_conv3_weights(w: torch.Tensor, dtype: torch.dtype,
+                       plan: Optional[TCPlan] = None) -> torch.Tensor:
+    """(3, 3, 3, C, O) -> the tensor-core kernel's B operand in ``dtype``
+    for ``plan`` (default :func:`conv3_plan`'s).
 
-    Shape (n_chunks, n_cb, 3, 3, 3, cb/kk, parts, nc/8, 2, 8, kk/2): for each
-    output-channel chunk and input-channel block, one stage per (kd, kh)
-    and, inside it, one k-step per (kw, kk channels), tap-major and
-    channel-minor.  A k-step holds ``parts`` (f32: TF32 hi and lo; bf16: 1)
-    K-major wgmma core matrices: 8 output channels x 16 bytes of K, the two
-    K halves 128 B apart, groups of 8 channels 256 B apart.  Inside a
-    k-step, K is permuted so that the kernel's A words k t and k t+4 (in
-    32-bit words) are neighbouring words of the input: K index h*kk/2 + e,
-    e = a*kk/8 + r, holds channel a*kk/4 + h*kk/8 + r.  C and O are
-    zero-padded."""
+    Tap form: shape (n_chunks, n_cb, 3, 3, 3, cb/kk, parts, nc/8, 2, 8,
+    kk/2): for each output-channel chunk and input-channel block, one stage
+    per (kd, kh) and, inside it, one k-step per (kw, kk channels),
+    tap-major and channel-minor.  kw form: shape (1, n_cb, 3, 3, cb/kk,
+    parts, 3 nc/8, 2, 8, kk/2): one stage per (kh, kd), kh-major so that a
+    kh row's three stages lie together, one k-step per kk channels, and in
+    it the three kw taps side by side in N (n = kw * nc + o), so that one
+    wgmma of N = 3 nc takes a voxel's products with all three taps.  A
+    k-step holds ``parts`` (f32: TF32 hi and lo; bf16: 1) K-major wgmma
+    core matrices: 8 output channels x 16 bytes of K, the two K halves
+    128 B apart, groups of 8 channels 256 B apart.  Inside a k-step, K is
+    permuted so that the kernel's A words k t and k t+4 (in 32-bit words)
+    are neighbouring words of the input: K index h*kk/2 + e, e = a*kk/8 + r,
+    holds channel a*kk/4 + h*kk/8 + r.  C and O are zero-padded."""
     c, o = w.shape[3], w.shape[4]
-    p = conv3_plan(c, o, dtype)
+    p = conv3_plan(c, o, dtype) if plan is None else plan
     wp = torch.zeros((3, 3, 3, p.n_cb * p.cb, p.n_chunks * p.nc),
                      dtype=dtype, device=w.device)
     wp[:, :, :, :c, :o] = w.to(dtype)
     wp = wp.reshape(3, 3, 3, p.n_cb, p.cb // p.kk, 4, 2, p.kk // 8,
                     p.n_chunks, p.nc // 8, 8)
-    # -> (chunk, cb, kd, kh, kw, k-step, 8-channel group, K half h, row, a, r)
-    wp = wp.permute(8, 3, 0, 1, 2, 4, 9, 6, 10, 5, 7).reshape(
-        p.n_chunks, p.n_cb, 3, 3, 3, p.cb // p.kk, p.nc // 8, 2, 8,
-        p.kk // 2)
-    if dtype == torch.float32:
-        parts = torch.stack(split_tf32(wp.contiguous()), dim=6)
+    if p.kw:
+        # -> (chunk, cb, kh, kd, k-step, kw, 8-channel group, K half h, row,
+        # a, r): the kw taps and the groups make N
+        wp = wp.permute(8, 3, 1, 0, 4, 2, 9, 6, 10, 5, 7).reshape(
+            p.n_chunks, p.n_cb, 3, 3, p.cb // p.kk, 3 * p.nc // 8, 2, 8,
+            p.kk // 2)
+        part_dim = 5
     else:
-        parts = wp.unsqueeze(6)
+        # -> (chunk, cb, kd, kh, kw, k-step, 8-channel group, K half h,
+        # row, a, r)
+        wp = wp.permute(8, 3, 0, 1, 2, 4, 9, 6, 10, 5, 7).reshape(
+            p.n_chunks, p.n_cb, 3, 3, 3, p.cb // p.kk, p.nc // 8, 2, 8,
+            p.kk // 2)
+        part_dim = 6
+    if dtype == torch.float32:
+        parts = torch.stack(split_tf32(wp.contiguous()), dim=part_dim)
+    else:
+        parts = wp.unsqueeze(part_dim)
     return parts.contiguous()
 
 
@@ -333,26 +389,41 @@ def _conv3(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv3: input {tuple(x.shape)} smaller than 3^3")
     y = torch.empty((bsz, d - 2, h - 2, wd - 2, o), dtype=x.dtype,
                     device=x.device)
-    act = int(leaky is not None)
-    slope = float(leaky) if leaky is not None else 0.0
-    code = kernels.DTYPE_CODES[x.dtype]
     if conv3_path(c, o) == "tc":
-        plan = conv3_plan(c, o, x.dtype)
-        wp = packed_weights(w, x.dtype)
-        kernels.launch("tem_conv3_tc", x.data_ptr(), wp.data_ptr(),
-                       y.data_ptr(), code, bsz, d, h, wd, c, o, plan.cb,
-                       plan.nc, int(plan.resident), act, slope,
-                       device=x.device)
-        telemetry.count("conv3_tc")
+        conv3_tc(x, packed_weights(w, x.dtype), y, conv3_plan(c, o, x.dtype),
+                 leaky)
     else:
         w = w.to(x.dtype)  # C < 4 or O < 8: a few hundred weights
         kernels.launch("tem_conv3_direct", x.data_ptr(), w.data_ptr(),
-                       y.data_ptr(), code, bsz, d, h, wd, c, o, act, slope,
+                       y.data_ptr(), kernels.DTYPE_CODES[x.dtype], bsz, d, h,
+                       wd, c, o, int(leaky is not None),
+                       float(leaky) if leaky is not None else 0.0,
                        device=x.device)
         telemetry.count("conv3_direct")
     if x.dtype == torch.bfloat16:
         telemetry.count("conv3_bf16")
     telemetry.count("conv3")
+    return y
+
+
+def conv3_tc(x: torch.Tensor, wp: torch.Tensor, y: torch.Tensor,
+             plan: TCPlan, leaky: Optional[float] = None,
+             lib=None) -> torch.Tensor:
+    """The tensor-core kernel into ``y`` (B, D-2, H-2, W-2, O) from x
+    (B, D, H, W, C), contiguous on the card, with ``wp`` packed for
+    ``plan`` (:func:`pack_conv3_weights`); ``lib`` another build of it
+    (``kernels.build_variant``).  Counts ``conv3_tc``, and ``conv3_tc_kw``
+    where the plan is the kw form's."""
+    bsz, d, h, wd, c = x.shape
+    kernels.launch("tem_conv3_tc", x.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                   kernels.DTYPE_CODES[x.dtype], bsz, d, h, wd, c, plan.o,
+                   plan.cb, plan.nc, int(plan.kw), int(plan.resident),
+                   int(plan.ring), int(leaky is not None),
+                   float(leaky) if leaky is not None else 0.0,
+                   device=x.device, lib=lib)
+    telemetry.count("conv3_tc")
+    if plan.kw:
+        telemetry.count("conv3_tc_kw")
     return y
 
 

@@ -56,9 +56,9 @@ ENTRIES = frozenset({"train.step", "volume.call", "serve.request"})
 # order :func:`launches` reports them.
 LAUNCHES = ("conv3", "down4", "preprocess_u8", "postprocess_u8",
             "leaky_relu", "conv_int8", "quantize_int8", "int8_weight_packs",
-            "conv3_tc", "conv3_direct", "conv3_bf16", "leaky_relu_bf16",
-            "conv3_weight_packs", "down4_weight_packs", "transpose_phase",
-            "transpose_cudnn", "down_k4", "down_cudnn")
+            "conv3_tc", "conv3_tc_kw", "conv3_direct", "conv3_bf16",
+            "leaky_relu_bf16", "conv3_weight_packs", "down4_weight_packs",
+            "transpose_phase", "transpose_cudnn", "down_k4", "down_cudnn")
 _LAUNCH_SET = frozenset(LAUNCHES)
 
 _perf_ns = time.perf_counter_ns
