@@ -1,11 +1,12 @@
 """The conv3 kernels' share of their roofline in ``predict_volume``: the
 least time of the convs they ran for the window's real tiles (operations
-at the float32 peak or bytes at HBM's rate, the weights once a call) over
-the kernels' device time, in %.  Those convs are the k3 layers and, by
-the share of the window's transposed convs that the port counted in the
-phase form (``transpose_phase`` against ``transpose_cudnn``), the
-transposed layers, which the phase form runs as a k3 conv on conv3: each
-counted at its own work, not at the zero taps the form multiplies."""
+at the peak of the cell's dtype or bytes at HBM's rate, the weights once
+a call) over the kernels' device time, in %.  Those convs are the k3
+layers and, by the share of the window's transposed convs that the port
+counted in the phase form (``transpose_phase`` against
+``transpose_cudnn``), the transposed layers, which the phase form runs as
+a k3 conv on conv3: each counted at its own work, not at the zero taps
+the form multiplies."""
 
 from benchmark import counts, harness, kernels
 

@@ -1,6 +1,7 @@
-"""``predict_volume``'s share of the card's float32 peak: the real tiles
-of the window's calls (pad slots left out) times the generator's forward
-FLOPs a tile, over the window's seconds and 495 TFLOP/s, in %."""
+"""``predict_volume``'s share of the card's peak at the cell's dtype: the
+real tiles of the window's calls (pad slots left out) times the
+generator's forward FLOPs a tile, over the window's seconds and the peak
+(495 TFLOP/s for float32, 989 for bf16), in %."""
 
 from benchmark import counts
 

@@ -28,6 +28,13 @@ from . import models as M
 OUT, HALO, BATCH = 40, 17, 128  # the generator's output side and halo
 
 
+def batch_for(wf: int) -> int:
+    """Tiles a batch of :func:`predict_region` at width factor ``wf``:
+    :data:`BATCH` at wf=8, scaled with the widths (16 at wf=1), so that a
+    batch's activations take the same memory at every width."""
+    return max(1, BATCH * wf // 8)
+
+
 def tile_plan(start: Sequence[int], size: Sequence[int]):
     """(output side, halo, trim, corners xyz, padded size zyx)."""
     outdimsize, buffer, tpad = OUT, HALO, 0
@@ -48,9 +55,9 @@ def tile_plan(start: Sequence[int], size: Sequence[int]):
 def predict_region(vol_zyx: torch.Tensor, params, start, size,
                    meanstd_x: Tuple[float, float],
                    meanstd_y: Tuple[float, float],
-                   quant=None) -> torch.Tensor:
+                   quant=None, batch: int = BATCH) -> torch.Tensor:
     """The stitched zyx uint8 prediction of the xyz region ``start`` +
-    ``size`` of ``vol_zyx`` (a uint8 tensor)."""
+    ``size`` of ``vol_zyx`` (a uint8 tensor), ``batch`` tiles at a time."""
     od, buf, tpad, corners, padded = tile_plan(start, size)
     s = od + 2 * buf
     cz = np.asarray(corners, np.int64)[:, ::-1]  # zyx
@@ -62,8 +69,8 @@ def predict_region(vol_zyx: torch.Tensor, params, start, size,
     out = torch.zeros(padded, dtype=torch.uint8, device=vol_zyx.device)
     nz, ny = padded[0] // od, padded[1] // od
     with torch.no_grad():
-        for b in range(0, len(cz), BATCH):
-            cs = cz[b:b + BATCH]
+        for b in range(0, len(cz), batch):
+            cs = cz[b:b + batch]
             tiles = torch.stack([vol[z:z + s, y:y + s, x:x + s]
                                  for z, y, x in cs])
             xin = ((tiles.to(torch.float32) / 127.5 - 1.0) - mx) / sx
@@ -80,10 +87,24 @@ def predict_region(vol_zyx: torch.Tensor, params, start, size,
     return out[:size[2], :size[1], :size[0]]
 
 
-def compare_u8(got: np.ndarray, want: np.ndarray) -> dict:
-    """Voxels whose uint8 levels differ, as a share, and the widest gap in
-    levels."""
-    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
-    return {"voxels": int(d.size), "off": int(np.count_nonzero(d)),
-            "max_gap": int(d.max()) if d.size else 0}
-
+def level_gaps(got: np.ndarray, want: np.ndarray, side: int) -> dict:
+    """The numbers by which two zyx uint8 predictions of one region are
+    compared: ``off_share``, the share of voxels whose level differs;
+    ``far_share``, the share two or more levels off; ``tile_shift``, the
+    largest mean signed gap in levels, by magnitude, over the output tiles
+    (blocks of ``side`` voxels an axis from the region's corner, as
+    :func:`tile_plan` lays them); ``max_gap``, the widest gap."""
+    d = got.astype(np.int16) - want.astype(np.int16)
+    a = np.abs(d)
+    sums = d
+    count = np.ones((1, 1, 1), np.int64)
+    for ax, n in enumerate(d.shape):
+        edges = np.arange(0, n, side)
+        sums = np.add.reduceat(sums, edges, axis=ax, dtype=np.int64)
+        shape = [1, 1, 1]
+        shape[ax] = len(edges)
+        count = count * np.diff(np.append(edges, n)).reshape(shape)
+    return {"off_share": float(np.count_nonzero(a)) / a.size,
+            "far_share": float(np.count_nonzero(a >= 2)) / a.size,
+            "tile_shift": float(np.abs(sums / count).max()),
+            "max_gap": int(a.max())}

@@ -20,8 +20,13 @@ TINY = {
                        "cell": {"volume_side": 90, "volumes": 2,
                                 "start": [10, 10, 10], "size": [72, 72, 72],
                                 "warm_calls": 1, "samples": 2}},
+    "volume-wf1-bf16": {"config": {"wf": 8},
+                        "cell": {"volume_side": 90, "volumes": 2,
+                                 "start": [10, 10, 10], "size": [72, 72, 72],
+                                 "warm_calls": 1, "samples": 2}},
 }
-SECONDS = {"train-wf1-bf16": 1.0, "volume-wf8-f32": 1.0}
+SECONDS = {"train-wf1-bf16": 1.0, "volume-wf8-f32": 1.0,
+           "volume-wf1-bf16": 1.0}
 
 
 def run_cell(name: str, seed: int = 2 ** 31 + 7, trace: int = 0,

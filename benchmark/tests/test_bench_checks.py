@@ -36,13 +36,32 @@ def test_train_sound_program_passes_every_check():
     assert line["correct"] is True, c
 
 
-def test_volume_control_fails():
-    """The reference with TF32 operands, in the program's place, reads past
-    the share of voxels off."""
-    line = helpers.run_control("volume-wf8-f32", RM.fake_tf32)
+VOLUME_CONTROLS = {"volume-wf8-f32": RM.fake_tf32,
+                   "volume-wf1-bf16": RM.fake_fp8}
+
+
+@pytest.mark.parametrize("name", sorted(VOLUME_CONTROLS))
+def test_volume_control_fails(name):
+    """The reference one precision below the configuration's, in the
+    program's place, reads past a limit: with TF32 operands against the
+    float32 reference the share of voxels off, with float8 operands
+    against the bf16 reference the share two or more levels off."""
+    line = helpers.run_control(name, VOLUME_CONTROLS[name])
+    c = line["checks"]
     assert line["correct"] is False
-    assert line["checks"]["off_share"]["value"] > line["checks"][
-        "off_share"]["limit"]
+    key = "off_share" if name == "volume-wf8-f32" else "far_share"
+    assert c[key]["value"] > c[key]["limit"], c
+
+
+@pytest.mark.parametrize("name", sorted(VOLUME_CONTROLS))
+def test_volume_sound_program_passes_every_check(name):
+    """The port as it stands, each number under its limit: float32
+    against the float32 reference, bf16 against the reference on
+    bf16-rounded operands."""
+    line = helpers.run_cell(name)
+    assert set(line["checks"]) == set(
+        harness.load_json("workloads", name)["limits"])
+    assert line["correct"] is True, line["checks"]
 
 
 def test_train_state_unchanged_is_caught(monkeypatch):
@@ -80,18 +99,17 @@ def test_train_generator_backward_fault_is_caught(monkeypatch, fault):
     assert any(c[k]["value"] > c[k]["limit"] for k in PROBE_CHECKS), c
 
 
-def test_volume_answer_altered_is_caught(monkeypatch):
-    import transfer_em_tpu_torch.infer.device_stitch as D
-    real = D.postprocess_to_u8
-
-    def altered(y, ms, tpad):
-        out = real(y, ms, tpad)
-        out[0] += 1  # one tile of every batch one level off
-        return out
-
-    monkeypatch.setattr(D, "postprocess_to_u8", altered)
-    line = helpers.run_cell("volume-wf8-f32")
+@pytest.mark.parametrize("name", sorted(VOLUME_CONTROLS))
+def test_volume_answer_altered_is_caught(monkeypatch, name):
+    """One tile of every batch one level off where the port makes its
+    uint8 output: the float32 cell's share of voxels off and the bf16
+    cell's largest tile shift read past their limits."""
+    control.tile_off_by_one(monkeypatch.setattr)
+    line = helpers.run_cell(name)
+    c = line["checks"]
     assert line["correct"] is False
+    key = "off_share" if name == "volume-wf8-f32" else "tile_shift"
+    assert c[key]["value"] > c[key]["limit"], c
 
 
 def test_train_disc_backward_fault_is_caught(monkeypatch):

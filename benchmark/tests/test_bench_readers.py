@@ -98,3 +98,76 @@ def test_the_window_counts_the_forms():
     assert forms["transpose_cudnn"] == forms["down_cudnn"] == 0
     assert forms["transpose_phase"] == forms["down_k4"] > 0
     assert forms["down_k4"] % (2 * line["attempted"]) == 0
+
+
+WORK_BF16 = {k: counts.tile_work("gen", 1, "bfloat16", (k,))
+             for k in ("k4", "transposed")}
+
+
+def _bf16_obs(by_host_op, forms, calls=10, tiles=10_000):
+    return {"kind": "volume", "calls": calls, "tiles": tiles,
+            "dtype": "bfloat16", "work": WORK_BF16, "forms": forms,
+            "trace": {"device_ops": CONV3_ROWS, "by_host_op": by_host_op}}
+
+
+def test_cudnn_roofline_counts_the_convs_it_ran():
+    """wf=1 in bf16: the k4 down and transposed convs that ran in the
+    cudnn form, at the bf16 peak (FLOPs bound both kinds), over the device
+    time under aten::convolution; None without that time."""
+    k4, tr = WORK_BF16["k4"], WORK_BF16["transposed"]
+    assert k4["flops"] + tr["flops"] == 48_064_626_688  # 48.1 GFLOP a tile
+    assert k4["flops"] / 989e12 > k4["bytes"] / 3.35e12
+    assert tr["flops"] / 989e12 > tr["bytes"] / 3.35e12
+    cudnn = {"down_cudnn": 20, "down_k4": 0, "transpose_cudnn": 20,
+             "transpose_phase": 0}
+    conv = {"aten::convolution": 2.0}
+    got = _read("cudnn_roofline.volume", _bf16_obs(conv, cudnn))
+    least = max(10_000 * (k4["flops"] + tr["flops"]) / 989e12,
+                (10_000 * (k4["bytes"] + tr["bytes"])
+                 + 10 * (k4["weight_bytes"] + tr["weight_bytes"])) / 3.35e12)
+    assert got == pytest.approx(100 * least / 2.0, rel=1e-12)
+    # the down convs on down4: only the transposed convs' work is cuDNN's
+    half = _read("cudnn_roofline.volume", _bf16_obs(
+        conv, dict(cudnn, down_cudnn=0, down_k4=20)))
+    assert half == pytest.approx(100 * counts.least_seconds(
+        [(tr, 1.0)], 10_000, 10, "bfloat16") / 2.0, rel=1e-12)
+    for by_host_op in ({}, {"aten::convolution": 0.0},
+                       {"aten::convolution_backward": 1.0}):
+        assert _read("cudnn_roofline.volume",
+                     _bf16_obs(by_host_op, cudnn)) is None
+    assert _read("cudnn_roofline.volume",
+                 dict(_bf16_obs(conv, cudnn), calls=0)) is None
+
+
+def _volume_run(name):
+    line, out = harness.measure(helpers._args(name, 2 ** 31 + 29, 0),
+                                time.perf_counter(),
+                                devices=[torch.device("cpu")],
+                                overrides=helpers.TINY[name])
+    assert line["correct"] is True, line["checks"]
+    return out["obs"]
+
+
+def test_the_volume_driver_takes_its_dtype_from_the_cell():
+    """Without a ``dtype`` key the driver runs float32: the f32 cell's obs
+    hold the same keys as before the key existed, its work counted at 4
+    bytes an element, and every down and transposed conv took the port's
+    f32 forms; the bf16 cell counts at 2 bytes, and its convs took the
+    cudnn form, which the port keeps for bf16."""
+    wf = helpers.TINY["volume-wf8-f32"]["config"]["wf"]
+    assert "dtype" not in harness.load_json("workloads", "volume-wf8-f32")
+    f32 = _volume_run("volume-wf8-f32")
+    assert set(f32) == {"kind", "calls", "tiles", "dtype",
+                        "gen_flops_per_tile", "work", "forms"}
+    assert f32["dtype"] == "float32"
+    assert f32["work"] == {k: counts.tile_work("gen", wf, "float32", (k,))
+                           for k in ("k3", "k4", "transposed")}
+    assert f32["forms"]["down_cudnn"] == f32["forms"]["transpose_cudnn"] == 0
+    wf = helpers.TINY["volume-wf1-bf16"]["config"]["wf"]
+    bf16 = _volume_run("volume-wf1-bf16")
+    assert set(bf16) == set(f32) and bf16["dtype"] == "bfloat16"
+    assert bf16["work"] == {k: counts.tile_work("gen", wf, "bfloat16", (k,))
+                            for k in ("k3", "k4", "transposed")}
+    assert bf16["forms"]["down_k4"] == bf16["forms"]["transpose_phase"] == 0
+    assert bf16["forms"]["down_cudnn"] == bf16["forms"][
+        "transpose_cudnn"] > 0

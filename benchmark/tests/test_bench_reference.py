@@ -216,9 +216,31 @@ def test_tile_step():
     got = predict_volume(vol.numpy(), gen, (5, 10, 15), (80, 72, 76), ms_x,
                          ms_y, device="cpu")
     want = RI.predict_region(vol, w, (5, 10, 15), (80, 72, 76), ms_x, ms_y)
-    r = RI.compare_u8(got, want.numpy())
-    assert r["max_gap"] <= 1 and r["off"] / r["voxels"] < 1e-3
+    r = RI.level_gaps(got, want.numpy(), RI.tile_plan((5, 10, 15),
+                                                      (80, 72, 76))[0])
+    assert r["max_gap"] <= 1 and r["off_share"] < 1e-3
     assert want.float().std() > 5  # the outputs span many levels
+
+
+def test_level_gaps():
+    """The volume checks' numbers on a ragged region (80 x 72 x 76 zyx in
+    tiles of 36: the last tile of each axis cut short): one tile one level
+    up reads a tile shift of 1 whatever its size, three voxels two or more
+    levels off read as such."""
+    rng = np.random.default_rng(3)
+    want = rng.integers(5, 250, (80, 72, 76), dtype=np.uint8)
+    got = want.copy()
+    got[72:, 36:, :36] += 1  # an 8 x 36 x 36 tile
+    got[0, 0, :3] += np.array([2, 3, 5], np.uint8)
+    r = RI.level_gaps(got, want, 36)
+    assert r["off_share"] == (8 * 36 * 36 + 3) / want.size
+    assert r["far_share"] == 3 / want.size
+    assert r["max_gap"] == 5
+    assert r["tile_shift"] == 1.0
+    got[72:, 36:, :36] -= 2
+    assert RI.level_gaps(got, want, 36)["tile_shift"] == 1.0  # by magnitude
+    assert RI.level_gaps(want, want, 36) == {
+        "off_share": 0.0, "far_share": 0.0, "tile_shift": 0.0, "max_gap": 0}
 
 
 @pytest.mark.parametrize("wf,tf_a_pair,gf_a_tile",

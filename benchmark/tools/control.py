@@ -9,17 +9,19 @@ harness's own verdict (``correct``) and the numbers compared (``checks``).
 With ``--control`` the control takes the program's place: the reference in
 the precision below the configuration's (training, bf16: float8 e4m3
 operands and e5m2 output gradients on every conv; inference, float32: TF32
-operands), so ``correct`` has to read false; the program's own readings of
-the same run are printed under ``program``.  ``--fault`` breaks the
-system's timed path underneath (train cells), patched here and never in
-the port (:data:`FAULTS`): ``half_batch``, the step takes the first half
-of each batch only; ``transposed_wgrad_half``, the transposed convs'
-weight gradient comes out halved (only the generators have transposed
-convs); ``transposed_wgrad_flipped``, the same gradient with its output
-channels reversed (its norm held); ``conv3_wgrad_half_over_40``, conv3's
-weight gradient comes out halved where its input is over 40 voxels an
-axis (the generators' stem, down1.conv, head and out; the discriminators'
-40^3 input never is).
+operands; inference, bf16: float8 e4m3 operands), so ``correct`` has to
+read false; the program's own readings of the same run are printed under
+``program``.  ``--fault`` breaks the system's timed path underneath,
+patched here and never in the port (:data:`FAULTS`).  Volume cells:
+``tile_off_by_one``, one tile of every batch one level up where the port
+turns the generator's output into uint8.  Train cells: ``half_batch``, the
+step takes the first half of each batch only; ``transposed_wgrad_half``,
+the transposed convs' weight gradient comes out halved (only the
+generators have transposed convs); ``transposed_wgrad_flipped``, the same
+gradient with its output channels reversed (its norm held);
+``conv3_wgrad_half_over_40``, conv3's weight gradient comes out halved
+where its input is over 40 voxels an axis (the generators' stem,
+down1.conv, head and out; the discriminators' 40^3 input never is).
 ``--leaves`` adds the train cell's per-leaf norms.  It needs the card, as
 the benchmark does."""
 
@@ -102,9 +104,23 @@ def conv3_wgrad_half_over_40(patch=setattr) -> None:
     patch(C, "conv3", conv3)
 
 
+def tile_off_by_one(patch=setattr) -> None:
+    """Device mode's uint8 output, the first tile of every batch one level
+    up (wrapping at 255)."""
+    import transfer_em_tpu_torch.infer.device_stitch as D
+    real = D.postprocess_to_u8
+
+    def altered(y, ms, tpad):
+        out = real(y, ms, tpad)
+        out[0] += 1
+        return out
+    patch(D, "postprocess_to_u8", altered)
+
+
 FAULTS = {f.__name__: f for f in (half_batch, transposed_wgrad_half,
                                   transposed_wgrad_flipped,
-                                  conv3_wgrad_half_over_40)}
+                                  conv3_wgrad_half_over_40,
+                                  tile_off_by_one)}
 
 
 def main(argv=None) -> int:
